@@ -17,6 +17,12 @@ setup(
         "raweditor_tpu.parallel",
         "raweditor_tpu.utils",
         "raweditor_tpu.native",
+        "raweditor_tpu_torch",
+        "raweditor_tpu_torch.ops",
+        "raweditor_tpu_torch.raw",
+        "raweditor_tpu_torch.pipeline",
+        "raweditor_tpu_torch.parallel",
+        "raweditor_tpu_torch.utils",
     ],
     ext_modules=[
         Extension(
