@@ -1,17 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``raweditor_tpu_torch/csrc``, develops a
-seeded 24 MP (4016x6016) 12-bit Bayer frame through ``DevelopEngine``
-(slider ticks with histogram, full-resolution kernel develop for the four
-transfers, JPEG export) and a batch of four frames to JPEG planes, then
-holds every kernel result against its plain PyTorch version, times each
-kernel beside its plain version with CUDA events, and prints:
+Builds the CUDA kernels from ``raweditor_tpu_torch/csrc`` (one nvcc per
+source, started together), makes seeded 24 MP (4016x6016) 12-bit Bayer
+frames, and drives two paths through the entry points a user calls, each
+with the launch counts set to 0 just before it and read just after:
 
-- a line ``{"kernels": [...]}`` with each kernel's launches on the main
-  path, its largest difference from the plain version and both times;
+- the parity path: ``DevelopEngine`` slider ticks with histogram, the
+  full-resolution kernel develop for the four transfers, JPEG export,
+  and a batch of four frames to JPEG planes (nearest stencil);
+- the accurate path: for the bilinear, Malvar and gradient demosaics
+  with the sRGB transfer and its polynomial form, ``full_rgba_device``,
+  ``jpeg_planes`` and ``export(".jpg")`` of the D3300-matrix frame, and
+  a batch of four frames to JPEG planes with ``demosaic="grad"``.
+
+Then it holds every kernel against its plain PyTorch version (at the four
+Bayer phases and on an odd 4015x6013 frame) and against the plain lane,
+compares a small frame on the card with the CPU, times each kernel beside
+its plain version with CUDA events, and prints:
+
+- a line ``{"kernels": [...]}`` with each kernel's launches on its path,
+  its largest difference from the plain version, both times, and its
+  bound (the larger of bytes over 3.35 TB/s and f32 operations over
+  67 TFLOP/s, the H100 SXM data-sheet rates);
 - the card's name and power limit as nvidia-smi reports them;
 - as the last line ``{"ok": true, "device": {...}}``.
 
@@ -33,12 +46,32 @@ import torch
 H, W = 4016, 6016  # Nikon D3300 full frame
 SEED = 20261016
 BATCH = 4
-TIMING_REPS = 20
-SRC = "raweditor_tpu_torch/csrc/develop.cu"
+TIMING_REPS = 10
+ACCURATE = ("bilinear", "malvar", "grad")
+PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
+SRC = {"develop": "raweditor_tpu_torch/csrc/develop.cu",
+       "grad": "raweditor_tpu_torch/csrc/develop_grad.cu"}
 TPU_KERNEL = "raweditor_tpu/ops/pallas_develop.py"
+# The TPU function each kernel variant replaces (file:line).
+REPLACES = {("nearest", "rgba"): 983, ("nearest", "ycbcr420"): 879,
+            "bilinear": 199, "malvar": 199, "grad": 412}
 # Nikon D3300 ColorMatrix (dcraw adobe_coeff, x10000) for the accurate frame.
 D3300_XYZ_TO_CAM = np.array([[6988, -1384, -714], [-5631, 13410, 2447],
                              [-1485, 2204, 7318]], np.float32) / 10000.0
+
+# The bound: H100 SXM data-sheet rates (HBM, f32 outside the tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per pixel, counted in the kernels' source with each
+# shared subexpression once and averaged over the four Bayer sites;
+# powf, sqrtf and a division count one each, so this is a lower bound.
+DEMOSAIC_OPS = {"nearest": 1.0,    # raw * scale
+                "bilinear": 7.0,   # + the neighbour sums and means
+                "malvar": 24.5,    # + the four 5x5 filters, 3 floors
+                "grad": 52.0}      # G 8.5, R/B 6.5, 2 refinements 36
+FINISH_OPS = 60.0                  # matrix, tone, saturation/vibrance
+QUANT_OPS = {"pow": 6.0, "poly": 18.0, "srgb": 10.0, "srgb_poly": 20.0}
+YCBCR_OPS = 23.5                   # Y, Cb, Cr and the 2x2 chroma box
 
 
 def log(*a):
@@ -63,6 +96,11 @@ def lsb_diff(a, b):
 def plane_diff(a, b):
     d = (a.to(torch.int32) - b.to(torch.int32)).abs()
     return int(d.max()), float((d > 0).float().mean())
+
+
+def planes_diff(a, b):
+    """Largest difference over matching JPEG planes."""
+    return max(plane_diff(x, y)[0] for x, y in zip(a, b))
 
 
 def cuda_ms(fn, reps):
@@ -95,16 +133,33 @@ def host_ms(fn, reps):
     return statistics.median(out)
 
 
+def bound(n_px, demosaic, gamma, output):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for ``n_px`` pixels of one kernel variant."""
+    out_bytes = 4.0 if output == "rgba" else 1.5
+    ops = (DEMOSAIC_OPS[demosaic] + FINISH_OPS + 3 * QUANT_OPS[gamma]
+           + (YCBCR_OPS if output == "ycbcr420" else 0.0))
+    t_bytes = n_px * (2.0 + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = n_px * ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset(launches):
+    for k in launches:
+        launches[k] = 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     from raweditor_tpu_torch import DevelopEngine, EditParams, RawImage
-    from raweditor_tpu_torch.color import kernel_gamma_for
+    from raweditor_tpu_torch.color import cam_to_srgb_matrix, kernel_gamma_for
     from raweditor_tpu_torch.native import get_rawkit
     from raweditor_tpu_torch.ops import _build
     from raweditor_tpu_torch.ops import fused_develop as fused
-    from raweditor_tpu_torch.parallel.batch import pack_params
+    from raweditor_tpu_torch.parallel.batch import (batch_develop_rgba,
+                                                    pack_params)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -125,10 +180,9 @@ def main():
     # -- inputs -----------------------------------------------------------
     rng = np.random.default_rng(SEED)
     mosaic = rng.integers(0, 4096, size=(H, W), dtype=np.uint16)
-    parity_raw = RawImage(mosaic, np.array([2.0, 1.0, 1.5, 1.0], np.float32),
-                          np.eye(3, dtype=np.float32))
-    accurate_raw = RawImage(mosaic, np.array([2.0, 1.0, 1.5, 1.0], np.float32),
-                            D3300_XYZ_TO_CAM, black_level=150.0,
+    wb4 = np.array([2.0, 1.0, 1.5, 1.0], np.float32)
+    parity_raw = RawImage(mosaic, wb4, np.eye(3, dtype=np.float32))
+    accurate_raw = RawImage(mosaic, wb4, D3300_XYZ_TO_CAM, black_level=150.0,
                             white_level=4095.0, cfa_pattern="RGGB")
     engines = {
         "gamma22": DevelopEngine(parity_raw, "parity", use_kernel=True,
@@ -142,6 +196,10 @@ def main():
                                    device="cuda"),
     }
     eng = engines["gamma22"]
+    accurate = {(m, fast): DevelopEngine(
+        accurate_raw, "accurate", use_kernel=True, transfer="srgb",
+        fast_gamma=fast, demosaic_method=m, device="cuda")
+        for m in ACCURATE for fast in (False, True)}
     edit = EditParams(exposure=0.4, contrast=6.0, highlights=-0.3,
                       shadows=0.25, whites=1.05, blacks=0.03,
                       saturation=20.0, vibrance=0.4, temperature=0.1,
@@ -160,11 +218,30 @@ def main():
     batch_scal = pack_params(batch_params, batch_wb, batch_cm,
                              white_levels=[4096.0, 4096.0, 4095.0, 4000.0],
                              black_levels=[0.0, 0.0, 150.0, 64.0]).cuda()
-    torch.cuda.synchronize()
+    # The accurate batch as the batch exporter folds it: camera matrix,
+    # real levels, no WGSL transpose.
+    acc_levels = dict(white_levels=[4095.0, 4095.0, 4000.0, 16383.0],
+                      black_levels=[150.0, 150.0, 64.0, 512.0])
+    acc_cm = np.tile(cam_to_srgb_matrix(D3300_XYZ_TO_CAM, "accurate"),
+                     (BATCH, 1, 1))
+    acc_scal = pack_params(batch_params, batch_wb, acc_cm,
+                           matrix_transpose=False, **acc_levels).cuda()
+    rk = get_rawkit()
 
-    # -- the main path: counts reset just before, read just after --------
-    for k in fused.LAUNCHES:
-        fused.LAUNCHES[k] = 0
+    def encode(y, cbcr):
+        return [rk.encode_jpeg_420(
+            np.ascontiguousarray(y[i].cpu().numpy()),
+            np.ascontiguousarray(cbcr[i, :, 0::2].cpu().numpy()),
+            np.ascontiguousarray(cbcr[i, :, 1::2].cpu().numpy()),
+            W, H, 95, False, 0, 0) for i in range(y.shape[0])]
+
+    torch.cuda.synchronize()
+    launches = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    tmpdir = tmp.name
+
+    # -- the parity path: counts reset just before, read just after -------
+    reset(fused.LAUNCHES)
     t0 = time.perf_counter()
     tick_ms = []
     for i in range(20):
@@ -176,25 +253,44 @@ def main():
         tick_ms.append((time.perf_counter() - t) * 1e3)
     hist = eng.histogram(edit)
     full = {tr: e.full_rgba_device(edit) for tr, e in engines.items()}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
-        jpg_path = eng.export(os.path.join(tmpdir, "frame.jpg"), edit)
-        with open(jpg_path, "rb") as f:
-            data = f.read()
+    jpg_path = eng.export(os.path.join(tmpdir, "frame.jpg"), edit)
+    with open(jpg_path, "rb") as f:
+        data = f.read()
     y_b, cbcr_b = fused.fused_batch_develop_rgba(batch, batch_scal,
                                                  output="ycbcr420")
-    rk = get_rawkit()
-    batch_jpegs = [rk.encode_jpeg_420(
-        np.ascontiguousarray(y_b[i].cpu().numpy()),
-        np.ascontiguousarray(cbcr_b[i, :, 0::2].cpu().numpy()),
-        np.ascontiguousarray(cbcr_b[i, :, 1::2].cpu().numpy()),
-        W, H, 95, False, 0, 0) for i in range(BATCH)]
+    batch_jpegs = encode(y_b, cbcr_b)
     torch.cuda.synchronize()
-    launches = dict(fused.LAUNCHES)
-    log(f"main path: {time.perf_counter() - t0:.2f} s, launches {launches}, "
-        f"preview tick median {statistics.median(tick_ms):.3f} ms "
-        "(host clock, first tick included)")
-    check(launches["develop_rgba"] > 0, "RGBA kernel never launched")
-    check(launches["develop_ycbcr420"] > 0, "YCbCr kernel never launched")
+    parity_launches = dict(fused.LAUNCHES)
+    log(f"parity path: {time.perf_counter() - t0:.2f} s, launches "
+        f"{parity_launches}, preview tick median "
+        f"{statistics.median(tick_ms):.3f} ms (host clock, first tick "
+        "included)")
+    for k in ("develop_rgba", "develop_ycbcr420"):
+        check(parity_launches[k] > 0, f"{k} never launched")
+        launches[k] = parity_launches[k]
+
+    # -- the accurate path: counts reset just before, read just after -----
+    reset(fused.LAUNCHES)
+    t0 = time.perf_counter()
+    acc_words, acc_planes, acc_jpegs = {}, {}, {}
+    for (m, fast), e in accurate.items():
+        acc_words[m, fast] = e.full_rgba_device(edit)
+        acc_planes[m, fast] = e.jpeg_planes(edit)
+        path = e.export(os.path.join(tmpdir, f"{m}_{int(fast)}.jpg"), edit)
+        with open(path, "rb") as f:
+            acc_jpegs[m, fast] = f.read()
+    y_g, cbcr_g = fused.fused_batch_develop_rgba(
+        batch, acc_scal, gamma="srgb", output="ycbcr420", demosaic="grad")
+    grad_jpegs = encode(y_g, cbcr_g)
+    torch.cuda.synchronize()
+    acc_launches = dict(fused.LAUNCHES)
+    log(f"accurate path: {time.perf_counter() - t0:.2f} s, launches "
+        f"{acc_launches}")
+    for m in ACCURATE:
+        for out in ("rgba", "ycbcr420"):
+            k = fused.launch_key(out, m)
+            check(acc_launches[k] > 0, f"{k} never launched")
+            launches[k] = acc_launches[k]
 
     # -- outputs ----------------------------------------------------------
     check(tuple(prev.shape) == (854, 1280, 3) and prev.dtype == torch.uint8,
@@ -202,15 +298,23 @@ def main():
     check(hist.shape == (3, 256), f"histogram shape {hist.shape}")
     check((hist.sum(axis=1) == 128 * 85).all(),
           f"histogram sums {hist.sum(axis=1)}")
-    check(data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
-          and len(data) > 100_000, f"export JFIF ({len(data)} bytes)")
-    for j in batch_jpegs:
+    for j in [data] + list(acc_jpegs.values()):
+        check(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9"
+              and len(j) > 100_000, f"export JFIF ({len(j)} bytes)")
+    for j in batch_jpegs + grad_jpegs:
         check(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9",
               "batch JFIF markers")
-    log(f"export: {len(data)} bytes; batch JPEGs "
-        f"{[len(j) for j in batch_jpegs]} bytes")
+    log(f"export: {len(data)} bytes; accurate exports "
+        f"{ {f'{m}/{int(f)}': len(j) for (m, f), j in acc_jpegs.items()} }; "
+        f"batch JPEGs {[len(j) for j in batch_jpegs]} and "
+        f"{[len(j) for j in grad_jpegs]} bytes")
 
-    errs = {"develop_rgba": 0, "develop_ycbcr420": 0}
+    errs = {k: 0 for k in launches}
+
+    def note(key, mx, what):
+        check(mx <= 1, f"{what}: {mx} LSB")
+        errs[key] = max(errs[key], mx)
+
     for tr, e in engines.items():
         words = full[tr]
         check(tuple(words.shape) == (H, W) and words.dtype == torch.uint32,
@@ -219,42 +323,104 @@ def main():
         plain = fused.develop_rgba_folded_plain(
             e.mosaic[None], e.scalars(edit)[None], e.cfa_phase, gamma)[0]
         mx, share = lsb_diff(words, plain)
-        check(mx <= 1, f"{tr}: kernel vs plain {mx} LSB")
-        errs["develop_rgba"] = max(errs["develop_rgba"], mx)
+        note("develop_rgba", mx, f"{tr}: kernel vs plain")
         e.use_kernel = False
-        parity = e.full_rgba_device(edit)
+        lane = e.full_rgba_device(edit)
         e.use_kernel = True
-        mx2, share2 = lsb_diff(words, parity)
+        mx2, share2 = lsb_diff(words, lane)
         check(mx2 <= 1, f"{tr}: kernel vs parity lane {mx2} LSB")
         log(f"{tr}: kernel vs plain max {mx} LSB, differing {share:.3e}; "
             f"vs parity lane max {mx2} LSB, differing {share2:.3e}")
-    scal = eng.scalars(edit)[None]
-    for phase in ((0, 1), (1, 0), (1, 1)):
-        k = fused.fused_batch_develop_rgba(eng.mosaic[None], scal, phase)
-        p = fused.develop_rgba_folded_plain(eng.mosaic[None], scal, phase)
-        mx, share = lsb_diff(k, p)
-        check(mx <= 1, f"phase {phase}: {mx} LSB")
-        errs["develop_rgba"] = max(errs["develop_rgba"], mx)
-        log(f"phase {phase}: kernel vs plain max {mx} LSB, "
-            f"differing {share:.3e}")
+
+    # Every accurate result against its plain version and the plain lane.
+    for (m, fast), e in accurate.items():
+        gamma = kernel_gamma_for(e.transfer)
+        words = acc_words[m, fast]
+        check(tuple(words.shape) == (H, W), f"{m} words shape")
+        sc = e.scalars(edit)[None]
+        mx, share = lsb_diff(words, fused.develop_rgba_folded_plain(
+            e.mosaic[None], sc, e.cfa_phase, gamma, demosaic=m)[0])
+        note(fused.launch_key("rgba", m), mx, f"{m}/{gamma} kernel vs plain")
+        y, cbcr = fused.develop_rgba_folded_plain(
+            e.mosaic[None], sc, e.cfa_phase, gamma, output="ycbcr420",
+            demosaic=m)
+        mxp = planes_diff(acc_planes[m, fast],
+                          (y[0], cbcr[0, :, 0::2], cbcr[0, :, 1::2]))
+        note(fused.launch_key("ycbcr420", m), mxp,
+             f"{m}/{gamma} planes kernel vs plain")
+        e.use_kernel = False
+        lane = e.full_rgba_device(edit)
+        lane_planes = e.jpeg_planes(edit)
+        e.use_kernel = True
+        mx2, share2 = lsb_diff(words, lane)
+        mxp2 = planes_diff(acc_planes[m, fast], lane_planes)
+        check(mx2 <= 1 and mxp2 <= 1,
+              f"{m}/{gamma}: kernel vs plain lane {mx2} LSB, planes {mxp2}")
+        log(f"{m}/{gamma}: kernel vs plain max {mx} LSB ({share:.3e}), "
+            f"planes {mxp}; vs plain lane max {mx2} LSB ({share2:.3e}), "
+            f"planes {mxp2}")
+        del lane, lane_planes
+
+    # Four phases and an odd frame, every kernel variant.
+    scal_acc = accurate["grad", False].scalars(edit)[None]
+    one = eng.mosaic[None]
     odd = eng.mosaic[None, : H - 1, : W - 3].contiguous()
-    mx, _ = lsb_diff(fused.fused_batch_develop_rgba(odd, scal),
-                     fused.develop_rgba_folded_plain(odd, scal))
-    check(mx <= 1, f"odd frame: {mx} LSB")
-    log(f"odd {H - 1}x{W - 3} frame: kernel vs plain max {mx} LSB")
+    for m in ("nearest",) + ACCURATE:
+        sc = eng.scalars(edit)[None] if m == "nearest" else scal_acc
+        gamma = "pow" if m == "nearest" else "srgb"
+        key = fused.launch_key("rgba", m)
+        worst = 0
+        for phase in PHASES[1:] if m == "nearest" else PHASES:
+            mx, _ = lsb_diff(
+                fused.fused_batch_develop_rgba(one, sc, phase, gamma,
+                                               demosaic=m),
+                fused.develop_rgba_folded_plain(one, sc, phase, gamma,
+                                                demosaic=m))
+            note(key, mx, f"{m} phase {phase}")
+            worst = max(worst, mx)
+        mx, _ = lsb_diff(
+            fused.fused_batch_develop_rgba(odd, sc, (1, 0), gamma,
+                                           demosaic=m),
+            fused.develop_rgba_folded_plain(odd, sc, (1, 0), gamma,
+                                            demosaic=m))
+        note(key, mx, f"{m} odd frame")
+        log(f"{m}: phases max {worst} LSB; odd {H - 1}x{W - 3} frame "
+            f"max {mx} LSB")
 
     y_p, cbcr_p = fused.develop_rgba_folded_plain(batch, batch_scal,
                                                   output="ycbcr420")
     for name, a, b in (("Y", y_b, y_p), ("CbCr", cbcr_b, cbcr_p)):
         mx, share = plane_diff(a, b)
-        check(mx <= 1, f"{name} plane: {mx}")
-        errs["develop_ycbcr420"] = max(errs["develop_ycbcr420"], mx)
+        note("develop_ycbcr420", mx, f"batch {name} plane")
         log(f"batch {name}: kernel vs plain max {mx}, differing {share:.3e}")
+    del y_p, cbcr_p
+    y_p, cbcr_p = fused.develop_rgba_folded_plain(
+        batch, acc_scal, gamma="srgb", output="ycbcr420", demosaic="grad")
+    lane = batch_develop_rgba(batch, batch_params, batch_wb, acc_cm,
+                              matrix_transpose=False, transfer="srgb",
+                              demosaic_method="grad", output="ycbcr420",
+                              **acc_levels)
+    for name, a, b, c in (("Y", y_g, y_p, lane[0]),
+                          ("Cb", cbcr_g[..., 0::2], cbcr_p[..., 0::2], lane[1]),
+                          ("Cr", cbcr_g[..., 1::2], cbcr_p[..., 1::2], lane[2])):
+        mx, share = plane_diff(a, b)
+        note("develop_ycbcr420_grad", mx, f"grad batch {name} plane")
+        mx2, share2 = plane_diff(a, c)
+        check(mx2 <= 1, f"grad batch {name} vs plain lane: {mx2}")
+        log(f"grad batch {name}: kernel vs plain max {mx} ({share:.3e}); "
+            f"vs plain lane max {mx2} ({share2:.3e})")
+    del y_p, cbcr_p, lane
 
-    # Small input: the card's parity lane against the same code on the
-    # CPU (which the CPU tests hold against the JAX package).
-    small = RawImage(mosaic[:256, :384].copy(), parity_raw.wb_multipliers,
-                     parity_raw.xyz_to_cam)
+    # A constant frame through grad develops to one colour.
+    flat = torch.full((1, 64, 96), 2000, dtype=torch.uint16, device="cuda")
+    check(torch.unique(fused.fused_batch_develop_rgba(
+        flat, scal_acc, gamma="srgb", demosaic="grad")).numel() == 1,
+        "constant mosaic through grad is not uniform")
+
+    # Small inputs: the card against the same code on the CPU (which the
+    # CPU tests hold against the JAX package), parity and accurate with
+    # per-site black levels.
+    small = RawImage(mosaic[:256, :384].copy(), wb4, parity_raw.xyz_to_cam)
     gpu_eng = DevelopEngine(small, device="cuda")
     cpu_eng = DevelopEngine(small, device="cpu")
     pv = (np.abs(gpu_eng.preview(edit, 1.5, (0.05, 0.0)).astype(int)
@@ -262,57 +428,103 @@ def main():
     mx, _ = lsb_diff(gpu_eng.full_rgba_device(edit).cpu(),
                      cpu_eng.full_rgba_device(edit))
     check(pv.max() <= 1 and mx <= 1, f"card vs CPU: {pv.max()}, {mx}")
-    log(f"small frame card vs CPU: preview max {pv.max()}, full max {mx}")
+    log(f"small parity frame card vs CPU: preview max {pv.max()}, "
+        f"full max {mx}")
+    small_acc = RawImage(mosaic[:256, :384].copy(), wb4, D3300_XYZ_TO_CAM,
+                         black_level=150.0, white_level=4095.0,
+                         cfa_pattern="GBRG",
+                         black_per_site=np.array([[146.0, 153.0],
+                                                  [151.0, 150.0]],
+                                                 np.float32))
+    for m in ACCURATE:
+        kw = dict(mode="accurate", use_kernel=True, transfer="srgb",
+                  demosaic_method=m)
+        g_e = DevelopEngine(small_acc, device="cuda", **kw)
+        c_e = DevelopEngine(small_acc, device="cpu", **kw)
+        mx, _ = lsb_diff(g_e.full_rgba_device(edit).cpu(),
+                         c_e.full_rgba_device(edit))
+        mxp = planes_diff([p.cpu() for p in g_e.jpeg_planes(edit)],
+                          c_e.jpeg_planes(edit))
+        check(mx <= 1 and mxp <= 1, f"{m} card vs CPU: {mx}, {mxp}")
+        log(f"small accurate {m} frame card vs CPU: full max {mx}, "
+            f"planes max {mxp}")
 
     # -- times at 24 MP, kernel and plain in turns ------------------------
-    one = eng.mosaic[None]
-    rgba_k, rgba_p, yc_k, yc_p = [], [], [], []
-    for _ in range(2):
-        rgba_k += cuda_ms(lambda: fused.fused_batch_develop_rgba(one, scal),
-                          TIMING_REPS // 2)
-        rgba_p += cuda_ms(lambda: fused.develop_rgba_folded_plain(one, scal),
-                          TIMING_REPS // 2)
-        yc_p += cuda_ms(lambda: fused.develop_rgba_folded_plain(
-            batch, batch_scal, output="ycbcr420"), TIMING_REPS // 2)
-        yc_k += cuda_ms(lambda: fused.fused_batch_develop_rgba(
-            batch, batch_scal, output="ycbcr420"), TIMING_REPS // 2)
-    times = {k: statistics.median(v) for k, v in (
-        ("rgba", rgba_k), ("rgba_plain", rgba_p), ("ycbcr", yc_k),
-        ("ycbcr_plain", yc_p))}
-    mb = {"rgba": H * W * 6 / 1e6, "ycbcr": BATCH * H * W * 3.5 / 1e6}
-    for k in ("rgba", "ycbcr"):
-        log(f"time {k}: kernel {times[k]:.4f} ms "
-            f"({mb[k] / times[k]:.1f} GB/s), plain {times[k + '_plain']:.4f} "
-            f"ms [{smi}]")
-    by_gamma = {g: statistics.median(cuda_ms(
-        lambda g=g: fused.fused_batch_develop_rgba(one, scal, gamma=g), 10))
-        for g in fused.GAMMAS}
-    log(f"time rgba kernel by gamma (ms): {json.dumps(by_gamma)}")
+    scal = eng.scalars(edit)[None]
+    timed = {  # key: (mosaics, scalars, gamma, output, demosaic)
+        "develop_rgba": (one, scal, "pow", "rgba", "nearest"),
+        "develop_ycbcr420": (batch, batch_scal, "pow", "ycbcr420",
+                             "nearest"),
+    }
+    for m in ACCURATE:
+        timed[fused.launch_key("rgba", m)] = (one, scal_acc, "srgb", "rgba", m)
+        timed[fused.launch_key("ycbcr420", m)] = (batch, acc_scal, "srgb",
+                                                  "ycbcr420", m)
+    times = {}
+    for key, (mos, sc, gamma, out, m) in timed.items():
+        def kern():
+            return fused.fused_batch_develop_rgba(mos, sc, gamma=gamma,
+                                                  output=out, demosaic=m)
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
-        e2e = {
-            "preview_tick_ms": host_ms(
-                lambda: eng.preview_tick(edit, 1.5, (0.01, 0.0)), 20),
-            "histogram_ms": host_ms(lambda: eng.histogram(edit), 10),
-            "full_rgba_ms": host_ms(lambda: eng.full_rgba_device(edit), 10),
-            "jpeg_planes_ms": host_ms(lambda: eng.jpeg_planes(edit), 10),
-            "export_jpeg_ms": host_ms(lambda: eng.export(
-                os.path.join(tmpdir, "t.jpg"), edit), 3),
-        }
+        def plain():
+            return fused.develop_rgba_folded_plain(mos, sc, gamma=gamma,
+                                                   output=out, demosaic=m)
+
+        k_ms, p_ms = [], []
+        for _ in range(2):
+            k_ms += cuda_ms(kern, TIMING_REPS // 2)
+            p_ms += cuda_ms(plain, 2)
+        torch.cuda.empty_cache()
+        n_px = mos.shape[0] * H * W
+        b_ms, b_by = bound(n_px, m, gamma, out)
+        times[key] = dict(ms=statistics.median(k_ms),
+                          plain_ms=statistics.median(p_ms), bound_ms=b_ms,
+                          bound_by=b_by, frames=mos.shape[0])
+        log(f"time {key} ({mos.shape[0]} frame(s), {gamma}): kernel "
+            f"{times[key]['ms']:.4f} ms, plain {times[key]['plain_ms']:.4f} "
+            f"ms, bound {b_ms:.4f} ms by {b_by} [{smi}]")
+    by_gamma = {}
+    for m in ("nearest",) + ACCURATE:
+        sc = scal if m == "nearest" else scal_acc
+        by_gamma[m] = {g: statistics.median(cuda_ms(
+            lambda g=g: fused.fused_batch_develop_rgba(one, sc, gamma=g,
+                                                       demosaic=m), 6))
+            for g in fused.GAMMAS}
+    log(f"time rgba kernel by demosaic and gamma (ms): {json.dumps(by_gamma)}")
+
+    e2e = {
+        "preview_tick_ms": host_ms(
+            lambda: eng.preview_tick(edit, 1.5, (0.01, 0.0)), 20),
+        "histogram_ms": host_ms(lambda: eng.histogram(edit), 10),
+        "full_rgba_ms": host_ms(lambda: eng.full_rgba_device(edit), 10),
+        "jpeg_planes_ms": host_ms(lambda: eng.jpeg_planes(edit), 10),
+        "export_jpeg_ms": host_ms(lambda: eng.export(
+            os.path.join(tmpdir, "t.jpg"), edit), 3),
+    }
+    for m in ACCURATE:
+        e = accurate[m, False]
+        e2e[f"{m}_full_rgba_ms"] = host_ms(lambda: e.full_rgba_device(edit),
+                                           10)
+        e2e[f"{m}_jpeg_planes_ms"] = host_ms(lambda: e.jpeg_planes(edit), 10)
+        e2e[f"{m}_export_jpeg_ms"] = host_ms(lambda: e.export(
+            os.path.join(tmpdir, "t.jpg"), edit), 3)
     log(f"end to end (host clock, median): {json.dumps(e2e)} [{smi}]")
+    tmp.cleanup()
 
-    kernels = [
-        {"name": "develop_rgba", "route": "cuda", "source": SRC,
-         "replaces": f"{TPU_KERNEL}:983",
-         "launches": launches["develop_rgba"],
-         "max_abs_err": errs["develop_rgba"], "ms": times["rgba"],
-         "plain_ms": times["rgba_plain"]},
-        {"name": "develop_ycbcr420", "route": "cuda", "source": SRC,
-         "replaces": f"{TPU_KERNEL}:879",
-         "launches": launches["develop_ycbcr420"],
-         "max_abs_err": errs["develop_ycbcr420"], "ms": times["ycbcr"],
-         "plain_ms": times["ycbcr_plain"]},
-    ]
+    kernels = []
+    for key in timed:
+        m = timed[key][4]
+        out = timed[key][3]
+        line = REPLACES.get((m, out), REPLACES.get(m))
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": SRC["grad" if m == "grad" else "develop"],
+            "replaces": f"{TPU_KERNEL}:{line}", "launches": launches[key],
+            "max_abs_err": errs[key], "ms": times[key]["ms"],
+            "plain_ms": times[key]["plain_ms"],
+            "bound_ms": times[key]["bound_ms"],
+            "bound_by": times[key]["bound_by"], "library_ms": None,
+            "frames": times[key]["frames"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,14 +10,26 @@ jax, and importing any submodule of ``raweditor_tpu`` runs its
 package is the compiled JFIF encoder ``_rawkit``, loaded by file path
 (``native.py``).
 
-Ported so far: the parity develop of a decoded Bayer frame through
+Ported so far: the develop of a decoded Bayer frame through
 ``DevelopEngine`` (slider tick preview and histogram, full-resolution
-develop, JPEG export) and the fused develop kernel
-(``ops/fused_develop.py``, ``csrc/develop.cu``) with RGBA and YCbCr
-4:2:0 output.
+develop, JPEG export) in parity and accurate mode, with the nearest,
+bilinear, Malvar-He-Cutler and gradient-weighted demosaics
+(``demosaic_method``), and the fused develop kernels with RGBA and YCbCr
+4:2:0 output (``ops/fused_develop.py``): ``csrc/develop.cu`` for the
+nearest, bilinear and Malvar stencils, ``csrc/develop_grad.cu`` for the
+gradient-weighted one. The engine hands ``demosaic_method`` to the
+kernels as their ``demosaic`` argument. The CPU tests run the kernels'
+plain versions (a wrapper runs them for CPU tensors only); the kernels
+themselves run on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
 
 from raweditor_tpu_torch.color import cam_to_srgb_matrix
+from raweditor_tpu_torch.ops.demosaic import (
+    DEMOSAIC_METHODS,
+    demosaic,
+    demosaic_bilinear,
+    demosaic_malvar,
+)
 from raweditor_tpu_torch.ops.develop import (
     develop,
     develop_histogram,
@@ -40,11 +52,15 @@ from raweditor_tpu_torch.raw.types import RawImage
 from raweditor_tpu_torch.utils.device import resolve_device
 
 __all__ = [
+    "DEMOSAIC_METHODS",
     "DevelopEngine",
     "EditParams",
     "LAUNCHES",
     "RawImage",
     "cam_to_srgb_matrix",
+    "demosaic",
+    "demosaic_bilinear",
+    "demosaic_malvar",
     "develop",
     "develop_histogram",
     "develop_preview",

@@ -105,8 +105,12 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.rtt_develop_launch.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 7 + [ptr]
+            # (mosaics, scal, out0, out1, n, h, w, py, px, gamma, output,
+            #  [demosaic,] stream)
+            lib.rtt_develop_launch.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
             lib.rtt_develop_launch.restype = i32
+            lib.rtt_develop_grad_launch.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
+            lib.rtt_develop_grad_launch.restype = i32
             lib.rtt_error_string.argtypes = [i32]
             lib.rtt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -14,6 +14,13 @@ floor is 1 LSB of 8-bit output. The quirks are the reference's:
 - the levels epsilon 1e-4;
 - quantisation ``floor(c*255 + 0.5)``.
 
+``demosaic_method`` selects the demosaic of ``develop``,
+``develop_rgba`` and ``develop_u8``: the parity stencil ``"nearest"``,
+or the accurate lane's ``"bilinear"``, ``"malvar"`` and ``"grad"``
+(``ops/demosaic.py``, ``ops/cfa_generic.py``), each the JAX package's
+XLA lane operation for operation. The preview and histogram always
+sample the nearest stencil, as the JAX package's do.
+
 Tensors keep the JAX layouts: (H, W) u16 mosaic in, (H, W) u32 packed
 RGBA or (H, W, 3) u8 out, (3, 256) histograms. Everything runs on the
 device of the mosaic.

@@ -7,16 +7,27 @@ launches over it. ``mode="parity"`` reproduces the reference editor
 (identity matrix, /4096, the WGSL matrix transpose); ``mode="accurate"``
 uses the camera matrix, the real levels and the CFA phase.
 
+``demosaic_method`` (the JAX name) picks the full-resolution Bayer
+demosaic: ``"nearest"`` (the parity stencil), ``"bilinear"``,
+``"malvar"`` or ``"grad"``, in either mode. The preview and histogram
+keep the nearest-sampled stencil, as in the JAX engine.
+
 ``use_kernel`` is the JAX engine's ``use_pallas`` (the CLI's ``--fast``):
 the full-resolution develop and the JPEG planes come from the fused CUDA
-kernel (``ops/fused_develop.py``, within 1 LSB of the parity lane). With
-a CUDA device the kernel runs or the call raises; nothing demotes to
-another lane.
+kernels (``ops/fused_develop.py``, within 1 LSB of the plain lane), which
+take ``demosaic_method`` as their ``demosaic``: nearest, bilinear and
+Malvar run ``csrc/develop.cu``, grad ``csrc/develop_grad.cu``. With a
+CUDA device the kernel runs or the call raises; nothing demotes to
+another lane. Without ``use_kernel`` the plain lane (``ops/develop.py``
+with ``ops/demosaic.py``) renders the same method.
+
+Accurate mode uploads the mosaic with its per-CFA-site black levels
+folded out (``RawImage.fold_site_blacks``), as the JAX engine does.
 
 Not ported yet: ``open(path)`` (RAW decode), X-Trans and LinearRaw
-frames, non-nearest demosaic, finish extras, local adjustments, point
-curves, highlight recovery, the pipelined tick, tiers, TIFF16, geometry
-and EXIF metadata in exports.
+frames, finish extras, local adjustments, point curves, highlight
+recovery, wide-gamut output, the pipelined tick, tiers, TIFF16,
+geometry and EXIF metadata in exports.
 """
 
 from __future__ import annotations
@@ -31,7 +42,8 @@ from raweditor_tpu_torch.color import cam_to_srgb_matrix, kernel_gamma_for
 from raweditor_tpu_torch.ops import develop as _develop
 from raweditor_tpu_torch.ops import fused_develop as _fused
 from raweditor_tpu_torch.ops import jpeg as _jpeg
-from raweditor_tpu_torch.ops.demosaic import CFA_PHASES, phase_of
+from raweditor_tpu_torch.ops.demosaic import (CFA_PHASES, DEMOSAIC_METHODS,
+                                              phase_of)
 from raweditor_tpu_torch.ops.sampling import histogram_shape, preview_shape
 from raweditor_tpu_torch.params import EditParams
 from raweditor_tpu_torch.raw.types import RawImage
@@ -59,14 +71,18 @@ class DevelopEngine:
                  use_kernel: bool = False, fast_gamma: bool = False,
                  transfer: str = "gamma22", device="cuda",
                  max_preview_width: int = MAX_PREVIEW_WIDTH,
-                 histogram_width: int = HISTOGRAM_WIDTH):
+                 histogram_width: int = HISTOGRAM_WIDTH,
+                 demosaic_method: str = "nearest"):
         if mode not in ("parity", "accurate"):
             raise ValueError(f"unknown mode {mode!r}")
+        if demosaic_method not in DEMOSAIC_METHODS:
+            raise ValueError(f"unknown demosaic method {demosaic_method!r}")
         if raw.is_linear:
             raise NotImplementedError("not ported yet: LinearRaw frames")
         self.device = resolve_device(device)
         self.mode = mode
         self.use_kernel = use_kernel
+        self.demosaic_method = demosaic_method
         # The fast transfers: a polynomial in place of the pow, within
         # 1 LSB after u8 quantisation.
         if fast_gamma and transfer == "gamma22":
@@ -81,8 +97,11 @@ class DevelopEngine:
             raw.width, raw.height, max_preview_width)
         self.histogram_w, self.histogram_h = histogram_shape(
             raw.width, raw.height, histogram_width)
+        # Per-CFA-site black levels are folded out here, so the develop
+        # keeps one scalar black level.
+        mosaic = raw.fold_site_blacks() if mode == "accurate" else raw.mosaic
         self.mosaic = torch.from_numpy(
-            np.ascontiguousarray(raw.mosaic, dtype=np.uint16)).to(self.device)
+            np.ascontiguousarray(mosaic, dtype=np.uint16)).to(self.device)
         self.wb = raw.wb_rgb()
         self.cam_matrix = cam_to_srgb_matrix(raw.xyz_to_cam, mode=mode)
         self.matrix_transpose = mode == "parity"
@@ -159,25 +178,28 @@ class DevelopEngine:
 
     def full_rgba_device(self, params: EditParams):
         """Full-resolution develop to (H, W) u32 packed RGBA on the
-        device: the fused kernel with ``use_kernel``, else the parity
+        device: the fused kernel with ``use_kernel``, else the plain
         lane."""
         if self.use_kernel:
             _develop.require_ported(params)
             return _fused.fused_develop_rgba(
                 self.mosaic, self.scalars(params), self.cfa_phase,
-                kernel_gamma_for(self.transfer))
+                kernel_gamma_for(self.transfer),
+                demosaic=self.demosaic_method)
         return _develop.develop_rgba(
             self.mosaic, params, self.wb, self.cam_matrix,
             white_level=self.white_level, black_level=self.black_level,
+            demosaic_method=self.demosaic_method,
             matrix_transpose=self.matrix_transpose, transfer=self.transfer,
             cfa_phase=self.cfa_phase)
 
     def full_device(self, params: EditParams):
-        """Full-resolution (H, W, 3) u8 develop on the device (the parity
+        """Full-resolution (H, W, 3) u8 develop on the device (the plain
         lane)."""
         return _develop.develop(
             self.mosaic, params, self.wb, self.cam_matrix,
             white_level=self.white_level, black_level=self.black_level,
+            demosaic_method=self.demosaic_method,
             matrix_transpose=self.matrix_transpose, transfer=self.transfer,
             cfa_phase=self.cfa_phase)
 
@@ -188,7 +210,7 @@ class DevelopEngine:
         """Full-resolution JPEG 4:2:0 planes (Y (H, W), Cb and Cr
         (H/2, W/2), u8, on the device) for even frames. With
         ``use_kernel`` they come straight from the fused kernel, else
-        from the parity lane's RGBA words."""
+        from the plain lane's RGBA words."""
         if self.height % 2 or self.width % 2:
             raise ValueError("ycbcr420 requires even dimensions")
         if not self.use_kernel:
@@ -196,7 +218,8 @@ class DevelopEngine:
         _develop.require_ported(params)
         y, cbcr = _fused.fused_batch_develop_rgba(
             self.mosaic[None], self.scalars(params)[None], self.cfa_phase,
-            kernel_gamma_for(self.transfer), output="ycbcr420")
+            kernel_gamma_for(self.transfer), output="ycbcr420",
+            demosaic=self.demosaic_method)
         return y[0], cbcr[0, :, 0::2], cbcr[0, :, 1::2]
 
     # -- export ----------------------------------------------------------

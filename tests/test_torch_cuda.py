@@ -117,3 +117,90 @@ def test_engine_on_card_matches_cpu(cuda, mode, rng):
     assert _words_diff(words, cpu.full_rgba_device(FULL)) <= 1
     gpu.use_kernel = False
     assert _words_diff(words, gpu.full_rgba_device(FULL)) <= 1
+
+
+ACCURATE = ("bilinear", "malvar", "grad")
+PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+@pytest.mark.parametrize("demosaic", ACCURATE)
+@pytest.mark.parametrize("gamma", sorted(fd.GAMMAS))
+@pytest.mark.parametrize("shape", [(3, 64, 96), (2, 31, 45), (1, 1, 1),
+                                   (1, 2, 3), (1, 3, 5), (1, 32, 48),
+                                   (1, 250, 32), (1, 32, 128),
+                                   (2, 100, 166)])
+def test_accurate_rgba_kernel_matches_plain(cuda, demosaic, gamma, shape,
+                                            rng):
+    mos, scal = _inputs(rng, *shape, cuda)
+    key = fd.launch_key("rgba", demosaic)
+    for phase in PHASES:
+        before = fd.LAUNCHES[key]
+        got = fd.fused_batch_develop_rgba(mos, scal, phase, gamma,
+                                          demosaic=demosaic)
+        assert fd.LAUNCHES[key] == before + 1
+        want = fd.develop_rgba_folded_plain(mos, scal, phase, gamma,
+                                            demosaic=demosaic)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.uint32 and got.shape == mos.shape
+        assert _words_diff(got, want) <= 1
+        cpu = fd.fused_batch_develop_rgba(mos.cpu(), scal.cpu(), phase, gamma,
+                                          demosaic=demosaic)
+        assert _words_diff(got, cpu) <= 1
+
+
+@pytest.mark.parametrize("demosaic", ACCURATE)
+@pytest.mark.parametrize("gamma", sorted(fd.GAMMAS))
+def test_accurate_ycbcr420_kernel_matches_plain(cuda, demosaic, gamma, rng):
+    mos, scal = _inputs(rng, 3, 48, 70, cuda)
+    key = fd.launch_key("ycbcr420", demosaic)
+    for phase in PHASES:
+        before = fd.LAUNCHES[key]
+        y, cbcr = fd.fused_batch_develop_rgba(mos, scal, phase, gamma,
+                                              output="ycbcr420",
+                                              demosaic=demosaic)
+        assert fd.LAUNCHES[key] == before + 1
+        wy, wc = fd.develop_rgba_folded_plain(mos, scal, phase, gamma,
+                                              output="ycbcr420",
+                                              demosaic=demosaic)
+        torch.cuda.synchronize()
+        assert y.shape == (3, 48, 70) and cbcr.shape == (3, 24, 70)
+        for g, w in ((y, wy), (cbcr, wc)):
+            assert int((g.int() - w.int()).abs().max()) <= 1
+
+
+def test_malvar_floor_on_card(cuda, rng):
+    """Hard edges around the R sites push the Malvar correction below
+    the black level; the kernel floors at the folded black sc[19]."""
+    m = rng.integers(200, 4096, (1, 32, 48), dtype=np.uint16)
+    m[:, ::2, ::2] = 200
+    scal = pack_params([EditParams()], np.ones((1, 3), np.float32),
+                       REAL[None], [4000.0], [200.0])
+    mos = torch.from_numpy(m).to(cuda)
+    got = fd.fused_batch_develop_rgba(mos, scal.to(cuda), gamma="srgb",
+                                      demosaic="malvar")
+    want = fd.develop_rgba_folded_plain(mos.cpu(), scal, gamma="srgb",
+                                        demosaic="malvar")
+    assert _words_diff(got, want) <= 1
+
+
+@pytest.mark.parametrize("demosaic", ACCURATE)
+def test_accurate_engine_on_card_matches_cpu(cuda, demosaic, rng):
+    raw = RawImage(rng.integers(0, 4096, (96, 144), dtype=np.uint16),
+                   np.array([2.0, 1.0, 1.5, 1.0], np.float32), REAL * 10000,
+                   black_level=100.0, white_level=4000.0, cfa_pattern="GRBG",
+                   black_per_site=np.array([[98.0, 102.0], [101.0, 99.0]],
+                                           np.float32))
+    kw = dict(mode="accurate", use_kernel=True, transfer="srgb",
+              demosaic_method=demosaic, max_preview_width=64,
+              histogram_width=32)
+    gpu, cpu = DevelopEngine(raw, device=cuda, **kw), DevelopEngine(
+        raw, device="cpu", **kw)
+    key = fd.launch_key("rgba", demosaic)
+    before = fd.LAUNCHES[key]
+    words = gpu.full_rgba_device(FULL)
+    assert fd.LAUNCHES[key] == before + 1
+    assert _words_diff(words, cpu.full_rgba_device(FULL)) <= 1
+    for g, c in zip(gpu.jpeg_planes(FULL), cpu.jpeg_planes(FULL)):
+        assert int((g.cpu().int() - c.int()).abs().max()) <= 1
+    gpu.use_kernel = False
+    assert _words_diff(words, gpu.full_rgba_device(FULL)) <= 1

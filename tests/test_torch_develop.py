@@ -199,4 +199,7 @@ def test_unported_inputs_raise(rng):
             td.develop_rgba(m, p, WB, IDENTITY)
     with pytest.raises(NotImplementedError):
         td.develop_rgba(m, EditParams(), WB, IDENTITY,
-                        demosaic_method="bilinear")
+                        demosaic_method="bilinear", extras=True)
+    with pytest.raises(ValueError):
+        td.develop_rgba(m, EditParams(), WB, IDENTITY,
+                        demosaic_method="smooth")

@@ -180,6 +180,7 @@ def test_wrapper_rejects_bad_inputs(rng):
         (m, scal, {"gamma": "cube"}),
         (m, scal, {"output": "nv21"}),
         (m, scal, {"cfa_phase": (2, 0)}),
+        (m, scal, {"demosaic": "smooth"}),
         (m[0], scal, {}),
     ]
     for mos, sc, kw in bad:
@@ -189,17 +190,27 @@ def test_wrapper_rejects_bad_inputs(rng):
         fd.fused_develop_rgba(m, scal[0])
 
 
-def test_cpu_tensors_never_launch(rng):
+def test_cpu_tensors_never_launch(rng, monkeypatch):
+    """CPU tensors run the plain version for every demosaic and output
+    and never reach the kernel build."""
+    def no_build():
+        raise AssertionError("a CPU tensor reached the kernel build")
+
+    monkeypatch.setattr(_build, "load", no_build)
     m = torch.from_numpy(rng.integers(0, 4096, (1, 8, 8), dtype=np.uint16))
     before = dict(fd.LAUNCHES)
-    fd.fused_batch_develop_rgba(m, torch.zeros(1, fd.N_SCALARS))
+    for demosaic in fd.DEMOSAICS:
+        for output in fd.OUTPUTS:
+            fd.fused_batch_develop_rgba(m, torch.zeros(1, fd.N_SCALARS),
+                                        output=output, demosaic=demosaic)
     assert fd.LAUNCHES == before
 
 
 def test_kernel_constants_match_python():
-    """The hex-float literals in csrc/develop.cu are the f32 polynomial
-    and exponent constants of the plain version."""
-    src = (Path(_build.CSRC) / "develop.cu").read_text()
+    """The hex-float literals of the kernels' shared tail
+    (csrc/develop_common.cuh) are the f32 polynomial and exponent
+    constants of the plain version."""
+    src = (Path(_build.CSRC) / "develop_common.cuh").read_text()
 
     def table(name):
         body = re.search(name + r"\[7\] = \{([^}]*)\}", src).group(1)

@@ -55,9 +55,14 @@ def test_demosaic_nearest_sampled_exact(pattern, rng):
 
 
 def test_unported_and_unknown_methods(rng):
+    """Every Bayer method of the JAX package is ported; "smooth" is the
+    generic-CFA tier and, as in the JAX package, no Bayer method."""
     m = torch.from_numpy(rng.random((4, 4), dtype=np.float32))
-    with pytest.raises(NotImplementedError):
-        tdm.demosaic(m, "malvar")
+    for method in tdm.DEMOSAIC_METHODS:
+        planes = tdm.demosaic(m, method)
+        assert len(planes) == 3 and all(p.shape == (4, 4) for p in planes)
+    with pytest.raises(ValueError):
+        tdm.demosaic(m, "smooth")
     with pytest.raises(ValueError):
         tdm.demosaic(m, "bogus")
     with pytest.raises(ValueError):
