@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``raweditor_tpu_torch/csrc`` (one nvcc per
-source, started together), makes seeded 24 MP (4016x6016) 12-bit Bayer
-frames, and drives two paths through the entry points a user calls, each
-with the launch counts set to 0 just before it and read just after:
+source, three sources started together), makes seeded 24 MP (4016x6016)
+12-bit Bayer frames, and drives three paths through the entry points a
+user calls, each with the launch counts set to 0 just before it and read
+just after:
 
 - the parity path: ``DevelopEngine`` slider ticks with histogram, the
   full-resolution kernel develop for the four transfers, JPEG export,
@@ -14,12 +15,21 @@ with the launch counts set to 0 just before it and read just after:
 - the accurate path: for the bilinear, Malvar and gradient demosaics
   with the sRGB transfer and its polynomial form, ``full_rgba_device``,
   ``jpeg_planes`` and ``export(".jpg")`` of the D3300-matrix frame, and
-  a batch of four frames to JPEG planes with ``demosaic="grad"``.
+  a batch of four frames to JPEG planes with ``demosaic="grad"``;
+- the extras path: an edit with sharpen, denoise, the tone curve,
+  vignette, six HSL-mixer sliders and two grading wheels through slider
+  ticks and the histogram, ``full_rgba_device``, ``jpeg_planes`` and
+  ``export(".jpg")`` of the parity and the accurate Malvar engine (the
+  develop kernel, then the finish-extras kernel), a mixer-only edit, an
+  edit with a point curve (plain develop lane, then the extras kernel),
+  and a batch of four frames: develop words, then the extras kernel to
+  JPEG planes with per-image amounts.
 
 Then it holds every kernel against its plain PyTorch version (at the four
-Bayer phases and on an odd 4015x6013 frame) and against the plain lane,
-compares a small frame on the card with the CPU, times each kernel beside
-its plain version with CUDA events, and prints:
+Bayer phases and on an odd 4015x6013 frame; the extras kernel for every
+flag set, on the odd frame, a 33x17 batch and at 24 MP) and against the
+plain lane, compares small frames on the card with the CPU, times each
+kernel beside its plain version with CUDA events, and prints:
 
 - a line ``{"kernels": [...]}`` with each kernel's launches on its path,
   its largest difference from the plain version, both times, and its
@@ -50,11 +60,26 @@ TIMING_REPS = 10
 ACCURATE = ("bilinear", "malvar", "grad")
 PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
 SRC = {"develop": "raweditor_tpu_torch/csrc/develop.cu",
-       "grad": "raweditor_tpu_torch/csrc/develop_grad.cu"}
+       "grad": "raweditor_tpu_torch/csrc/develop_grad.cu",
+       "extras": "raweditor_tpu_torch/csrc/extras.cu"}
 TPU_KERNEL = "raweditor_tpu/ops/pallas_develop.py"
 # The TPU function each kernel variant replaces (file:line).
 REPLACES = {("nearest", "rgba"): 983, ("nearest", "ycbcr420"): 879,
-            "bilinear": 199, "malvar": 199, "grad": 412}
+            "bilinear": 199, "malvar": 199, "grad": 412,
+            "extras_rgba": 1379, "extras_ycbcr420": 1258}
+# The extras path's edit: every band-local extra, six mixer sliders and
+# two grading wheels.
+XEDIT = dict(sharpen=60.0, denoise=40.0, curve_shadows=30.0,
+             curve_darks=-20.0, curve_lights=15.0, curve_highlights=-40.0,
+             vignette=-30.0, hue_red=25.0, hue_orange=-15.0, sat_yellow=30.0,
+             sat_blue=-40.0, lum_green=35.0, lum_magenta=-25.0,
+             grade_shadow_hue=210.0, grade_shadow_sat=40.0,
+             grade_high_hue=45.0, grade_high_sat=30.0)
+MIXER_ONLY = dict(hue_red=25.0, hue_orange=-15.0, sat_yellow=30.0,
+                  sat_blue=-40.0, lum_green=35.0, lum_magenta=-25.0)
+POINT_CURVE = ((0.0, 0.02), (0.35, 0.3), (0.7, 0.8), (1.0, 0.97))
+FLAG_SETS = [(m, g, s) for m in (False, True) for g in (False, True)
+             for s in (False, True)]
 # Nikon D3300 ColorMatrix (dcraw adobe_coeff, x10000) for the accurate frame.
 D3300_XYZ_TO_CAM = np.array([[6988, -1384, -714], [-5631, 13410, 2447],
                              [-1485, 2204, 7318]], np.float32) / 10000.0
@@ -72,6 +97,14 @@ DEMOSAIC_OPS = {"nearest": 1.0,    # raw * scale
 FINISH_OPS = 60.0                  # matrix, tone, saturation/vibrance
 QUANT_OPS = {"pow": 6.0, "poly": 18.0, "srgb": 10.0, "srgb_poly": 20.0}
 YCBCR_OPS = 23.5                   # Y, Cb, Cr and the 2x2 chroma box
+# The extras kernel per output pixel (csrc/extras.cu, halo recompute not
+# counted): unpack and quantise 12; the stencil stages 172 (two chroma
+# tents 28, chroma blend 6, the bilateral's 8 taps 69, tone curve 28,
+# vignette 11, sharpen 10, split/rebuild 14, clamps 6); the mixer 200
+# (hue 23, nine hats 63, three interpolations 51, back-convert and blend
+# 63); grading 56.
+EXTRAS_OPS = {"io": 12.0, "stencils": 172.0, "mixer": 200.0,
+              "grading": 56.0}
 
 
 def log(*a):
@@ -144,6 +177,19 @@ def bound(n_px, demosaic, gamma, output):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def extras_bound(n_px, mixer_on, grading_on, stencils, output):
+    """(ms, "bytes" or "operations") for the extras kernel: 4 B/px read,
+    4 (RGBA) or 1.5 (planes) B/px written."""
+    ops = (EXTRAS_OPS["io"] + EXTRAS_OPS["stencils"] * stencils
+           + EXTRAS_OPS["mixer"] * mixer_on
+           + EXTRAS_OPS["grading"] * grading_on
+           + (YCBCR_OPS if output == "ycbcr420" else 0.0))
+    out_bytes = 4.0 if output == "rgba" else 1.5
+    t_bytes = n_px * (4.0 + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = n_px * ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def reset(launches):
     for k in launches:
         launches[k] = 0
@@ -153,11 +199,13 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     from raweditor_tpu_torch import DevelopEngine, EditParams, RawImage
     from raweditor_tpu_torch.color import cam_to_srgb_matrix, kernel_gamma_for
     from raweditor_tpu_torch.native import get_rawkit
     from raweditor_tpu_torch.ops import _build
     from raweditor_tpu_torch.ops import fused_develop as fused
+    from raweditor_tpu_torch.ops import fused_extras as fx
     from raweditor_tpu_torch.parallel.batch import (batch_develop_rgba,
                                                     pack_params)
 
@@ -226,6 +274,19 @@ def main():
                      (BATCH, 1, 1))
     acc_scal = pack_params(batch_params, batch_wb, acc_cm,
                            matrix_transpose=False, **acc_levels).cuda()
+    # The extras path: its edit, a mixer-only edit (no stencils), an edit
+    # with a point curve, and a batch with per-image amounts (one image
+    # at zero, the mixer on only some).
+    xedit = edit.replace(**XEDIT)
+    mix_edit = edit.replace(**MIXER_ONLY)
+    pc_edit = xedit.replace(point_curve=POINT_CURVE)
+    x_batch_params = [xedit, EditParams(), mix_edit,
+                      EditParams(sharpen=100.0, vignette=50.0,
+                                 grade_mid_hue=120.0, grade_mid_sat=-40.0)]
+    x_table, *x_flags = fx.pack_extras(x_batch_params)
+    x_table = x_table.cuda()
+    x_kw = dict(zip(("mixer_on", "grading_on", "stencils"), x_flags))
+    x_engines = {"parity": eng, "malvar": accurate["malvar", False]}
     rk = get_rawkit()
 
     def encode(y, cbcr):
@@ -292,6 +353,48 @@ def main():
             check(acc_launches[k] > 0, f"{k} never launched")
             launches[k] = acc_launches[k]
 
+    # -- the extras path: counts reset just before, read just after -------
+    reset(fused.LAUNCHES)
+    reset(fx.LAUNCHES)
+    t0 = time.perf_counter()
+    xtick_ms = []
+    for i in range(20):
+        p = xedit.replace(exposure=-1.0 + 0.1 * i, sharpen=5.0 * i)
+        zoom = (1.0, 1.5, 2.0, 3.7)[i % 4]
+        pan = (0.02 * (i % 5) - 0.04, 0.01 * (i % 3))
+        t = time.perf_counter()
+        xprev = eng.preview_tick(p, zoom=zoom, pan=pan)
+        xtick_ms.append((time.perf_counter() - t) * 1e3)
+    xhist = eng.histogram(xedit)
+    x_words, x_planes, x_jpegs = {}, {}, {}
+    for name, e in x_engines.items():
+        x_words[name] = e.full_rgba_device(xedit)
+        x_planes[name] = e.jpeg_planes(xedit)
+        path = e.export(os.path.join(tmpdir, f"x_{name}.jpg"), xedit)
+        with open(path, "rb") as f:
+            x_jpegs[name] = f.read()
+    x_mix_words = eng.full_rgba_device(mix_edit)
+    before_pc = dict(fused.LAUNCHES), fx.LAUNCHES["extras_rgba"]
+    x_pc_words = eng.full_rgba_device(pc_edit)
+    torch.cuda.synchronize()
+    pc_moved = (dict(fused.LAUNCHES) != before_pc[0],
+                fx.LAUNCHES["extras_rgba"] - before_pc[1])
+    xb_words = fused.fused_batch_develop_rgba(batch, batch_scal)
+    y_x, cbcr_x = fx.fused_finish_extras_rgba(xb_words, x_table,
+                                              output="ycbcr420", **x_kw)
+    x_batch_jpegs = encode(y_x, cbcr_x)
+    torch.cuda.synchronize()
+    x_launches = dict(fx.LAUNCHES)
+    log(f"extras path: {time.perf_counter() - t0:.2f} s, launches "
+        f"{x_launches} (develop {dict(fused.LAUNCHES)}), preview tick "
+        f"median {statistics.median(xtick_ms):.3f} ms (host clock, first "
+        "tick included)")
+    check(pc_moved == (False, 1),
+          f"point curve: develop kernel moved / extras launches {pc_moved}")
+    for k in fx.LAUNCHES:
+        check(x_launches[k] > 0, f"{k} never launched")
+        launches[k] = x_launches[k]
+
     # -- outputs ----------------------------------------------------------
     check(tuple(prev.shape) == (854, 1280, 3) and prev.dtype == torch.uint8,
           f"preview shape {tuple(prev.shape)}")
@@ -301,9 +404,17 @@ def main():
     for j in [data] + list(acc_jpegs.values()):
         check(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9"
               and len(j) > 100_000, f"export JFIF ({len(j)} bytes)")
-    for j in batch_jpegs + grad_jpegs:
+    for j in batch_jpegs + grad_jpegs + x_batch_jpegs:
         check(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9",
               "batch JFIF markers")
+    check(tuple(xprev.shape) == (854, 1280, 3), "extras preview shape")
+    check((xhist.sum(axis=1) == 128 * 85).all(),
+          f"extras histogram sums {xhist.sum(axis=1)}")
+    for j in x_jpegs.values():
+        check(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9"
+              and len(j) > 100_000, f"extras export JFIF ({len(j)} bytes)")
+    log(f"extras exports { {k: len(j) for k, j in x_jpegs.items()} }, batch "
+        f"JPEGs {[len(j) for j in x_batch_jpegs]} bytes")
     log(f"export: {len(data)} bytes; accurate exports "
         f"{ {f'{m}/{int(f)}': len(j) for (m, f), j in acc_jpegs.items()} }; "
         f"batch JPEGs {[len(j) for j in batch_jpegs]} and "
@@ -417,6 +528,110 @@ def main():
         flat, scal_acc, gamma="srgb", demosaic="grad")).numel() == 1,
         "constant mosaic through grad is not uniform")
 
+    # The extras kernel against its plain version on the develop kernel's
+    # own words (0 LSB expected), and the engine's kernel route against
+    # its plain lane. The two routes' develop words differ by up to 1 LSB
+    # (folded scalars), and the extras' gains turn such a step into up to
+    # 4 LSB for this edit (the tone curve's steepest segment 1.3 times the
+    # sharpen's 1.45 times the mixer's luminance 1.2). So that comparison
+    # holds the develop words within 1 LSB and every differing output
+    # pixel within the extras' radius, 2, of a pixel whose develop words
+    # differ (a chroma sample: of one of its four pixels).
+    def develop_words(e, p):
+        return fused.fused_develop_rgba(e.mosaic, e.scalars(p), e.cfa_phase,
+                                        kernel_gamma_for(e.transfer),
+                                        demosaic=e.demosaic_method)
+
+    def near(diff_out, diff_in, radius):
+        """Every True of diff_out lies within ``radius`` of a True of
+        diff_in (both (H, W) bool, or diff_out at half size for a
+        chroma plane)."""
+        grown = torch.nn.functional.max_pool2d(
+            diff_in[None, None].float(), 2 * radius + 1, stride=1,
+            padding=radius)[0, 0]
+        if diff_out.shape != grown.shape:
+            grown = torch.nn.functional.max_pool2d(grown[None, None], 2)[0, 0]
+        return not bool((diff_out & (grown == 0)).any())
+
+    def differs(a, b):
+        return a.view(torch.int32) != b.view(torch.int32)
+
+    one_table, *one_flags = fx.pack_extras([xedit])
+    one_table = one_table.cuda()
+    for name, e in x_engines.items():
+        words = develop_words(e, xedit)[None]
+        mx, share = lsb_diff(x_words[name], fx.finish_extras_plain(
+            words, one_table, *one_flags)[0])
+        note("extras_rgba", mx, f"extras {name} kernel vs plain")
+        y, cbcr = fx.finish_extras_plain(words, one_table, *one_flags,
+                                         output="ycbcr420")
+        mxp = planes_diff(x_planes[name], (y[0], cbcr[0, :, 0::2],
+                                           cbcr[0, :, 1::2]))
+        note("extras_ycbcr420", mxp, f"extras {name} planes kernel vs plain")
+        e.use_kernel = False
+        lane_dev = e._develop_words(xedit)
+        lane = e.full_rgba_device(xedit)
+        lane_planes = e.jpeg_planes(xedit)
+        e.use_kernel = True
+        mxd, shared = lsb_diff(words[0], lane_dev)
+        dev_diff = differs(words[0], lane_dev)
+        mx2, share2 = lsb_diff(x_words[name], lane)
+        mxp2 = planes_diff(x_planes[name], lane_planes)
+        check(mxd <= 1, f"extras {name}: develop kernel vs lane {mxd} LSB")
+        check(near(differs(x_words[name], lane), dev_diff, 2),
+              f"extras {name}: RGBA differs away from a develop difference")
+        for a, b in zip(x_planes[name], lane_planes):
+            check(near(a != b, dev_diff, 2),
+                  f"extras {name}: planes differ away from a develop "
+                  "difference")
+        log(f"extras {name}: kernel vs plain max {mx} LSB ({share:.3e}), "
+            f"planes {mxp}; kernel route vs plain lane max {mx2} LSB "
+            f"({share2:.3e}), planes {mxp2}, from develop words max {mxd} "
+            f"LSB ({shared:.3e}), every difference within reach of one")
+        del words, lane, lane_planes, lane_dev, dev_diff
+    mix_table, *mix_flags = fx.pack_extras([mix_edit])
+    mx, share = lsb_diff(x_mix_words, fx.finish_extras_plain(
+        develop_words(eng, mix_edit)[None], mix_table.cuda(), *mix_flags)[0])
+    note("extras_rgba", mx, "mixer-only kernel vs plain")
+    pc_words = eng._develop_words(pc_edit)[None]
+    mx2, share2 = lsb_diff(x_pc_words, fx.finish_extras_plain(
+        pc_words, one_table, *one_flags)[0])
+    note("extras_rgba", mx2, "point curve kernel vs plain")
+    log(f"extras mixer-only {mix_flags}: max {mx} LSB ({share:.3e}); point "
+        f"curve (plain develop lane, then the kernel): max {mx2} LSB "
+        f"({share2:.3e})")
+    y_p, cbcr_p = fx.finish_extras_plain(xb_words, x_table, *x_flags,
+                                         output="ycbcr420")
+    for name, a, b in (("Y", y_x, y_p), ("CbCr", cbcr_x, cbcr_p)):
+        mx, share = plane_diff(a, b)
+        note("extras_ycbcr420", mx, f"extras batch {name} plane")
+        log(f"extras batch {name}: kernel vs plain max {mx} ({share:.3e})")
+    del y_p, cbcr_p, pc_words
+    # Every flag set: RGBA on the odd frame and a 33x17 batch, planes at
+    # 24 MP and on a 34x18 batch, per-image amounts in the batches.
+    odd_w = x_words["parity"][None, : H - 1, : W - 3].contiguous()
+    full_w = x_words["parity"][None]
+    cases = (("rgba", odd_w, one_table),
+             ("rgba", xb_words[:, :33, :17].contiguous(), x_table),
+             ("ycbcr420", full_w, one_table),
+             ("ycbcr420", xb_words[:, :34, :18].contiguous(), x_table))
+    worst = {}
+    for flags in FLAG_SETS:
+        kw = dict(zip(("mixer_on", "grading_on", "stencils"), flags))
+        for out, wd, tb in cases:
+            got = fx.fused_finish_extras_rgba(wd, tb, output=out, **kw)
+            want = fx.finish_extras_plain(wd, tb, *flags, output=out)
+            if out == "rgba":
+                mx = lsb_diff(got, want)[0]
+            else:
+                mx = planes_diff(got, want)
+            note("extras_" + out, mx,
+                 f"extras {out} {tuple(wd.shape)} flags {flags}")
+            worst[flags] = max(worst.get(flags, 0), mx)
+        torch.cuda.empty_cache()
+    log(f"extras flag sets (mixer, grading, stencils) worst LSB: "
+        f"{ {''.join(str(int(f)) for f in k): v for k, v in worst.items()} }")
+
     # Small inputs: the card against the same code on the CPU (which the
     # CPU tests hold against the JAX package), parity and accurate with
     # per-site black levels.
@@ -448,6 +663,19 @@ def main():
         check(mx <= 1 and mxp <= 1, f"{m} card vs CPU: {mx}, {mxp}")
         log(f"small accurate {m} frame card vs CPU: full max {mx}, "
             f"planes max {mxp}")
+    small_x = dict(use_kernel=True, max_preview_width=192)
+    g_e = DevelopEngine(small, device="cuda", **small_x)
+    c_e = DevelopEngine(small, device="cpu", **small_x)
+    pv = np.abs(g_e.preview(xedit, 1.3, (0.02, 0.0)).astype(int)
+                - c_e.preview(xedit, 1.3, (0.02, 0.0)).astype(int)).max()
+    mx, _ = lsb_diff(g_e.full_rgba_device(xedit).cpu(),
+                     c_e.full_rgba_device(xedit))
+    mxp = planes_diff([p.cpu() for p in g_e.jpeg_planes(xedit)],
+                      c_e.jpeg_planes(xedit))
+    check(pv <= 1 and mx <= 1 and mxp <= 1,
+          f"extras card vs CPU: {pv}, {mx}, {mxp}")
+    log(f"small extras frame card vs CPU: preview max {pv}, full max {mx}, "
+        f"planes max {mxp}")
 
     # -- times at 24 MP, kernel and plain in turns ------------------------
     scal = eng.scalars(edit)[None]
@@ -483,6 +711,38 @@ def main():
         log(f"time {key} ({mos.shape[0]} frame(s), {gamma}): kernel "
             f"{times[key]['ms']:.4f} ms, plain {times[key]['plain_ms']:.4f} "
             f"ms, bound {b_ms:.4f} ms by {b_by} [{smi}]")
+    x_timed = {"extras_rgba": (full_w, one_table, "rgba"),
+               "extras_ycbcr420": (xb_words, x_table, "ycbcr420")}
+    for key, (wd, tb, out) in x_timed.items():
+        def kern():
+            return fx.fused_finish_extras_rgba(wd, tb, output=out, **x_kw)
+
+        def plain():
+            return fx.finish_extras_plain(wd, tb, *x_flags, output=out)
+
+        k_ms, p_ms = [], []
+        for _ in range(2):
+            k_ms += cuda_ms(kern, TIMING_REPS // 2)
+            p_ms += cuda_ms(plain, 2)
+        torch.cuda.empty_cache()
+        b_ms, b_by = extras_bound(wd.shape[0] * H * W, *x_flags, out)
+        times[key] = dict(ms=statistics.median(k_ms),
+                          plain_ms=statistics.median(p_ms), bound_ms=b_ms,
+                          bound_by=b_by, frames=wd.shape[0])
+        log(f"time {key} ({wd.shape[0]} frame(s), mixer+grading+stencils): "
+            f"kernel {times[key]['ms']:.4f} ms, plain "
+            f"{times[key]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+            f"[{smi}]")
+    by_flags = {}
+    for flags in FLAG_SETS:
+        kw = dict(zip(("mixer_on", "grading_on", "stencils"), flags))
+        by_flags["".join(str(int(f)) for f in flags)] = dict(
+            ms=statistics.median(cuda_ms(
+                lambda kw=kw: fx.fused_finish_extras_rgba(full_w, one_table,
+                                                          **kw), 6)),
+            bound_ms=extras_bound(H * W, *flags, "rgba")[0])
+    log(f"time extras_rgba kernel by flag set (mixer, grading, stencils; "
+        f"one 24 MP frame): {json.dumps(by_flags)} [{smi}]")
     by_gamma = {}
     for m in ("nearest",) + ACCURATE:
         sc = scal if m == "nearest" else scal_acc
@@ -508,6 +768,16 @@ def main():
         e2e[f"{m}_jpeg_planes_ms"] = host_ms(lambda: e.jpeg_planes(edit), 10)
         e2e[f"{m}_export_jpeg_ms"] = host_ms(lambda: e.export(
             os.path.join(tmpdir, "t.jpg"), edit), 3)
+    for name, e in x_engines.items():
+        e2e[f"extras_{name}_full_rgba_ms"] = host_ms(
+            lambda: e.full_rgba_device(xedit), 10)
+        e2e[f"extras_{name}_jpeg_planes_ms"] = host_ms(
+            lambda: e.jpeg_planes(xedit), 10)
+        e2e[f"extras_{name}_export_jpeg_ms"] = host_ms(lambda: e.export(
+            os.path.join(tmpdir, "t.jpg"), xedit), 3)
+    e2e["extras_preview_tick_ms"] = host_ms(
+        lambda: eng.preview_tick(xedit, 1.5, (0.01, 0.0)), 20)
+    e2e["extras_histogram_ms"] = host_ms(lambda: eng.histogram(xedit), 10)
     log(f"end to end (host clock, median): {json.dumps(e2e)} [{smi}]")
     tmp.cleanup()
 
@@ -525,6 +795,17 @@ def main():
             "bound_ms": times[key]["bound_ms"],
             "bound_by": times[key]["bound_by"], "library_ms": None,
             "frames": times[key]["frames"]})
+    for key in x_timed:
+        kernels.append({
+            "name": key, "route": "cuda", "source": SRC["extras"],
+            "replaces": f"{TPU_KERNEL}:{REPLACES[key]}",
+            "launches": launches[key], "max_abs_err": errs[key],
+            "ms": times[key]["ms"], "plain_ms": times[key]["plain_ms"],
+            "bound_ms": times[key]["bound_ms"],
+            "bound_by": times[key]["bound_by"], "library_ms": None,
+            "frames": times[key]["frames"]})
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+        "build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -111,6 +111,12 @@ def load():
             lib.rtt_develop_launch.restype = i32
             lib.rtt_develop_grad_launch.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
             lib.rtt_develop_grad_launch.restype = i32
+            # (words, table, out0, out1, n, h, w, mixer_on, grading_on,
+            #  stencils, output, cy, cx, icy, icx, stream)
+            f32 = ctypes.c_float
+            lib.rtt_extras_launch.argtypes = ([ptr] * 4 + [i32] * 7
+                                              + [f32] * 4 + [ptr])
+            lib.rtt_extras_launch.restype = i32
             lib.rtt_error_string.argtypes = [i32]
             lib.rtt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -14,6 +14,13 @@ floor is 1 LSB of 8-bit output. The quirks are the reference's:
 - the levels epsilon 1e-4;
 - quantisation ``floor(c*255 + 0.5)``.
 
+After the transfer come, when the edit sets them, the point curve per
+channel (``ops/curve.py``) and the finish extras (``ops/extras.py``:
+HSL mixer, colour grading, denoise, tone curve, vignette, sharpen), in
+the chain before quantisation, as the JAX functions run them. The
+``extras`` argument of the entry points is the JAX one: pass
+``params.finish_extras_mode()``.
+
 ``demosaic_method`` selects the demosaic of ``develop``,
 ``develop_rgba`` and ``develop_u8``: the parity stencil ``"nearest"``,
 or the accurate lane's ``"bilinear"``, ``"malvar"`` and ``"grad"``
@@ -60,16 +67,56 @@ def u16_to_f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def require_ported(params: EditParams, extras=False) -> None:
-    """Raise ``NotImplementedError`` for edits this port cannot render
-    yet (they are never skipped silently)."""
-    if extras or params.has_finish_extras():
-        raise NotImplementedError("not ported yet: finish extras")
+    """Raise ``NotImplementedError``, naming the field, for edits this
+    port cannot render yet (they are never skipped silently): clarity,
+    dehaze, grain, local adjustments and highlight recovery."""
+    for name in ("clarity", "dehaze", "grain"):
+        if float(getattr(params, name)):
+            raise NotImplementedError(f"not ported yet: {name}")
     if params.locals:
         raise NotImplementedError("not ported yet: local adjustments")
-    if params.point_curve:
-        raise NotImplementedError("not ported yet: point curve")
     if float(params.highlight_recovery):
         raise NotImplementedError("not ported yet: highlight recovery")
+    _extras_of(params, extras)
+
+
+def _extras_of(params: EditParams, extras):
+    """The (sharpen, denoise, curve 4-tuple, vignette, clarity, dehaze,
+    mixer, grading, grain, stencils) amounts for the finish stage, or
+    None: the positional contract of
+    ``apply_finish_extras(r, g, b, *extras)``.
+
+    ``extras`` is the JAX develop functions' static mode: False/None is
+    off; otherwise a "+"-joined string of parts from
+    ``EditParams.finish_extras_mode()``: "base" (the stencil stages),
+    "mixer", "grading". The parts that run clarity or dehaze ("full",
+    and the legacy ``True``) or grain raise ``NotImplementedError``."""
+    if not extras:
+        return None
+    if extras is True:
+        raise NotImplementedError(
+            "not ported yet: clarity (extras=True is the full mode, which "
+            "runs the clarity pass)")
+    parts = set(extras.split("+"))
+    if "full" in parts:
+        raise NotImplementedError("not ported yet: "
+                                  + ("dehaze" if float(params.dehaze)
+                                     else "clarity"))
+    if "grain" in parts:
+        raise NotImplementedError("not ported yet: grain")
+    return (params.sharpen, params.denoise,
+            (params.curve_shadows, params.curve_darks,
+             params.curve_lights, params.curve_highlights),
+            params.vignette, 0.0, 0.0,
+            params.mixer_values() if "mixer" in parts else None,
+            params.grading_values() if "grading" in parts else None,
+            None, "base" in parts)
+
+
+def _point_curve_of(params: EditParams):
+    """``params.point_curve`` as the finish stage's ``point_curve``: the
+    (x, y) tuple, or None when empty."""
+    return tuple(params.point_curve) or None
 
 
 def _scalars(params: EditParams, device):
@@ -150,15 +197,23 @@ def apply_edit_stack(r, g, b, params: EditParams, wb, cam_matrix,
 
 def finish_to_u8(r, g, b, valid=None, transfer: str = "gamma22",
                  extras=None, point_curve=None):
-    """Transfer, clamp at 1, ``floor(c*255 + 0.5)``; ``valid`` masks
-    out-of-frame samples to black. Returns three u8 planes."""
-    if extras is not None or point_curve:
-        raise NotImplementedError(
-            "not ported yet: finish extras and point curve")
+    """Transfer, clamp at 1, the point curve per channel (``point_curve``:
+    the (x, y) tuple or None), the finish extras (``extras``: the
+    ``_extras_of`` tuple or None), ``floor(c*255 + 0.5)``; ``valid``
+    masks out-of-frame samples to black. Returns three u8 planes."""
     encode = encoder_for(transfer)
+    r, g, b = (torch.clamp_max(encode(c), 1.0) for c in (r, g, b))
+    if point_curve:
+        from raweditor_tpu_torch.ops.curve import apply_point_curve
+
+        r, g, b = (apply_point_curve(c, point_curve) for c in (r, g, b))
+    if extras is not None:
+        from raweditor_tpu_torch.ops.extras import apply_finish_extras
+
+        r, g, b = apply_finish_extras(r, g, b, *extras)
 
     def quant(c):
-        q = torch.floor(torch.clamp_max(encode(c), 1.0) * 255.0 + 0.5)
+        q = torch.floor(c * 255.0 + 0.5)
         if valid is not None:
             q = torch.where(valid, q, 0.0)
         return q.to(torch.uint8)
@@ -208,6 +263,11 @@ def _linear_planes(mosaic, params, wb, cam_matrix, white_level,
                             matrix_transpose)
 
 
+def _finish_kwargs(params, transfer, extras):
+    return dict(transfer=transfer, extras=_extras_of(params, extras),
+                point_curve=_point_curve_of(params))
+
+
 def develop(mosaic, params: EditParams, wb, cam_matrix, white_level=4096.0,
             black_level=0.0, demosaic_method: str = "nearest",
             matrix_transpose: bool = True, transfer: str = "gamma22",
@@ -216,7 +276,8 @@ def develop(mosaic, params: EditParams, wb, cam_matrix, white_level=4096.0,
     r, g, b = _linear_planes(mosaic, params, wb, cam_matrix, white_level,
                              black_level, demosaic_method,
                              matrix_transpose, cfa_phase, extras)
-    return torch.stack(finish_to_u8(r, g, b, transfer=transfer), dim=-1)
+    return torch.stack(finish_to_u8(
+        r, g, b, **_finish_kwargs(params, transfer, extras)), dim=-1)
 
 
 def develop_rgba(mosaic, params: EditParams, wb, cam_matrix,
@@ -228,7 +289,8 @@ def develop_rgba(mosaic, params: EditParams, wb, cam_matrix,
     r, g, b = _linear_planes(mosaic, params, wb, cam_matrix, white_level,
                              black_level, demosaic_method,
                              matrix_transpose, cfa_phase, extras)
-    return finish_to_rgba_u32(r, g, b, transfer=transfer)
+    return finish_to_rgba_u32(r, g, b,
+                              **_finish_kwargs(params, transfer, extras))
 
 
 def develop_u8(mosaic, params, wb, cam_matrix, **kwargs) -> np.ndarray:
@@ -245,8 +307,11 @@ def develop_preview(mosaic, params: EditParams, wb, cam_matrix, out_w: int,
     """Preview at (out_h, out_w) with zoom/pan: nearest-sample the
     mosaic at output pixel centres and develop only those sites.
     The taps are gathered first and normalised after (normalisation is
-    elementwise, so the values equal a normalise-then-gather).
-    Returns (out_h, out_w, 3) u8."""
+    elementwise, so the values equal a normalise-then-gather). With
+    ``extras`` the finish stencils run on the sampled grid, with the
+    vignette over the preview's own frame (the live-preview
+    approximation the JAX function makes). Returns (out_h, out_w, 3)
+    u8."""
     require_ported(params, extras)
     h, w = mosaic.shape
     dev = mosaic.device
@@ -258,8 +323,9 @@ def develop_preview(mosaic, params: EditParams, wb, cam_matrix, out_w: int,
     r, g, b = (_normalize(t, white_level, black_level) for t in taps)
     r, g, b = apply_edit_stack(r, g, b, params, wb, cam_matrix,
                                matrix_transpose)
-    return torch.stack(finish_to_u8(r, g, b, valid=valid, transfer=transfer),
-                       dim=-1)
+    return torch.stack(finish_to_u8(
+        r, g, b, valid=valid, **_finish_kwargs(params, transfer, extras)),
+        dim=-1)
 
 
 def histogram_256(rgb_u8: torch.Tensor) -> torch.Tensor:

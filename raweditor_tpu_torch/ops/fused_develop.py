@@ -280,13 +280,21 @@ def develop_rgba_folded_plain(mosaics: torch.Tensor, scal: torch.Tensor,
     rq, gq, bq = (_quantize(luma + (c - luma) * f, gamma) for c in (r, g, b))
     if output == "rgba":
         return pack_rgba(rq, gq, bq)
+    return emit_ycbcr420(rq, gq, bq)
+
+
+def emit_ycbcr420(rq, gq, bq):
+    """The kernels' JPEG 4:2:0 emission (``store_quad<true>`` in
+    ``csrc/develop_common.cuh``) from quantised f32 (N, H, W) planes:
+    Y (N, H, W) u8 and NV12-interleaved CbCr (N, H/2, W) u8, the chroma
+    box summed over the row pair, then the column pair."""
     y, cb, cr = rgb_to_ycbcr(rq, gq, bq)
 
     def box(p):
         return ((p[..., 0::2, 0::2] + p[..., 1::2, 0::2])
                 + (p[..., 0::2, 1::2] + p[..., 1::2, 1::2])) * 0.25
 
-    n, h, w = mosaics.shape
+    n, h, w = rq.shape
     cbcr = torch.stack([quantize_u8(box(cb)), quantize_u8(box(cr))],
                        dim=-1).reshape(n, h // 2, w)
     return quantize_u8(y), cbcr

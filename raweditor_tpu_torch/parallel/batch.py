@@ -2,8 +2,14 @@
 
 ``pack_params`` folds a list of per-image edits into the (N, 24) scalar
 table of the fused kernel (``ops/fused_develop.fused_batch_develop_rgba``);
-``batch_develop_rgba`` is the plain parity lane over a batch, with
-``_maybe_ycbcr`` turning its words into JPEG planes.
+``pack_extras`` builds the (N, 38) amount table and the static flags of
+the finish-extras kernel (``ops/fused_extras.fused_finish_extras_rgba``).
+The kernel route of a batch with extras is
+``fused_batch_develop_rgba(..., output="rgba")`` then
+``fused_finish_extras_rgba(..., output="ycbcr420")``, as the JAX
+exporter's ``_extras_post_batch`` runs it. ``batch_develop_rgba`` is the
+plain lane over a batch (per-image extras in the chain, per-image point
+curves), with ``_maybe_ycbcr`` turning its words into JPEG planes.
 """
 
 from __future__ import annotations
@@ -13,6 +19,9 @@ import torch
 
 from raweditor_tpu_torch.ops.develop import develop_rgba
 from raweditor_tpu_torch.ops.fused_develop import fold_scalars
+from raweditor_tpu_torch.ops.fused_extras import pack_extras
+
+__all__ = ["batch_develop_rgba", "pack_extras", "pack_params"]
 
 
 def _levels(n: int, white_levels, black_levels):
@@ -57,9 +66,12 @@ def batch_develop_rgba(mosaics: torch.Tensor, params_list, wbs,
                        matrix_transpose: bool = True, cfa_phase=(0, 0),
                        transfer: str = "gamma22",
                        demosaic_method: str = "nearest",
-                       output: str = "rgba_words"):
-    """The parity lane over a batch: (N, H, W) u16 to (N, H, W) u32, or
-    JPEG planes (see ``_maybe_ycbcr``)."""
+                       output: str = "rgba_words", extras=False):
+    """The plain lane over a batch: (N, H, W) u16 to (N, H, W) u32, or
+    JPEG planes (see ``_maybe_ycbcr``). ``extras`` is the batch's static
+    finish-extras mode (the JAX ``extras`` argument): every image runs
+    the same stages with its own amounts; each image's point curve
+    applies."""
     n = mosaics.shape[0]
     wbs = np.asarray(wbs, np.float32).reshape(n, 3)
     cms = np.asarray(cam_matrices, np.float32).reshape(n, 3, 3)
@@ -70,6 +82,6 @@ def batch_develop_rgba(mosaics: torch.Tensor, params_list, wbs,
                      black_level=float(blacks[i]),
                      demosaic_method=demosaic_method,
                      matrix_transpose=matrix_transpose, transfer=transfer,
-                     cfa_phase=cfa_phase)
+                     cfa_phase=cfa_phase, extras=extras)
         for i, p in enumerate(params_list)])
     return _maybe_ycbcr(words, output)

@@ -8,9 +8,10 @@ the rest only when non-default), so catalog rows carry over unchanged.
 
 No pytree registration: the port's develop functions read the values as
 Python floats and build their own f32 scalars on the target device.
-Local-adjustment masks and point curves are not ported yet: their
-fields exist (empty by default) and a JSON payload that carries them
-raises ``NotImplementedError``.
+``point_curve`` round-trips through JSON as the JAX class does (checked
+by ``ops/curve.validate_points``). Local-adjustment masks are not ported
+yet: the field exists (empty by default), and a JSON payload or
+``to_json`` that carries masks raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Any
+
+from raweditor_tpu_torch.ops.curve import validate_points
 
 _REF_FIELDS = (
     "exposure", "contrast", "highlights", "shadows", "whites", "blacks",
@@ -108,36 +111,46 @@ class EditParams:
     grade_high_sat: float = 0.0
     grade_balance: float = 0.0
     highlight_recovery: float = 0.0
-    # Structural fields of the JAX class; empty until local adjustments
-    # and point curves are ported.
+    # Structural fields of the JAX class: local-adjustment masks (not
+    # ported yet) and the point curve's (x, y) control points.
     locals: Any = ()
     point_curve: Any = ()
 
     # -- persistence -----------------------------------------------------
     def to_json(self) -> str:
         """The JAX class's JSON: the ten reference fields always, the
-        extras only when non-default."""
-        if self.locals or self.point_curve:
-            raise NotImplementedError(
-                "not ported yet: local adjustments and point curves")
+        extras only when non-default, then the point curve when set."""
+        if self.locals:
+            raise NotImplementedError("not ported yet: local adjustments")
         data = {name: float(getattr(self, name)) for name in _REF_FIELDS}
         for name in _EXTRA_FIELDS:
             v = float(getattr(self, name))
             if v != _DEFAULTS[name]:
                 data[name] = v
+        if self.point_curve:
+            data["point_curve"] = [
+                [float(x), float(y)] for x, y in self.point_curve]
         return json.dumps(data)
 
     @classmethod
     def from_json(cls, payload: str) -> "EditParams":
         """Parse a catalog JSON blob: unknown keys raise, missing keys
-        take their defaults."""
+        take their defaults, a point curve is validated."""
         data = json.loads(payload)
-        if data.get("locals") or data.get("point_curve"):
-            raise NotImplementedError(
-                "not ported yet: local adjustments and point curves")
-        data.pop("locals", None)
-        data.pop("point_curve", None)
-        return cls.from_dict(data)
+        if "locals" in data:
+            raw = data.pop("locals")
+            if not isinstance(raw, list):
+                raise ValueError("'locals' must be a list of masks")
+            if raw:
+                raise NotImplementedError("not ported yet: local adjustments")
+        curve = ()
+        if "point_curve" in data:
+            raw = data.pop("point_curve")
+            if not isinstance(raw, list):
+                raise ValueError(
+                    "'point_curve' must be a list of [x, y] pairs")
+            curve = validate_points(raw)
+        return cls.from_dict(data).replace(point_curve=curve)
 
     @classmethod
     def from_dict(cls, d) -> "EditParams":
@@ -159,10 +172,20 @@ class EditParams:
     def has_mixer(self) -> bool:
         return any(float(getattr(self, name)) != 0.0 for name in MIXER_FIELDS)
 
+    def mixer_values(self) -> tuple:
+        """The 24 mixer sliders in MIXER_FIELDS order (hue x8, sat x8,
+        lum x8): the positional contract of ``ops.mixer.apply_hsl_mixer``."""
+        return tuple(getattr(self, name) for name in MIXER_FIELDS)
+
     def has_grading(self) -> bool:
         return any(float(getattr(self, name)) != 0.0
                    for name in ("grade_shadow_sat", "grade_mid_sat",
                                 "grade_high_sat"))
+
+    def grading_values(self) -> tuple:
+        """The 7 grading sliders in GRADE_FIELDS order: the positional
+        contract of ``ops.grading.apply_color_grading``."""
+        return tuple(getattr(self, name) for name in GRADE_FIELDS)
 
     def finish_extras_mode(self):
         """False, or the "+"-joined parts ("base"/"full", "mixer",

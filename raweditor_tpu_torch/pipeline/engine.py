@@ -24,10 +24,26 @@ with ``ops/demosaic.py``) renders the same method.
 Accurate mode uploads the mosaic with its per-CFA-site black levels
 folded out (``RawImage.fold_site_blacks``), as the JAX engine does.
 
+Finish extras (sharpen, denoise, the 4-region tone curve, vignette, the
+HSL mixer, colour grading) and the point curve render on every entry
+point, routed as the JAX engine routes them:
+
+- the slider tick, ``preview`` and ``histogram`` run them in the plain
+  chain on the sampled grid (``extras=params.finish_extras_mode()``);
+- the full-resolution develop writes RGBA words, then the finish-extras
+  post-pass runs over them: with ``use_kernel`` the B8 kernel
+  (``ops/fused_extras.fused_finish_extras_rgba``; with a CUDA device it
+  runs or the call raises), else its plain version
+  (``finish_extras_plain``). ``full_device``/``full`` unpack those
+  words; ``jpeg_planes`` and JPEG export take the kernel's 4:2:0 planes;
+- a point curve routes the develop to the plain lane even with
+  ``use_kernel`` (the develop kernels never compute it, as in the JAX
+  engine); the extras post-pass after it is still the kernel.
+
 Not ported yet: ``open(path)`` (RAW decode), X-Trans and LinearRaw
-frames, finish extras, local adjustments, point curves, highlight
-recovery, wide-gamut output, the pipelined tick, tiers, TIFF16,
-geometry and EXIF metadata in exports.
+frames, clarity, dehaze, grain, local adjustments, highlight recovery
+(each raises ``NotImplementedError`` naming it), wide-gamut output, the
+pipelined tick, tiers, TIFF16, geometry and EXIF metadata in exports.
 """
 
 from __future__ import annotations
@@ -41,6 +57,7 @@ import torch
 from raweditor_tpu_torch.color import cam_to_srgb_matrix, kernel_gamma_for
 from raweditor_tpu_torch.ops import develop as _develop
 from raweditor_tpu_torch.ops import fused_develop as _fused
+from raweditor_tpu_torch.ops import fused_extras as _fx
 from raweditor_tpu_torch.ops import jpeg as _jpeg
 from raweditor_tpu_torch.ops.demosaic import (CFA_PHASES, DEMOSAIC_METHODS,
                                               phase_of)
@@ -117,19 +134,21 @@ class DevelopEngine:
             self.cfa_phase = phase_of(raw.cfa_pattern)
 
     # -- slider tick -----------------------------------------------------
-    def _view_kwargs(self, zoom, pan):
+    def _view_kwargs(self, params, zoom, pan):
         return dict(zoom=float(zoom), pan_x=float(pan[0]),
                     pan_y=float(pan[1]), white_level=self.white_level,
                     black_level=self.black_level,
                     matrix_transpose=self.matrix_transpose,
-                    transfer=self.transfer, cfa_phase=self.cfa_phase)
+                    transfer=self.transfer, cfa_phase=self.cfa_phase,
+                    extras=params.finish_extras_mode())
 
     def preview_device(self, params: EditParams, zoom: float = 1.0,
                        pan: Tuple[float, float] = (0.0, 0.0)):
         """(preview_h, preview_w, 3) u8 preview, left on the device."""
         return _develop.develop_preview(
             self.mosaic, params, self.wb, self.cam_matrix,
-            self.preview_w, self.preview_h, **self._view_kwargs(zoom, pan))
+            self.preview_w, self.preview_h,
+            **self._view_kwargs(params, zoom, pan))
 
     def preview_tick(self, params: EditParams, zoom: float = 1.0,
                      pan: Tuple[float, float] = (0.0, 0.0)):
@@ -154,7 +173,7 @@ class DevelopEngine:
         return _develop.develop_histogram(
             self.mosaic, params, self.wb, self.cam_matrix,
             self.histogram_w, self.histogram_h,
-            **self._view_kwargs(zoom, pan)).cpu().numpy()
+            **self._view_kwargs(params, zoom, pan)).cpu().numpy()
 
     def preview_jpeg(self, params: EditParams, zoom: float = 1.0,
                      pan: Tuple[float, float] = (0.0, 0.0),
@@ -176,12 +195,13 @@ class DevelopEngine:
             params, self.wb, self.cam_matrix, self.white_level,
             self.black_level, self.matrix_transpose).to(self.device)
 
-    def full_rgba_device(self, params: EditParams):
-        """Full-resolution develop to (H, W) u32 packed RGBA on the
-        device: the fused kernel with ``use_kernel``, else the plain
-        lane."""
-        if self.use_kernel:
-            _develop.require_ported(params)
+    def _develop_words(self, params: EditParams):
+        """The develop before the extras post-pass, (H, W) u32 words: the
+        fused kernel with ``use_kernel``, else the plain lane. A point
+        curve takes the plain lane (which applies it) even with
+        ``use_kernel``: the develop kernels never compute it."""
+        _develop.require_ported(params)
+        if self.use_kernel and not params.point_curve:
             return _fused.fused_develop_rgba(
                 self.mosaic, self.scalars(params), self.cfa_phase,
                 kernel_gamma_for(self.transfer),
@@ -193,9 +213,40 @@ class DevelopEngine:
             matrix_transpose=self.matrix_transpose, transfer=self.transfer,
             cfa_phase=self.cfa_phase)
 
+    def _extras_post(self, words, params: EditParams, output: str = "rgba"):
+        """The finish-extras post-pass over developed words (the JAX
+        engine's ``_maybe_extras_post``): the B8 kernel with
+        ``use_kernel`` (its plain version for a CPU tensor), else
+        ``finish_extras_plain``; words pass unchanged when no extra is
+        on. ``output="ycbcr420"`` (``use_kernel`` only) returns the
+        Y, Cb, Cr planes."""
+        table, mixer_on, grading_on, stencils = _fx.pack_extras([params])
+        flags = dict(mixer_on=mixer_on, grading_on=grading_on,
+                     stencils=stencils)
+        if self.use_kernel:
+            out = _fx.fused_finish_extras_rgba(
+                words, table[0].to(self.device), output=output, **flags)
+            return out if output == "rgba" else (
+                out[0], out[1][:, 0::2], out[1][:, 1::2])
+        return _fx.finish_extras_plain(words[None], table.to(self.device),
+                                       **flags)[0]
+
+    def full_rgba_device(self, params: EditParams):
+        """Full-resolution develop to (H, W) u32 packed RGBA on the
+        device: the develop (``_develop_words``), then the finish-extras
+        post-pass when the edit has extras."""
+        words = self._develop_words(params)
+        if not params.finish_extras_mode():
+            return words
+        return self._extras_post(words, params)
+
     def full_device(self, params: EditParams):
-        """Full-resolution (H, W, 3) u8 develop on the device (the plain
-        lane)."""
+        """Full-resolution (H, W, 3) u8 develop on the device: the plain
+        lane, or with extras the unpacked words of
+        ``full_rgba_device`` (the post-pass semantics of every export)."""
+        if params.finish_extras_mode():
+            return torch.stack([c.to(torch.uint8) for c in _develop.unpack_rgba(
+                self.full_rgba_device(params))], dim=-1)
         return _develop.develop(
             self.mosaic, params, self.wb, self.cam_matrix,
             white_level=self.white_level, black_level=self.black_level,
@@ -209,12 +260,20 @@ class DevelopEngine:
     def jpeg_planes(self, params: EditParams):
         """Full-resolution JPEG 4:2:0 planes (Y (H, W), Cb and Cr
         (H/2, W/2), u8, on the device) for even frames. With
-        ``use_kernel`` they come straight from the fused kernel, else
-        from the plain lane's RGBA words."""
+        ``use_kernel`` they come straight from a kernel: the finish-extras
+        kernel after the develop when the edit has extras, else the
+        develop kernel (a point curve without extras converts the plain
+        lane's words). Without ``use_kernel``, from the plain lane's
+        RGBA words."""
         if self.height % 2 or self.width % 2:
             raise ValueError("ycbcr420 requires even dimensions")
         if not self.use_kernel:
             return _jpeg.rgba_words_to_ycbcr420(self.full_rgba_device(params))
+        if params.finish_extras_mode():
+            return self._extras_post(self._develop_words(params), params,
+                                     "ycbcr420")
+        if params.point_curve:
+            return _jpeg.rgba_words_to_ycbcr420(self._develop_words(params))
         _develop.require_ported(params)
         y, cbcr = _fused.fused_batch_develop_rgba(
             self.mosaic[None], self.scalars(params)[None], self.cfa_phase,

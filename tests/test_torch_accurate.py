@@ -476,7 +476,7 @@ def test_site_blacks_develop_like_jax(method, rng):
 
 def test_every_source_is_built():
     names = [p.name for p in _build._sources()]
-    assert names == ["develop.cu", "develop_grad.cu"]
+    assert names == ["develop.cu", "develop_grad.cu", "extras.cu"]
     header = _build.CSRC / "develop_common.cuh"
     assert header.exists()
     for src in names:

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from raweditor_tpu_torch import DevelopEngine, EditParams, RawImage
+from raweditor_tpu_torch.ops import _build
 from raweditor_tpu_torch.ops import fused_develop as fd
+from raweditor_tpu_torch.ops import fused_extras as fx
 from raweditor_tpu_torch.ops.develop import unpack_rgba
 from raweditor_tpu_torch.parallel.batch import pack_params
 
@@ -204,3 +206,139 @@ def test_accurate_engine_on_card_matches_cpu(cuda, demosaic, rng):
         assert int((g.cpu().int() - c.int()).abs().max()) <= 1
     gpu.use_kernel = False
     assert _words_diff(words, gpu.full_rgba_device(FULL)) <= 1
+
+
+# -- the finish-extras kernel (B8) ---------------------------------------------
+
+EXTRA = EditParams(sharpen=60.0, denoise=40.0, curve_shadows=30.0,
+                   curve_darks=-20.0, curve_lights=15.0,
+                   curve_highlights=-40.0, vignette=-30.0, hue_red=25.0,
+                   hue_blue=-40.0, sat_orange=30.0, sat_green=-50.0,
+                   lum_yellow=40.0, lum_purple=-35.0, grade_shadow_hue=210.0,
+                   grade_shadow_sat=40.0, grade_high_hue=45.0,
+                   grade_high_sat=30.0, grade_balance=-20.0)
+# Per-image amounts: one image with every amount at zero, one with
+# other sliders (the mixer off there).
+EXTRA_BATCH = [EXTRA, EditParams(),
+               EditParams(sharpen=100.0, vignette=70.0, curve_lights=-60.0,
+                          grade_mid_hue=120.0, grade_mid_sat=-50.0)]
+FLAGS = [(m, g, s) for m in (False, True) for g in (False, True)
+         for s in (False, True)]
+
+
+def _extras_inputs(rng, n, h, w, dev):
+    words = (rng.integers(0, 2**24, (n, h, w)).astype(np.uint32)
+             | np.uint32(0xFF000000))
+    tw = torch.from_numpy(words.view(np.int32)).view(torch.uint32)
+    table, *_ = fx.pack_extras([EXTRA_BATCH[i % 3] for i in range(n)])
+    return tw.to(dev), table.to(dev)
+
+
+def _share(a, b):
+    d = torch.stack([(x - y).abs() for x, y in zip(unpack_rgba(a.cpu()),
+                                                   unpack_rgba(b.cpu()))])
+    return int(d.max()), float((d.amax(0) > 0).float().mean())
+
+
+@pytest.mark.parametrize("flags", FLAGS, ids=lambda f: "mgs" + "".join(
+    str(int(x)) for x in f))
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 33, 17), (2, 100, 166),
+                                   (1, 256, 384), (3, 5, 7)])
+def test_extras_rgba_kernel_matches_plain(cuda, flags, shape, rng):
+    """Tiles at the edge and inside, every flag set, per-image amounts:
+    0 LSB expected (same f32 operations, -fmad=false), 1 allowed."""
+    words, table = _extras_inputs(rng, *shape, cuda)
+    kw = dict(zip(("mixer_on", "grading_on", "stencils"), flags))
+    before = fx.LAUNCHES["extras_rgba"]
+    got = fx.fused_finish_extras_rgba(words, table, **kw)
+    assert fx.LAUNCHES["extras_rgba"] == before + 1
+    want = fx.finish_extras_plain(words, table, *flags)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint32 and got.shape == words.shape
+    mx, share = _share(got, want)
+    print(f"extras rgba {shape} {flags}: max {mx} LSB, differing {share:.2e}")
+    assert mx <= 1
+    cpu = fx.fused_finish_extras_rgba(words.cpu(), table.cpu(), **kw)
+    assert _share(got, cpu)[0] <= 1
+
+
+@pytest.mark.parametrize("flags", FLAGS, ids=lambda f: "mgs" + "".join(
+    str(int(x)) for x in f))
+@pytest.mark.parametrize("shape", [(1, 2, 2), (1, 34, 18), (2, 100, 166),
+                                   (1, 256, 384)])
+def test_extras_ycbcr420_kernel_matches_plain(cuda, flags, shape, rng):
+    words, table = _extras_inputs(rng, *shape, cuda)
+    kw = dict(zip(("mixer_on", "grading_on", "stencils"), flags))
+    before = fx.LAUNCHES["extras_ycbcr420"]
+    y, cbcr = fx.fused_finish_extras_rgba(words, table, output="ycbcr420",
+                                          **kw)
+    assert fx.LAUNCHES["extras_ycbcr420"] == before + 1
+    wy, wc = fx.finish_extras_plain(words, table, *flags, output="ycbcr420")
+    torch.cuda.synchronize()
+    n, h, w = shape
+    assert y.shape == (n, h, w) and cbcr.shape == (n, h // 2, w)
+    for g, wnt in ((y, wy), (cbcr, wc)):
+        assert int((g.int() - wnt.int()).abs().max()) <= 1
+
+
+def test_extras_kernel_rejects_and_raises(cuda, rng, monkeypatch):
+    """Bad inputs raise before a launch; a launch error raises (no
+    fallback to the plain version) and is not counted."""
+    words, table = _extras_inputs(rng, 2, 8, 10, cuda)
+    kw = dict(mixer_on=True, grading_on=True, stencils=True)
+    for args, extra in (((words.to(torch.int32), table), {}),
+                        ((words, table.cpu()), {}),
+                        ((words, table[:1].contiguous()), {}),
+                        ((words[:, :7].contiguous(), table),
+                         {"output": "ycbcr420"})):
+        with pytest.raises((TypeError, ValueError)):
+            fx.fused_finish_extras_rgba(*args, **kw, **extra)
+
+    class Failing:
+        def rtt_extras_launch(self, *a):
+            return 700
+
+        def rtt_error_string(self, code):
+            return b"an illegal memory access was encountered"
+
+    monkeypatch.setattr(_build, "load", lambda: Failing())
+    before = dict(fx.LAUNCHES)
+    with pytest.raises(RuntimeError, match="extras kernel"):
+        fx.fused_finish_extras_rgba(words, table, **kw)
+    assert fx.LAUNCHES == before
+
+
+def test_extras_engine_on_card(cuda, rng):
+    """The engine's extras route on the card: develop kernel then B8;
+    a point curve keeps the develop on the plain lane and B8 after it;
+    every result within 1 LSB of the same engine on the CPU."""
+    raw = RawImage(rng.integers(0, 4096, (96, 144), dtype=np.uint16),
+                   np.array([2.0, 1.0, 1.5, 1.0], np.float32), REAL * 10000,
+                   black_level=100.0, white_level=4000.0, cfa_pattern="RGGB")
+    kw = dict(mode="accurate", use_kernel=True, transfer="srgb",
+              demosaic_method="malvar", max_preview_width=64,
+              histogram_width=32)
+    gpu, cpu = DevelopEngine(raw, device=cuda, **kw), DevelopEngine(
+        raw, device="cpu", **kw)
+    p = FULL.replace(**{k: getattr(EXTRA, k) for k in fx.EXTRAS_COLUMNS})
+    a = gpu.preview_tick(p, 1.5, (0.05, 0.0)).cpu().numpy().astype(int)
+    b = cpu.preview_tick(p, 1.5, (0.05, 0.0)).numpy().astype(int)
+    assert np.abs(a - b).max() <= 1
+    assert gpu.histogram(p).sum() == 3 * 32 * gpu.histogram_h
+    dev_key = fd.launch_key("rgba", "malvar")
+    before = dict(fd.LAUNCHES), dict(fx.LAUNCHES)
+    words = gpu.full_rgba_device(p)
+    assert fd.LAUNCHES[dev_key] == before[0][dev_key] + 1
+    assert fx.LAUNCHES["extras_rgba"] == before[1]["extras_rgba"] + 1
+    assert _words_diff(words, cpu.full_rgba_device(p)) <= 1
+    for g, c in zip(gpu.jpeg_planes(p), cpu.jpeg_planes(p)):
+        assert int((g.cpu().int() - c.int()).abs().max()) <= 1
+    assert fx.LAUNCHES["extras_ycbcr420"] == before[1]["extras_ycbcr420"] + 1
+    pc = p.replace(point_curve=((0.0, 0.0), (0.4, 0.5), (1.0, 1.0)))
+    before = dict(fd.LAUNCHES), dict(fx.LAUNCHES)
+    words = gpu.full_rgba_device(pc)
+    assert fd.LAUNCHES == before[0]
+    assert fx.LAUNCHES["extras_rgba"] == before[1]["extras_rgba"] + 1
+    assert _words_diff(words, cpu.full_rgba_device(pc)) <= 1
+    gpu.use_kernel = False
+    assert _words_diff(words, gpu.full_rgba_device(pc)) <= 1

@@ -193,8 +193,8 @@ def test_pack_unpack_round_trip(rng):
 
 def test_unported_inputs_raise(rng):
     m = torch.from_numpy(rng.integers(0, 4096, (8, 8), dtype=np.uint16))
-    for p in (EditParams(sharpen=10.0), EditParams(highlight_recovery=5.0),
-              EditParams(point_curve=((0.0, 0.0), (1.0, 1.0)))):
+    for p in (EditParams(clarity=10.0), EditParams(highlight_recovery=5.0),
+              EditParams(grain=10.0)):
         with pytest.raises(NotImplementedError):
             td.develop_rgba(m, p, WB, IDENTITY)
     with pytest.raises(NotImplementedError):

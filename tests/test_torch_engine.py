@@ -150,7 +150,7 @@ def test_preview_jpeg(rng):
 
 def test_unported_and_invalid(rng, tmp_path, monkeypatch):
     port, _ = _engines(rng, SETUPS[0], use_kernel=True)
-    for p in (EditParams(sharpen=20.0), EditParams(hue_red=10.0)):
+    for p in (EditParams(clarity=20.0), EditParams(grain=10.0)):
         with pytest.raises(NotImplementedError):
             port.full_rgba_device(p)
         with pytest.raises(NotImplementedError):

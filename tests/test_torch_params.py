@@ -57,7 +57,7 @@ def test_unknown_and_unported_json():
     with pytest.raises(ValueError):
         EditParams.from_json(json.dumps({"bogus": 1.0}))
     with pytest.raises(NotImplementedError):
-        EditParams.from_json(json.dumps({"point_curve": [[0, 0], [1, 1]]}))
+        EditParams.from_json(json.dumps({"locals": [{"kind": "radial"}]}))
     assert EditParams.from_json(json.dumps({"locals": []})) == EditParams()
 
 
@@ -101,3 +101,29 @@ def test_transfer_curves_match(transfer):
     assert err <= 4 * np.finfo(np.float32).eps
     with pytest.raises(ValueError):
         tcolor.encoder_for("bogus")
+
+
+@pytest.mark.parametrize("curve", [((0.0, 0.0), (1.0, 1.0)),
+                                   ((0.0, 0.1), (0.4, 0.5), (1.0, 0.9))])
+def test_point_curve_json_matches(curve):
+    d = {"exposure": 0.5, "sharpen": 20.0, "hue_red": -10.0}
+    jax_p = JaxParams(point_curve=curve, **d)
+    port_p = EditParams.from_dict(d).replace(point_curve=curve)
+    assert port_p.to_json() == jax_p.to_json()
+    assert EditParams.from_json(jax_p.to_json()) == port_p
+    assert JaxParams.from_json(port_p.to_json()).point_curve == curve
+    for bad in ('{"point_curve": 3}', '{"point_curve": [[0, 0]]}',
+                '{"point_curve": [[0, 0], [0.5, 2]]}', '{"locals": 1}'):
+        with pytest.raises(ValueError):
+            JaxParams.from_json(bad)
+        with pytest.raises(ValueError):
+            EditParams.from_json(bad)
+
+
+def test_value_helpers_match(rng):
+    names = JaxParams.field_names()
+    d = {n: float(rng.uniform(-50, 50)) for n in names[21:52]}
+    t, j = EditParams.from_dict(d), JaxParams(**d)
+    assert t.mixer_values() == j.mixer_values() and len(t.mixer_values()) == 24
+    assert t.grading_values() == j.grading_values()
+    assert len(t.grading_values()) == 7
