@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``raweditor_tpu_torch/csrc`` (one nvcc per
-source, three sources started together), makes seeded 24 MP (4016x6016)
-12-bit Bayer frames, and drives three paths through the entry points a
-user calls, each with the launch counts set to 0 just before it and read
-just after:
+source, four sources started together), makes seeded 24 MP 12-bit frames
+(4016x6016 Bayer, 4000x6000 X-Trans), and drives four paths through the
+entry points a user calls, each with the launch counts set to 0 just
+before it and read just after:
 
 - the parity path: ``DevelopEngine`` slider ticks with histogram, the
   full-resolution kernel develop for the four transfers, JPEG export,
@@ -23,13 +23,21 @@ just after:
   develop kernel, then the finish-extras kernel), a mixer-only edit, an
   edit with a point curve (plain develop lane, then the extras kernel),
   and a batch of four frames: develop words, then the extras kernel to
-  JPEG planes with per-image amounts.
+  JPEG planes with per-image amounts;
+- the X-Trans path: an accurate-mode frame whose ``cfa_pattern`` is the
+  6x6 X-Trans grid, for the nearest, smooth and grad tiers with the sRGB
+  transfer and its polynomial form: slider ticks, the histogram,
+  ``full_rgba_device``, ``jpeg_planes`` and ``export(".jpg")``, once
+  more with the extras edit (the generic-CFA develop kernel, then the
+  extras kernel), and a batch of four frames to JPEG planes per tier.
 
 Then it holds every kernel against its plain PyTorch version (at the four
 Bayer phases and on an odd 4015x6013 frame; the extras kernel for every
-flag set, on the odd frame, a 33x17 batch and at 24 MP) and against the
-plain lane, compares small frames on the card with the CPU, times each
-kernel beside its plain version with CUDA events, and prints:
+flag set, on the odd frame, a 33x17 batch and at 24 MP; the generic-CFA
+kernels at 24 MP, on the odd frame and on small frames around the tile
+and period edges) and against the plain lane, compares small frames on
+the card with the CPU, times each kernel beside its plain version with
+CUDA events, and prints:
 
 - a line ``{"kernels": [...]}`` with each kernel's launches on its path,
   its largest difference from the plain version, both times, and its
@@ -59,13 +67,20 @@ BATCH = 4
 TIMING_REPS = 10
 ACCURATE = ("bilinear", "malvar", "grad")
 PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
+XH, XW = 4000, 6000  # the 24 MP frame of Fujifilm's X-Trans III bodies
+XT_TIERS = ("nearest", "smooth", "grad")
+# RGBA frames around the 32x16 tile, the 2x2 quad and the 6x6 period.
+XT_SMALL = ((1, 1), (5, 7), (6, 6), (16, 32), (17, 33), (31, 45), (36, 48),
+            (37, 65))
 SRC = {"develop": "raweditor_tpu_torch/csrc/develop.cu",
        "grad": "raweditor_tpu_torch/csrc/develop_grad.cu",
+       "cfa_grad": "raweditor_tpu_torch/csrc/develop_grad_generic.cu",
        "extras": "raweditor_tpu_torch/csrc/extras.cu"}
 TPU_KERNEL = "raweditor_tpu/ops/pallas_develop.py"
 # The TPU function each kernel variant replaces (file:line).
 REPLACES = {("nearest", "rgba"): 983, ("nearest", "ycbcr420"): 879,
             "bilinear": 199, "malvar": 199, "grad": 412,
+            "cfa_nearest": 753, "cfa_smooth": 495, "cfa_grad": 565,
             "extras_rgba": 1379, "extras_ycbcr420": 1258}
 # The extras path's edit: every band-local extra, six mixer sliders and
 # two grading wheels.
@@ -83,6 +98,9 @@ FLAG_SETS = [(m, g, s) for m in (False, True) for g in (False, True)
 # Nikon D3300 ColorMatrix (dcraw adobe_coeff, x10000) for the accurate frame.
 D3300_XYZ_TO_CAM = np.array([[6988, -1384, -714], [-5631, 13410, 2447],
                              [-1485, 2204, 7318]], np.float32) / 10000.0
+# Fujifilm X-T2 (X-Trans III) ColorMatrix, the same source.
+XT2_XYZ_TO_CAM = np.array([[11434, -4948, -1210], [-3746, 12042, 1903],
+                           [-666, 1479, 5235]], np.float32) / 10000.0
 
 # The bound: H100 SXM data-sheet rates (HBM, f32 outside the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
@@ -93,7 +111,11 @@ F32_OPS_PER_S = 67e12
 DEMOSAIC_OPS = {"nearest": 1.0,    # raw * scale
                 "bilinear": 7.0,   # + the neighbour sums and means
                 "malvar": 24.5,    # + the four 5x5 filters, 3 floors
-                "grad": 52.0}      # G 8.5, R/B 6.5, 2 refinements 36
+                "grad": 52.0,      # G 8.5, R/B 6.5, 2 refinements 36
+                # The generic-CFA tiers (cfa_nearest, cfa_smooth,
+                # cfa_grad) are counted from the pattern itself by
+                # cfa_demosaic_ops() when the run starts.
+                }
 FINISH_OPS = 60.0                  # matrix, tone, saturation/vibrance
 QUANT_OPS = {"pow": 6.0, "poly": 18.0, "srgb": 10.0, "srgb_poly": 20.0}
 YCBCR_OPS = 23.5                   # Y, Cb, Cr and the 2x2 chroma box
@@ -166,6 +188,66 @@ def host_ms(fn, reps):
     return statistics.median(out)
 
 
+def cfa_demosaic_ops(grid):
+    """f32 operations per pixel that the generic-CFA demosaics need on the
+    channel grid ``grid`` (side x side of 0/1/2 = R/G/B), averaged over the
+    period's cells: {"cfa_nearest", "cfa_smooth", "cfa_grad"}.
+
+    Only the taps the pattern fills are counted. A masked tap is an exact
+    zero, and adding it, doubling it or dividing by a denominator of one
+    changes no bit, so a kernel need not do it; the kernels' factored
+    order (column sums (a + b*2) + c, then the row sum) is kept, a select
+    and an abs are free, a division counts one."""
+    side = grid.shape[0]
+    tent_w = (1, 2, 1)
+
+    def at(y, x, chan):
+        return bool(grid[y % side, x % side] == chan)
+
+    def sum3(a, b, c):
+        """(ops, nonzero) of (a + b*2) + c over known-zero flags."""
+        return int(b) + int(a and b) + int((a or b) and c), a or b or c
+
+    def tent2(y, x, chan):
+        """The masked 3x3 tent of ``chan`` around (y, x), its division
+        included."""
+        ops, cols, den = 0, [], 0
+        for dx in (-1, 0, 1):
+            fill = [at(y + dy, x + dx, chan) for dy in (-1, 0, 1)]
+            n, nz = sum3(*fill)
+            ops += n
+            cols.append(nz)
+            den += tent_w[dx + 1] * sum(w for w, f in zip(tent_w, fill) if f)
+        n, nz = sum3(*cols)
+        return ops + n + int(nz and den != 1)
+
+    def tent1(y, x, dy, dx):
+        """The masked 1-D G tent along (dy, dx) at a non-G cell: (ops,
+        nonzero)."""
+        a, c = at(y - dy, x - dx, 1), at(y + dy, x + dx, 1)
+        return int(a and c) + int(a + c > 1), a or c
+
+    smooth = grad = 0
+    for y in range(side):
+        for x in range(side):
+            here = int(grid[y, x])
+            smooth += sum(tent2(y, x, c) for c in range(3) if c != here)
+            if here != 1:
+                # G: the two directional tents, the two gradient weights
+                # (sub, add, div), the blend (two products, their sum,
+                # the weights' sum, the division); then value - G.
+                (nh, zh), (nv, zv) = tent1(y, x, 0, 1), tent1(y, x, 1, 0)
+                grad += nh + nv + 6 + int(zh) + int(zv) + int(zh and zv) + 2
+                grad += 1
+            # R and B where missing: the tent of value - G, then + G.
+            grad += sum(tent2(y, x, c) + 1 for c in (0, 2) if c != here)
+    cells = float(side * side)
+    # cfa_nearest: raw * scale; cfa_grad: + the two chroma refinements on
+    # dense planes, 36 as for the Bayer kernel.
+    return {"cfa_nearest": 1.0, "cfa_smooth": 1.0 + smooth / cells,
+            "cfa_grad": 1.0 + grad / cells + 36.0}
+
+
 def bound(n_px, demosaic, gamma, output):
     """(ms, "bytes" or "operations"): the least time the card could take
     for ``n_px`` pixels of one kernel variant."""
@@ -206,8 +288,8 @@ def main():
     from raweditor_tpu_torch.ops import _build
     from raweditor_tpu_torch.ops import fused_develop as fused
     from raweditor_tpu_torch.ops import fused_extras as fx
-    from raweditor_tpu_torch.parallel.batch import (batch_develop_rgba,
-                                                    pack_params)
+    from raweditor_tpu_torch.parallel.batch import (
+        batch_develop_rgba, batch_develop_xtrans_rgba, pack_params)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -287,6 +369,26 @@ def main():
     x_table = x_table.cuda()
     x_kw = dict(zip(("mixer_on", "grading_on", "stencils"), x_flags))
     x_engines = {"parity": eng, "malvar": accurate["malvar", False]}
+    # The X-Trans path: a 4000x6000 frame on the 6x6 grid, accurate mode,
+    # the X-T2 matrix, the accurate path's levels; one engine per tier
+    # and transfer form; a batch of four with per-image scalars.
+    xtrans = fused.cfa_generic.XTRANS_PATTERN
+    DEMOSAIC_OPS.update(cfa_demosaic_ops(
+        fused.cfa_generic.channel_grid(xtrans)))
+    log("demosaic f32 operations per pixel for the bounds: "
+        f"{json.dumps(DEMOSAIC_OPS)}")
+    xt_raw = RawImage(np.ascontiguousarray(mosaic[:XH, :XW]), wb4,
+                      XT2_XYZ_TO_CAM, black_level=150.0, white_level=4095.0,
+                      cfa_pattern=xtrans)
+    xt_engines = {(t, fast): DevelopEngine(
+        xt_raw, "accurate", use_kernel=True, transfer="srgb",
+        fast_gamma=fast, demosaic_method=t, device="cuda")
+        for t in XT_TIERS for fast in (False, True)}
+    xt_batch = batch[:, :XH, :XW].contiguous()
+    xt_cm = np.tile(cam_to_srgb_matrix(XT2_XYZ_TO_CAM, "accurate"),
+                    (BATCH, 1, 1))
+    xt_scal = pack_params(batch_params, batch_wb, xt_cm,
+                          matrix_transpose=False, **acc_levels).cuda()
     rk = get_rawkit()
 
     def encode(y, cbcr):
@@ -294,7 +396,8 @@ def main():
             np.ascontiguousarray(y[i].cpu().numpy()),
             np.ascontiguousarray(cbcr[i, :, 0::2].cpu().numpy()),
             np.ascontiguousarray(cbcr[i, :, 1::2].cpu().numpy()),
-            W, H, 95, False, 0, 0) for i in range(y.shape[0])]
+            y.shape[2], y.shape[1], 95, False, 0, 0)
+            for i in range(y.shape[0])]
 
     torch.cuda.synchronize()
     launches = {}
@@ -395,6 +498,74 @@ def main():
         check(x_launches[k] > 0, f"{k} never launched")
         launches[k] = x_launches[k]
 
+    # -- the X-Trans path: counts reset just before, read just after ------
+    reset(fused.LAUNCHES)
+    reset(fx.LAUNCHES)
+    t0 = time.perf_counter()
+    xt_tick_ms = []
+    xt_words, xt_planes, xt_jpegs, xt_x_words, xt_x_planes = {}, {}, {}, {}, {}
+    xt_batch_planes = {}
+
+    def launching(out, tier, fn, *args, **kw):
+        """``fn(*args)``, which must launch the X-Trans kernel of
+        ``out`` and ``tier`` exactly once."""
+        k = fused.launch_key(out, tier, xtrans)
+        n = fused.LAUNCHES[k]
+        res = fn(*args, **kw)
+        check(fused.LAUNCHES[k] == n + 1,
+              f"{fn.__name__} launched {k} {fused.LAUNCHES[k] - n} times")
+        return res
+
+    for (tier, fast), e in xt_engines.items():
+        for i in range(4):
+            p = edit.replace(exposure=-1.0 + 0.4 * i, saturation=20.0 * i)
+            t = time.perf_counter()
+            xt_prev = e.preview_tick(p, zoom=(1.0, 1.5, 2.0, 3.7)[i],
+                                     pan=(0.02 * i - 0.04, 0.01 * i))
+            xt_tick_ms.append((time.perf_counter() - t) * 1e3)
+        xt_hist = e.histogram(edit)
+        xt_words[tier, fast] = launching("rgba", tier, e.full_rgba_device,
+                                         edit)
+        xt_planes[tier, fast] = launching("ycbcr420", tier, e.jpeg_planes,
+                                          edit)
+        path = launching(
+            "ycbcr420", tier, e.export,
+            os.path.join(tmpdir, f"xt_{tier}_{int(fast)}.jpg"), edit)
+        with open(path, "rb") as f:
+            xt_jpegs[tier, fast] = f.read()
+    for tier in XT_TIERS:
+        e = xt_engines[tier, False]
+        # With extras both forms run the RGBA develop kernel, then B8.
+        xt_x_words[tier] = launching("rgba", tier, e.full_rgba_device, xedit)
+        xt_x_planes[tier] = launching("rgba", tier, e.jpeg_planes, xedit)
+        xt_batch_planes[tier] = launching(
+            "ycbcr420", tier, fused.fused_batch_develop_rgba, xt_batch,
+            xt_scal, gamma="srgb", output="ycbcr420", demosaic=tier,
+            pattern=xtrans)
+    xt_batch_jpegs = encode(*xt_batch_planes["grad"])
+    torch.cuda.synchronize()
+    xt_launches = dict(fused.LAUNCHES)
+    xt_fx_launches = dict(fx.LAUNCHES)
+    log(f"X-Trans path: {time.perf_counter() - t0:.2f} s, launches "
+        f"{ {k: v for k, v in xt_launches.items() if v} } (extras "
+        f"{xt_fx_launches}), preview tick median "
+        f"{statistics.median(xt_tick_ms):.3f} ms (host clock, each "
+        "engine's first tick included)")
+    for tier in XT_TIERS:
+        for out in ("rgba", "ycbcr420"):
+            # Two engines' full frames and the two extras forms; two
+            # engines' planes and exports and the batch call. Previews
+            # and histograms take the plain lane.
+            k = fused.launch_key(out, tier, xtrans)
+            check(xt_launches[k] == (4 if out == "rgba" else 5),
+                  f"{k} launched {xt_launches[k]} times")
+            launches[k] = xt_launches[k]
+    check(all(v == 0 for k, v in xt_launches.items() if "_cfa_" not in k),
+          f"a Bayer kernel ran on the X-Trans path: {xt_launches}")
+    check(xt_fx_launches == {"extras_rgba": len(XT_TIERS),
+                             "extras_ycbcr420": len(XT_TIERS)},
+          f"X-Trans extras launches {xt_fx_launches}")
+
     # -- outputs ----------------------------------------------------------
     check(tuple(prev.shape) == (854, 1280, 3) and prev.dtype == torch.uint8,
           f"preview shape {tuple(prev.shape)}")
@@ -415,6 +586,18 @@ def main():
               and len(j) > 100_000, f"extras export JFIF ({len(j)} bytes)")
     log(f"extras exports { {k: len(j) for k, j in x_jpegs.items()} }, batch "
         f"JPEGs {[len(j) for j in x_batch_jpegs]} bytes")
+    check(tuple(xt_prev.shape) == (853, 1280, 3)
+          and xt_prev.dtype == torch.uint8,
+          f"X-Trans preview shape {tuple(xt_prev.shape)}")
+    check(xt_hist.shape == (3, 256)
+          and (xt_hist.sum(axis=1) == 128 * 85).all(),
+          f"X-Trans histogram sums {xt_hist.sum(axis=1)}")
+    for j in list(xt_jpegs.values()) + xt_batch_jpegs:
+        check(j[:2] == b"\xff\xd8" and j[-2:] == b"\xff\xd9"
+              and len(j) > 100_000, f"X-Trans JFIF ({len(j)} bytes)")
+    log(f"X-Trans exports "
+        f"{ {f'{t}/{int(f)}': len(j) for (t, f), j in xt_jpegs.items()} }, "
+        f"batch JPEGs {[len(j) for j in xt_batch_jpegs]} bytes")
     log(f"export: {len(data)} bytes; accurate exports "
         f"{ {f'{m}/{int(f)}': len(j) for (m, f), j in acc_jpegs.items()} }; "
         f"batch JPEGs {[len(j) for j in batch_jpegs]} and "
@@ -632,6 +815,102 @@ def main():
     log(f"extras flag sets (mixer, grading, stencils) worst LSB: "
         f"{ {''.join(str(int(f)) for f in k): v for k, v in worst.items()} }")
 
+    # The generic-CFA kernels: every X-Trans result against its plain
+    # version (0 LSB expected) and the engine's kernel route against its
+    # plain lane (the folded scalars: at most 1 LSB).
+    def cfa_plain(mos, sc, gamma, tier, output="rgba"):
+        return fused.develop_rgba_folded_plain(
+            mos, sc, gamma=gamma, output=output, demosaic=tier,
+            pattern=xtrans)
+
+    def cfa_kernel(mos, sc, gamma, tier, output="rgba"):
+        return fused.fused_batch_develop_rgba(
+            mos, sc, gamma=gamma, output=output, demosaic=tier,
+            pattern=xtrans)
+
+    for (tier, fast), e in xt_engines.items():
+        gamma = kernel_gamma_for(e.transfer)
+        words = xt_words[tier, fast]
+        check(tuple(words.shape) == (XH, XW) and words.dtype == torch.uint32,
+              f"X-Trans {tier} words shape")
+        sc = e.scalars(edit)[None]
+        mx, share = lsb_diff(words, cfa_plain(e.mosaic[None], sc, gamma,
+                                              tier)[0])
+        note(fused.launch_key("rgba", tier, xtrans), mx,
+             f"X-Trans {tier}/{gamma} kernel vs plain")
+        y, cbcr = cfa_plain(e.mosaic[None], sc, gamma, tier, "ycbcr420")
+        mxp = planes_diff(xt_planes[tier, fast],
+                          (y[0], cbcr[0, :, 0::2], cbcr[0, :, 1::2]))
+        note(fused.launch_key("ycbcr420", tier, xtrans), mxp,
+             f"X-Trans {tier}/{gamma} planes kernel vs plain")
+        e.use_kernel = False
+        lane = e.full_rgba_device(edit)
+        lane_planes = e.jpeg_planes(edit)
+        e.use_kernel = True
+        mx2, share2 = lsb_diff(words, lane)
+        mxp2 = planes_diff(xt_planes[tier, fast], lane_planes)
+        check(mx2 <= 1 and mxp2 <= 1, f"X-Trans {tier}/{gamma}: kernel vs "
+              f"plain lane {mx2} LSB, planes {mxp2}")
+        log(f"X-Trans {tier}/{gamma}: kernel vs plain max {mx} LSB "
+            f"({share:.3e}), planes {mxp}; vs plain lane max {mx2} LSB "
+            f"({share2:.3e}), planes {mxp2}")
+        del lane, lane_planes, y, cbcr
+        torch.cuda.empty_cache()
+    # The odd frame, small frames around the tile and period edges, the
+    # batch of four to planes (per-image sliders, WB and levels) also
+    # against the plain lane, the extras after the develop, a constant
+    # frame.
+    xt_sc = xt_engines["grad", False].scalars(edit)[None]
+    for tier in XT_TIERS:
+        key = fused.launch_key("rgba", tier, xtrans)
+        mx_odd, _ = lsb_diff(cfa_kernel(odd, xt_sc, "srgb", tier),
+                             cfa_plain(odd, xt_sc, "srgb", tier))
+        note(key, mx_odd, f"X-Trans {tier} odd frame")
+        worst = 0
+        for h, w in XT_SMALL:
+            small_b = batch[:, 7: 7 + h, 5: 5 + w].contiguous()
+            for gamma in fused.GAMMAS:
+                mx, _ = lsb_diff(cfa_kernel(small_b, xt_scal, gamma, tier),
+                                 cfa_plain(small_b, xt_scal, gamma, tier))
+                note(key, mx, f"X-Trans {tier} {h}x{w} {gamma}")
+                worst = max(worst, mx)
+        y_p, cbcr_p = cfa_plain(xt_batch, xt_scal, "srgb", tier, "ycbcr420")
+        lane = batch_develop_xtrans_rgba(
+            xt_batch, batch_params, batch_wb, xt_cm, pattern=xtrans,
+            transfer="srgb", demosaic_method=tier, output="ycbcr420",
+            **acc_levels)
+        y_k, cbcr_k = xt_batch_planes[tier]
+        mxb, mxl = 0, 0
+        for a, b, c in ((y_k, y_p, lane[0]),
+                        (cbcr_k[..., 0::2], cbcr_p[..., 0::2], lane[1]),
+                        (cbcr_k[..., 1::2], cbcr_p[..., 1::2], lane[2])):
+            mxb = max(mxb, plane_diff(a, b)[0])
+            mxl = max(mxl, plane_diff(a, c)[0])
+        note(fused.launch_key("ycbcr420", tier, xtrans), mxb,
+             f"X-Trans {tier} batch planes")
+        check(mxl <= 1, f"X-Trans {tier} batch planes vs plain lane: {mxl}")
+        del y_p, cbcr_p, lane
+        e = xt_engines[tier, False]
+        dev_words = cfa_kernel(e.mosaic[None], e.scalars(xedit)[None],
+                               "srgb", tier)
+        mxx, _ = lsb_diff(xt_x_words[tier], fx.finish_extras_plain(
+            dev_words, one_table, *one_flags)[0])
+        note("extras_rgba", mxx, f"X-Trans {tier} extras kernel vs plain")
+        y, cbcr = fx.finish_extras_plain(dev_words, one_table, *one_flags,
+                                         output="ycbcr420")
+        mxxp = planes_diff(xt_x_planes[tier], (y[0], cbcr[0, :, 0::2],
+                                               cbcr[0, :, 1::2]))
+        note("extras_ycbcr420", mxxp, f"X-Trans {tier} extras planes")
+        check(torch.unique(cfa_kernel(flat, xt_sc, "srgb",
+                                      tier)).numel() == 1,
+              f"constant mosaic through X-Trans {tier} is not uniform")
+        log(f"X-Trans {tier}: odd {H - 1}x{W - 3} frame max {mx_odd} LSB; "
+            f"small frames {XT_SMALL} x four transfers max {worst} LSB; "
+            f"batch planes vs plain max {mxb}, vs plain lane max {mxl}; "
+            f"extras after it vs plain max {mxx} LSB, planes {mxxp}")
+        del dev_words, y, cbcr
+        torch.cuda.empty_cache()
+
     # Small inputs: the card against the same code on the CPU (which the
     # CPU tests hold against the JAX package), parity and accurate with
     # per-site black levels.
@@ -676,35 +955,60 @@ def main():
           f"extras card vs CPU: {pv}, {mx}, {mxp}")
     log(f"small extras frame card vs CPU: preview max {pv}, full max {mx}, "
         f"planes max {mxp}")
+    small_xt = RawImage(mosaic[:252, :390].copy(), wb4, XT2_XYZ_TO_CAM,
+                        black_level=150.0, white_level=4095.0,
+                        cfa_pattern=xtrans)
+    for tier in XT_TIERS:
+        kw = dict(mode="accurate", use_kernel=True, transfer="srgb",
+                  demosaic_method=tier, max_preview_width=192)
+        g_e = DevelopEngine(small_xt, device="cuda", **kw)
+        c_e = DevelopEngine(small_xt, device="cpu", **kw)
+        pv = np.abs(g_e.preview(edit, 1.3, (0.02, 0.0)).astype(int)
+                    - c_e.preview(edit, 1.3, (0.02, 0.0)).astype(int)).max()
+        mx, _ = lsb_diff(g_e.full_rgba_device(edit).cpu(),
+                         c_e.full_rgba_device(edit))
+        mxp = planes_diff([p.cpu() for p in g_e.jpeg_planes(edit)],
+                          c_e.jpeg_planes(edit))
+        check(pv <= 1 and mx <= 1 and mxp <= 1,
+              f"X-Trans {tier} card vs CPU: {pv}, {mx}, {mxp}")
+        log(f"small X-Trans {tier} frame card vs CPU: preview max {pv}, "
+            f"full max {mx}, planes max {mxp}")
 
     # -- times at 24 MP, kernel and plain in turns ------------------------
     scal = eng.scalars(edit)[None]
-    timed = {  # key: (mosaics, scalars, gamma, output, demosaic)
-        "develop_rgba": (one, scal, "pow", "rgba", "nearest"),
+    timed = {  # key: (mosaics, scalars, gamma, output, demosaic, pattern)
+        "develop_rgba": (one, scal, "pow", "rgba", "nearest", None),
         "develop_ycbcr420": (batch, batch_scal, "pow", "ycbcr420",
-                             "nearest"),
+                             "nearest", None),
     }
     for m in ACCURATE:
-        timed[fused.launch_key("rgba", m)] = (one, scal_acc, "srgb", "rgba", m)
+        timed[fused.launch_key("rgba", m)] = (one, scal_acc, "srgb", "rgba", m,
+                                              None)
         timed[fused.launch_key("ycbcr420", m)] = (batch, acc_scal, "srgb",
-                                                  "ycbcr420", m)
+                                                  "ycbcr420", m, None)
+    xt_one = xt_engines["grad", False].mosaic[None]
+    for tier in XT_TIERS:
+        timed[fused.launch_key("rgba", tier, xtrans)] = (
+            xt_one, xt_sc, "srgb", "rgba", tier, xtrans)
+        timed[fused.launch_key("ycbcr420", tier, xtrans)] = (
+            xt_batch, xt_scal, "srgb", "ycbcr420", tier, xtrans)
     times = {}
-    for key, (mos, sc, gamma, out, m) in timed.items():
+    for key, (mos, sc, gamma, out, m, pat) in timed.items():
         def kern():
-            return fused.fused_batch_develop_rgba(mos, sc, gamma=gamma,
-                                                  output=out, demosaic=m)
+            return fused.fused_batch_develop_rgba(
+                mos, sc, gamma=gamma, output=out, demosaic=m, pattern=pat)
 
         def plain():
-            return fused.develop_rgba_folded_plain(mos, sc, gamma=gamma,
-                                                   output=out, demosaic=m)
+            return fused.develop_rgba_folded_plain(
+                mos, sc, gamma=gamma, output=out, demosaic=m, pattern=pat)
 
         k_ms, p_ms = [], []
         for _ in range(2):
             k_ms += cuda_ms(kern, TIMING_REPS // 2)
             p_ms += cuda_ms(plain, 2)
         torch.cuda.empty_cache()
-        n_px = mos.shape[0] * H * W
-        b_ms, b_by = bound(n_px, m, gamma, out)
+        n_px = mos.numel()
+        b_ms, b_by = bound(n_px, fused.variant(m, pat), gamma, out)
         times[key] = dict(ms=statistics.median(k_ms),
                           plain_ms=statistics.median(p_ms), bound_ms=b_ms,
                           bound_by=b_by, frames=mos.shape[0])
@@ -750,6 +1054,11 @@ def main():
             lambda g=g: fused.fused_batch_develop_rgba(one, sc, gamma=g,
                                                        demosaic=m), 6))
             for g in fused.GAMMAS}
+    for tier in XT_TIERS:
+        by_gamma[fused.variant(tier, xtrans)] = {g: statistics.median(cuda_ms(
+            lambda g=g: fused.fused_batch_develop_rgba(
+                xt_one, xt_sc, gamma=g, demosaic=tier, pattern=xtrans), 6))
+            for g in fused.GAMMAS}
     log(f"time rgba kernel by demosaic and gamma (ms): {json.dumps(by_gamma)}")
 
     e2e = {
@@ -778,17 +1087,30 @@ def main():
     e2e["extras_preview_tick_ms"] = host_ms(
         lambda: eng.preview_tick(xedit, 1.5, (0.01, 0.0)), 20)
     e2e["extras_histogram_ms"] = host_ms(lambda: eng.histogram(xedit), 10)
+    for tier in XT_TIERS:
+        e = xt_engines[tier, False]
+        e2e[f"xtrans_{tier}_full_rgba_ms"] = host_ms(
+            lambda: e.full_rgba_device(edit), 10)
+        e2e[f"xtrans_{tier}_jpeg_planes_ms"] = host_ms(
+            lambda: e.jpeg_planes(edit), 10)
+        e2e[f"xtrans_{tier}_export_jpeg_ms"] = host_ms(lambda: e.export(
+            os.path.join(tmpdir, "t.jpg"), edit), 3)
+        e2e[f"xtrans_{tier}_extras_full_rgba_ms"] = host_ms(
+            lambda: e.full_rgba_device(xedit), 10)
+    e = xt_engines["grad", False]
+    e2e["xtrans_preview_tick_ms"] = host_ms(
+        lambda: e.preview_tick(edit, 1.5, (0.01, 0.0)), 20)
+    e2e["xtrans_histogram_ms"] = host_ms(lambda: e.histogram(edit), 10)
     log(f"end to end (host clock, median): {json.dumps(e2e)} [{smi}]")
     tmp.cleanup()
 
     kernels = []
-    for key in timed:
-        m = timed[key][4]
-        out = timed[key][3]
+    for key, (_, _, _, out, m, pat) in timed.items():
+        m = fused.variant(m, pat)
         line = REPLACES.get((m, out), REPLACES.get(m))
         kernels.append({
             "name": key, "route": "cuda",
-            "source": SRC["grad" if m == "grad" else "develop"],
+            "source": SRC.get(m, SRC["develop"]),
             "replaces": f"{TPU_KERNEL}:{line}", "launches": launches[key],
             "max_abs_err": errs[key], "ms": times[key]["ms"],
             "plain_ms": times[key]["plain_ms"],

@@ -10,15 +10,19 @@ jax, and importing any submodule of ``raweditor_tpu`` runs its
 package is the compiled JFIF encoder ``_rawkit``, loaded by file path
 (``native.py``).
 
-Ported so far: the develop of a decoded Bayer frame through
+Ported so far: the develop of a decoded Bayer or X-Trans frame through
 ``DevelopEngine`` (slider tick preview and histogram, full-resolution
 develop, JPEG export) in parity and accurate mode, with the nearest,
-bilinear, Malvar-He-Cutler and gradient-weighted demosaics
-(``demosaic_method``), and the fused develop kernels with RGBA and YCbCr
-4:2:0 output (``ops/fused_develop.py``): ``csrc/develop.cu`` for the
-nearest, bilinear and Malvar stencils, ``csrc/develop_grad.cu`` for the
-gradient-weighted one. The engine hands ``demosaic_method`` to the
-kernels as their ``demosaic`` argument. The CPU tests run the kernels'
+bilinear, Malvar-He-Cutler and gradient-weighted Bayer demosaics and the
+nearest, smooth and gradient-weighted generic-CFA tiers
+(``demosaic_method``), the finish extras, and the fused develop kernels
+with RGBA and YCbCr 4:2:0 output (``ops/fused_develop.py``):
+``csrc/develop.cu`` for the nearest, bilinear and Malvar stencils and the
+generic-CFA nearest and smooth ones, ``csrc/develop_grad.cu`` and
+``csrc/develop_grad_generic.cu`` for the gradient-weighted ones, and
+``csrc/extras.cu`` for the finish extras. The engine hands
+``demosaic_method`` to the kernels as their ``demosaic`` argument (and an
+X-Trans frame's pattern as ``pattern``). The CPU tests run the kernels'
 plain versions (a wrapper runs them for CPU tensors only); the kernels
 themselves run on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
@@ -36,6 +40,9 @@ from raweditor_tpu_torch.ops.develop import (
     develop_preview,
     develop_rgba,
     develop_u8,
+    develop_xtrans,
+    develop_xtrans_histogram,
+    develop_xtrans_preview,
     histogram_256,
     rgba_view,
 )
@@ -67,6 +74,9 @@ __all__ = [
     "develop_rgba",
     "develop_rgba_folded_plain",
     "develop_u8",
+    "develop_xtrans",
+    "develop_xtrans_histogram",
+    "develop_xtrans_preview",
     "fold_scalars",
     "fused_batch_develop_rgba",
     "fused_develop_rgba",

@@ -56,56 +56,9 @@
 // rounds. The finish tail is develop_common.cuh.
 
 #include "develop_common.cuh"
+#include "grad_tile.cuh"
 
 namespace {
-
-constexpr int kTileW = 32;
-constexpr int kTileH = 16;
-constexpr int kHalo = 4;
-constexpr int kPitch = kTileW + 2 * kHalo;  // 40
-constexpr int kRows = kTileH + 2 * kHalo;   // 24
-constexpr int kCells = kPitch * kRows;
-constexpr int kThreads = (kTileW / 2) * (kTileH / 2);  // one per quad
-constexpr float kEps = 1e-4f;
-
-// The tile's local frame: local (0, 0) is global (oy, ox) = the tile
-// origin minus the halo; every stage buffer uses it. An INTERIOR frame
-// lies inside the image, so no read needs a clamp there.
-template <bool INTERIOR>
-struct Frame {
-  int oy, ox, h, w;
-  // Local index of the image pixel nearest to (gy + dy, gx + dx), where
-  // i is the local index of (gy, gx).
-  __device__ __forceinline__ int at(int i, int gy, int gx, int dy,
-                                    int dx) const {
-    if constexpr (INTERIOR) return i + dy * kPitch + dx;
-    return (min(max(gy + dy, 0), h - 1) - oy) * kPitch +
-           (min(max(gx + dx, 0), w - 1) - ox);
-  }
-};
-
-// Calls fn(gy, gx, local index) for every position of the tile grown by
-// gy_grow rows and gx_grow columns on each side.
-template <typename F>
-__device__ __forceinline__ void over_region(int oy, int ox, int gy_grow,
-                                            int gx_grow, F fn) {
-  const int rows = kTileH + 2 * gy_grow;
-  const int cols = kTileW + 2 * gx_grow;
-  const int ly0 = kHalo - gy_grow;
-  const int lx0 = kHalo - gx_grow;
-  for (int k = threadIdx.x; k < rows * cols; k += kThreads) {
-    const int ly = ly0 + k / cols;
-    const int lx = lx0 + k % cols;
-    fn(oy + ly, ox + lx, ly * kPitch + lx);
-  }
-}
-
-// The shared-memory stage buffers of one block. V: raw * scale. G, R, B:
-// stages 1-2, then refinement 1 in place. XB, XR: the column passes of
-// the tents over R-G and B-G.
-struct Stages {
-  float *V, *G, *R, *B, *XB, *XR;
-};
 
 template <int GAMMA, bool YCBCR, bool INTERIOR>
 __device__ __forceinline__ void grad_tile(
@@ -117,20 +70,13 @@ __device__ __forceinline__ void grad_tile(
   float* const G = st.G;
   float* const R = st.R;
   float* const B = st.B;
-  float* const XB = st.XB;
-  float* const XR = st.XR;
   const Frame<INTERIOR> f{ty0 - kHalo, tx0 - kHalo, h, w};
-  const float s = sc[12];
 
   // Site classes in global coordinates (the phase applied).
   auto ye = [&](int gy) { return ((gy + py) & 1) == 0; };
   auto xe = [&](int gx) { return ((gx + px) & 1) == 0; };
 
-  over_region(f.oy, f.ox, kHalo, kHalo, [&](int gy, int gx, int i) {
-    const int y = INTERIOR ? gy : min(max(gy, 0), h - 1);
-    const int x = INTERIOR ? gx : min(max(gx, 0), w - 1);
-    V[i] = static_cast<float>(__ldg(m + static_cast<size_t>(y) * w + x)) * s;
-  });
+  load_tile(st, f, m, sc[12]);
   __syncthreads();
 
   // 1. G: directional means blended by inverse gradients.
@@ -171,71 +117,12 @@ __device__ __forceinline__ void grad_tile(
   });
   __syncthreads();
 
-  // Column pass of the tent over (R-G, B-G), rows grown by `grow` and
-  // columns by grow+1 (the row pass reads one column either side).
-  auto column_pass = [&](int grow) {
-    over_region(f.oy, f.ox, grow, grow + 1, [&](int gy, int gx, int i) {
-      const int ku = f.at(i, gy, gx, -1, 0);
-      const int kc = f.at(i, gy, gx, 0, 0);
-      const int kd = f.at(i, gy, gx, 1, 0);
-      XB[i] = ((R[ku] - G[ku]) + (R[kc] - G[kc]) * 2.0f) + (R[kd] - G[kd]);
-      XR[i] = ((B[ku] - G[ku]) + (B[kc] - G[kc]) * 2.0f) + (B[kd] - G[kd]);
-    });
-  };
-  auto row_pass = [&](const float* x, int i, int gy, int gx) {
-    return ((x[f.at(i, gy, gx, 0, -1)] + x[f.at(i, gy, gx, 0, 0)] * 2.0f) +
-            x[f.at(i, gy, gx, 0, 1)]) *
-           0.0625f;
-  };
-
-  // 3a. Refinement 1 over the tile+1, rebuilt in place into G, R, B
-  //     (this step reads only V, XB and XR).
-  column_pass(1);
-  __syncthreads();
-  over_region(f.oy, f.ox, 1, 1, [&](int gy, int gx, int i) {
-    const float cb = row_pass(XB, i, gy, gx);
-    const float cr = row_pass(XR, i, gy, gx);
-    const float c = V[f.at(i, gy, gx, 0, 0)];
-    const bool y_even = ye(gy);
-    const bool x_even = xe(gx);
-    const bool at_r = y_even && x_even;
-    const bool at_b = !y_even && !x_even;
-    const float g = y_even != x_even ? c : (at_r ? c - cb : c - cr);
-    G[i] = g;
-    R[i] = at_r ? c : g + cb;
-    B[i] = at_b ? c : g + cr;
-  });
-  __syncthreads();
-
-  // 3b. Refinement 2: the column pass over the tile, then per quad the
-  //     row pass, the rebuild and the finish tail.
-  column_pass(0);
-  __syncthreads();
-  const int qx = threadIdx.x % (kTileW / 2);
-  const int qy = threadIdx.x / (kTileW / 2);
-  const int y0 = ty0 + 2 * qy;
-  const int x0 = tx0 + 2 * qx;
-  if (y0 >= h || x0 >= w) return;
-  int q[2][2][3];
-#pragma unroll
-  for (int iy = 0; iy < 2; ++iy) {
-#pragma unroll
-    for (int ix = 0; ix < 2; ++ix) {
-      const int gy = y0 + iy;
-      const int gx = x0 + ix;
-      const int i = (gy - f.oy) * kPitch + (gx - f.ox);
-      const float cb = row_pass(XB, i, gy, gx);
-      const float cr = row_pass(XR, i, gy, gx);
-      const float c = V[f.at(i, gy, gx, 0, 0)];
-      const bool y_even = ye(gy);
-      const bool x_even = xe(gx);
-      const bool at_r = y_even && x_even;
-      const bool at_b = !y_even && !x_even;
-      const float g = y_even != x_even ? c : (at_r ? c - cb : c - cr);
-      finish<GAMMA>(sc, at_r ? c : g + cb, g, at_b ? c : g + cr, q[iy][ix]);
-    }
-  }
-  store_quad<YCBCR>(q, img, h, w, y0, x0, rgba, yplane, cbcr);
+  // 3. The refinements and the finish tail; G sites are where the row
+  //    and column parities differ, R where both are even.
+  refine_and_finish<GAMMA, YCBCR>(
+      st, f, sc, img, ty0, tx0,
+      [&](int gy, int gx, int) { return ye(gy) != xe(gx) ? 1 : (ye(gy) ? 0 : 2); },
+      rgba, yplane, cbcr);
 }
 
 template <int GAMMA, bool YCBCR>
@@ -254,8 +141,7 @@ __global__ void __launch_bounds__(kThreads)
   const int ty0 = blockIdx.y * kTileH;
   const int tx0 = blockIdx.x * kTileW;
   // Block-uniform: most tiles of a large frame read no pixel outside it.
-  if (ty0 >= kHalo && tx0 >= kHalo && ty0 + kTileH + kHalo <= h &&
-      tx0 + kTileW + kHalo <= w)
+  if (tile_is_interior(ty0, tx0, h, w))
     grad_tile<GAMMA, YCBCR, true>(st, m, sc, img, h, w, py, px, ty0, tx0,
                                   rgba, yplane, cbcr);
   else

@@ -111,6 +111,15 @@ def load():
             lib.rtt_develop_launch.restype = i32
             lib.rtt_develop_grad_launch.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
             lib.rtt_develop_grad_launch.restype = i32
+            # The generic-CFA kernels: (mosaics, scal, out0, out1, n, h, w,
+            #  gamma, output, [demosaic,] packed tables (host bytes), stream)
+            tables = ctypes.c_char_p
+            lib.rtt_develop_cfa_launch.argtypes = ([ptr] * 4 + [i32] * 6
+                                                   + [tables, ptr])
+            lib.rtt_develop_cfa_launch.restype = i32
+            lib.rtt_develop_grad_cfa_launch.argtypes = ([ptr] * 4 + [i32] * 5
+                                                        + [tables, ptr])
+            lib.rtt_develop_grad_cfa_launch.restype = i32
             # (words, table, out0, out1, n, h, w, mixer_on, grading_on,
             #  stencils, output, cy, cx, icy, icx, stream)
             f32 = ctypes.c_float

@@ -21,6 +21,11 @@ the chain before quantisation, as the JAX functions run them. The
 ``extras`` argument of the entry points is the JAX one: pass
 ``params.finish_extras_mode()``.
 
+``develop_xtrans``, ``develop_xtrans_preview`` and
+``develop_xtrans_histogram`` are the same chain over a square repeating
+CFA (the 6x6 X-Trans grid by default) with the generic-CFA demosaics of
+``ops/cfa_generic.py``: ``"nearest"``, ``"smooth"`` or ``"grad"``.
+
 ``demosaic_method`` selects the demosaic of ``develop``,
 ``develop_rgba`` and ``develop_u8``: the parity stencil ``"nearest"``,
 or the accurate lane's ``"bilinear"``, ``"malvar"`` and ``"grad"``
@@ -124,6 +129,17 @@ def _scalars(params: EditParams, device):
     vals = torch.tensor([float(getattr(params, n)) for n in _SLIDERS],
                         dtype=_F32, device=device)
     return dict(zip(_SLIDERS, vals.unbind(0)))
+
+
+def _square_period(pat: str) -> int:
+    """Side length of a square repeating-CFA pattern string; the
+    generic-CFA entry points take square periods only."""
+    side = int(len(pat) ** 0.5)
+    if side * side != len(pat):
+        raise ValueError(
+            f"repeating-CFA pattern length {len(pat)} is not square; "
+            "only NxN patterns are supported")
+    return side
 
 
 def _normalize(mosaic: torch.Tensor, white_level, black_level=0.0):
@@ -328,6 +344,72 @@ def develop_preview(mosaic, params: EditParams, wb, cam_matrix, out_w: int,
         dim=-1)
 
 
+def develop_xtrans(mosaic, params: EditParams, wb, cam_matrix,
+                   white_level=4096.0, black_level=0.0, pattern: str = None,
+                   matrix_transpose: bool = False,
+                   transfer: str = "gamma22", rgba: bool = False,
+                   demosaic_method: str = "nearest", bits: int = 8,
+                   extras=False):
+    """Full develop of an X-Trans (or any square repeating-CFA) mosaic:
+    (H, W) u16 to (H, W, 3) u8, or with ``rgba`` to (H, W) u32 words.
+    ``demosaic_method`` is "nearest", "smooth" or "grad"
+    (``ops/cfa_generic.py``); ``pattern`` defaults to the X-Trans grid."""
+    from raweditor_tpu_torch.ops import cfa_generic
+
+    pat = pattern or cfa_generic.XTRANS_PATTERN
+    side = _square_period(pat)
+    if rgba and bits == 16:
+        raise ValueError("rgba and bits=16 are mutually exclusive")
+    if bits == 16:
+        raise NotImplementedError("not ported yet: 16-bit output")
+    demosaics = {"nearest": cfa_generic.demosaic_nearest_generic,
+                 "smooth": cfa_generic.demosaic_smooth_generic,
+                 "grad": cfa_generic.demosaic_grad_generic}
+    if demosaic_method not in demosaics:
+        raise ValueError(
+            f"unknown generic-CFA demosaic method {demosaic_method!r}")
+    require_ported(params, extras)
+    norm = _normalize(mosaic, white_level, black_level)
+    r, g, b = demosaics[demosaic_method](norm, pat, side, side)
+    r, g, b = apply_edit_stack(r, g, b, params, wb, cam_matrix,
+                               matrix_transpose)
+    finish = _finish_kwargs(params, transfer, extras)
+    if rgba:
+        return finish_to_rgba_u32(r, g, b, **finish)
+    return torch.stack(finish_to_u8(r, g, b, **finish), dim=-1)
+
+
+def develop_xtrans_preview(mosaic, params: EditParams, wb, cam_matrix,
+                           out_w: int, out_h: int, zoom=1.0, pan_x=0.0,
+                           pan_y=0.0, white_level=4096.0, black_level=0.0,
+                           pattern: str = None,
+                           matrix_transpose: bool = False,
+                           transfer: str = "gamma22", extras=False):
+    """X-Trans preview at (out_h, out_w) with zoom/pan: nearest-sample the
+    mosaic at output pixel centres, then demosaic (nearest site) and
+    develop only the sampled sites, as ``develop_preview`` does for
+    Bayer. Returns (out_h, out_w, 3) u8."""
+    from raweditor_tpu_torch.ops import cfa_generic
+
+    pat = pattern or cfa_generic.XTRANS_PATTERN
+    side = _square_period(pat)
+    require_ported(params, extras)
+    h, w = mosaic.shape
+    dev = mosaic.device
+    xi, xvalid = _sampling.sample_axis(out_w, w, zoom, pan_x, dev)
+    yi, yvalid = _sampling.sample_axis(out_h, h, zoom, pan_y, dev)
+    valid = yvalid[:, None] & xvalid[None, :]
+    src = mosaic.view(torch.int16) if mosaic.dtype == torch.uint16 else mosaic
+    taps = cfa_generic.demosaic_nearest_generic_sampled(src, yi, xi, pat,
+                                                        side, side)
+    r, g, b = (_normalize(t, white_level, black_level) for t in taps)
+    r, g, b = apply_edit_stack(r, g, b, params, wb, cam_matrix,
+                               matrix_transpose)
+    return torch.stack(finish_to_u8(
+        r, g, b, valid=valid, **_finish_kwargs(params, transfer, extras)),
+        dim=-1)
+
+
 def histogram_256(rgb_u8: torch.Tensor) -> torch.Tensor:
     """(..., 3) u8 image to (3, 256) int32 per-channel counts, R, G, B."""
     flat = rgb_u8.reshape(-1, 3).to(torch.int64)
@@ -345,4 +427,17 @@ def develop_histogram(mosaic, params: EditParams, wb, cam_matrix,
     return histogram_256(develop_preview(
         mosaic, params, wb, cam_matrix, out_w, out_h, zoom, pan_x, pan_y,
         white_level, black_level, matrix_transpose, transfer, cfa_phase,
+        extras))
+
+
+def develop_xtrans_histogram(mosaic, params: EditParams, wb, cam_matrix,
+                             out_w: int, out_h: int, zoom=1.0, pan_x=0.0,
+                             pan_y=0.0, white_level=4096.0, black_level=0.0,
+                             pattern: str = None,
+                             matrix_transpose: bool = False,
+                             transfer: str = "gamma22", extras=False):
+    """The X-Trans live histogram: a small sampled render, binned."""
+    return histogram_256(develop_xtrans_preview(
+        mosaic, params, wb, cam_matrix, out_w, out_h, zoom, pan_x, pan_y,
+        white_level, black_level, pattern, matrix_transpose, transfer,
         extras))

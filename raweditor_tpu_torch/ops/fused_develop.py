@@ -1,11 +1,11 @@
-"""The fused develop kernels: Bayer demosaic, folded edit stack,
-transfer and quantisation in one pass over the u16 mosaic, with packed
-RGBA words or JPEG YCbCr 4:2:0 planes as output.
+"""The fused develop kernels: demosaic, folded edit stack, transfer and
+quantisation in one pass over the u16 mosaic, with packed RGBA words or
+JPEG YCbCr 4:2:0 planes as output.
 
 Port of the TPU kernel ``raweditor_tpu/ops/pallas_develop.py``
-(``pallas_develop_rgba`` / ``pallas_batch_develop_rgba`` on a Bayer
-mosaic). ``demosaic`` picks the stencil, as the TPU kernel's argument of
-that name does:
+(``pallas_develop_rgba`` / ``pallas_batch_develop_rgba``). ``demosaic``
+picks the stencil, as the TPU kernel's argument of that name does. On a
+Bayer mosaic (``pattern=None``, ``cfa_phase``):
 
 - ``"nearest"`` (the parity stencil), ``"bilinear"`` and ``"malvar"``
   run ``csrc/develop.cu`` (one thread per 2x2 quad; the TPU kernel's
@@ -13,7 +13,22 @@ that name does:
 - ``"grad"`` runs ``csrc/develop_grad.cu`` (one block per tile, the
   stages staged in shared memory; ``_demosaic_grad_window``).
 
-Both are CUDA C++ for sm_90a, built by ``ops/_build.py``. Beside them:
+On a square repeating CFA (``pattern=`` a string of side*side letters,
+the 6x6 X-Trans grid; ``cfa_phase`` is not read):
+
+- ``"nearest"`` (one of five taps per pixel and channel, chosen by the
+  pattern cell) and ``"smooth"`` (radius-1 normalised convolution) run
+  the generic-CFA kernel of ``csrc/develop.cu``
+  (``_develop_block``'s site table, ``_demosaic_smooth_generic``);
+- ``"grad"`` runs ``csrc/develop_grad_generic.cu``
+  (``_demosaic_grad_generic_window``).
+
+The pattern reaches those kernels as small per-cell tables built on the
+host (``cfa_tables``). Their taps follow one rule: a tap's **value** is
+read at coordinates clamped to the image, its **site mask** is looked up
+at the unclamped coordinates modulo the period.
+
+All are CUDA C++ for sm_90a, built by ``ops/_build.py``. Beside them:
 
 - ``fold_scalars``: the edit stack folded into 24 f32 constants per
   image (``_fold_scalars``): WB, temperature/tint and exposure into the
@@ -29,7 +44,9 @@ Both are CUDA C++ for sm_90a, built by ``ops/_build.py``. Beside them:
   kernels against it;
 - ``LAUNCHES``: how many times each kernel was launched, one key per
   output and demosaic (``develop_rgba``, ``develop_ycbcr420`` for
-  nearest; ``develop_rgba_malvar``, ``develop_ycbcr420_grad``, ...).
+  nearest; ``develop_rgba_malvar``, ``develop_ycbcr420_grad``, ...; the
+  generic-CFA kernels ``develop_rgba_cfa_nearest``,
+  ``develop_ycbcr420_cfa_smooth``, ...).
 
 For a CUDA tensor the wrappers launch the kernel or raise; nothing falls
 back to the plain version there.
@@ -37,32 +54,164 @@ back to the plain version there.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from raweditor_tpu_torch.color import (GAMMA22_POLY, INV_22, INV_24,
                                        SRGB_CUT, SRGB_POLY, horner)
+from raweditor_tpu_torch.ops import cfa_generic
 from raweditor_tpu_torch.ops.demosaic import (demosaic_nearest,
                                               parity_masks)
-from raweditor_tpu_torch.ops.develop import LUMA, pack_rgba, u16_to_f32
+from raweditor_tpu_torch.ops.develop import (LUMA, _square_period, pack_rgba,
+                                             u16_to_f32)
 from raweditor_tpu_torch.ops.jpeg import quantize_u8, rgb_to_ycbcr
 from raweditor_tpu_torch.params import EditParams
 
 N_SCALARS = 24
 GAMMAS = {"pow": 0, "poly": 1, "srgb": 2, "srgb_poly": 3}
 OUTPUTS = {"rgba": 0, "ycbcr420": 1}
-# The stencil ids of csrc/develop.cu; "grad" has its own kernel.
+# The Bayer stencil ids of csrc/develop.cu; "grad" has its own kernel.
 DEMOSAICS = {"nearest": 0, "bilinear": 1, "malvar": 2, "grad": 3}
+# The generic-CFA (``pattern=``) tiers: nearest and smooth are stencils
+# of csrc/develop.cu's generic kernel, "grad" has its own kernel.
+CFA_DEMOSAICS = {"nearest": 0, "smooth": 1, "grad": 2}
+# The kernels' tables hold a period of up to 6x6 cells.
+MAX_CFA_SIDE = 6
+# The five taps of the generic nearest stencil, as the kernel's codes.
+NEAREST_TAP_CODES = {(0, 0): 0, (0, -1): 1, (0, 1): 2, (-1, 0): 3, (1, 0): 4}
 
 
-def launch_key(output: str, demosaic: str) -> str:
+def variant(demosaic: str, pattern: str = None) -> str:
+    """The name of one demosaic variant: the Bayer stencil's own name, or
+    ``cfa_<tier>`` for the generic-CFA kernels (any ``pattern``)."""
+    return demosaic if pattern is None else "cfa_" + demosaic
+
+
+def launch_key(output: str, demosaic: str, pattern: str = None) -> str:
     """The ``LAUNCHES`` key of one kernel variant."""
+    name = variant(demosaic, pattern)
     base = "develop_" + output
-    return base if demosaic == "nearest" else f"{base}_{demosaic}"
+    return base if name == "nearest" else f"{base}_{name}"
 
 
 # Launch counts: each wrapper adds one where it launches its kernel.
 LAUNCHES = {launch_key(o, d): 0 for o in OUTPUTS for d in DEMOSAICS}
+LAUNCHES.update({launch_key(o, d, cfa_generic.XTRANS_PATTERN): 0 for o in OUTPUTS
+                 for d in CFA_DEMOSAICS})
+
+
+# The byte layout of ``struct CfaTables`` in csrc/cfa_tables.cuh.
+_CELLS = MAX_CFA_SIDE * MAX_CFA_SIDE
+_TABLES_DTYPE = np.dtype([("side", "<i4"), ("chan", "u1", _CELLS),
+                          ("tap", "u1", (3, _CELLS)),
+                          ("den_h", "<f4", _CELLS), ("den_v", "<f4", _CELLS),
+                          ("den2", "<f4", (3, _CELLS))])
+
+
+class CfaTables:
+    """The per-cell tables of one square repeating CFA, all (side, side)
+    and indexed by ``[y % side, x % side]`` of the output pixel:
+
+    - ``grid``: channel id (0=R, 1=G, 2=B), ``cfa_generic.channel_grid``;
+    - ``taps`` (3, side, side) u8: per channel the code of the nearest
+      site's tap (``NEAREST_TAP_CODES``), or None when an offset of
+      ``cfa_generic.nearest_offsets`` is not one of the five taps;
+    - ``den_h``, ``den_v``: the radius-1 1-D tent denominators of G along
+      rows and columns (``_periodic_den_1d``), shifted to the pixel;
+    - ``den2`` (3, side, side): the radius-1 2-D tent denominators per
+      channel (``_periodic_den_2d``), shifted to the pixel.
+
+    ``packed`` is the same as the bytes of the kernels' ``CfaTables``."""
+
+    def __init__(self, pattern: str):
+        side = _square_period(pattern)
+        if side > MAX_CFA_SIDE:
+            raise ValueError(
+                f"CFA period {side}x{side} exceeds the kernels' tables "
+                f"({MAX_CFA_SIDE}x{MAX_CFA_SIDE})")
+        self.side = side
+        self.grid = cfa_generic.channel_grid(pattern, side, side)
+        offsets = cfa_generic.nearest_offsets(pattern, side, side)
+        self.bad_offset = next((o for o in offsets.values()
+                                if o not in NEAREST_TAP_CODES), None)
+        self.taps = None if self.bad_offset else np.array(
+            [[[NEAREST_TAP_CODES[offsets[py, px, c]] for px in range(side)]
+              for py in range(side)] for c in range(3)], np.uint8)
+        g = cfa_generic._CHAN["G"]
+        # The cores index the window's first cell; roll them so [py, px]
+        # is the pixel's own cell (the TPU kernel tiles them at offsets
+        # (0, -1), (-1, 0) and (-1, -1)).
+        self.den_h = np.roll(
+            cfa_generic._periodic_den_1d(self.grid, g, 1, 1), 1, 1)
+        self.den_v = np.roll(
+            cfa_generic._periodic_den_1d(self.grid, g, 1, 0), 1, 0)
+        self.den2 = np.stack([np.roll(
+            cfa_generic._periodic_den_2d(self.grid, c, 1), (1, 1), (0, 1))
+            for c in range(3)])
+        rec = np.zeros((), _TABLES_DTYPE)
+        n = side * side
+        rec["side"] = side
+        rec["chan"][:n] = self.grid.reshape(-1)
+        if self.taps is not None:
+            rec["tap"][:, :n] = self.taps.reshape(3, -1)
+        rec["den_h"][:n] = self.den_h.reshape(-1)
+        rec["den_v"][:n] = self.den_v.reshape(-1)
+        rec["den2"][:, :n] = self.den2.reshape(3, -1)
+        self.packed = rec.tobytes()
+
+
+@functools.lru_cache(maxsize=16)
+def _cfa_tables(pattern: str) -> CfaTables:
+    return CfaTables(pattern)
+
+
+def cfa_tables(pattern: str) -> CfaTables:
+    """The kernels' tables of a square repeating-CFA pattern string."""
+    return _cfa_tables(pattern.upper())
+
+
+def check_demosaic(demosaic: str, pattern: str = None) -> None:
+    """The TPU launchers' argument checks (``pallas_develop_rgba``), as
+    ``ValueError``s: which demosaic goes with a Bayer phase and which
+    with a ``pattern``, and what the generic-CFA kernels need of the
+    pattern (radius-1 windows, nearest sites among the five taps)."""
+    if pattern is not None and demosaic not in CFA_DEMOSAICS:
+        raise ValueError(
+            "generic-CFA patterns support nearest/smooth/grad demosaic")
+    if pattern is not None and demosaic in ("smooth", "grad"):
+        side = _square_period(pattern)
+        if any(cfa_generic._smooth_radius(pattern, side, side, c) != 1
+               for c in range(3)):
+            raise ValueError(
+                "the smooth/grad kernels need per-channel smooth radius 1 "
+                "(X-Trans qualifies); use the plain lane")
+        g = cfa_generic._CHAN["G"]
+        if demosaic == "grad" and any(
+                cfa_generic._dir_radius(pattern, side, side, g, a) != 1
+                for a in (0, 1)):
+            raise ValueError(
+                "the grad kernel needs directional-G radius 1 (X-Trans "
+                "qualifies); use the plain lane")
+    if demosaic not in DEMOSAICS and demosaic not in CFA_DEMOSAICS:
+        raise ValueError(f"unknown demosaic {demosaic!r}")
+    if pattern is None and demosaic == "smooth":
+        raise ValueError("'smooth' is the generic-CFA tier; Bayer uses "
+                         "bilinear/malvar/grad")
+    if pattern is not None:
+        tables = cfa_tables(pattern)  # square, side <= MAX_CFA_SIDE
+        if demosaic == "nearest" and tables.taps is None:
+            raise ValueError(f"pattern needs offset {tables.bad_offset}; "
+                             "only the four +-1 neighbours are supported")
+
+
+def _tile(table: np.ndarray, like: torch.Tensor, dy: int = 0, dx: int = 0):
+    """A (side, side) table as f32 over the last two dims of ``like``:
+    [y, x] is ``table[(y + dy) % side, (x + dx) % side]``, periodic in the
+    unclamped coordinates."""
+    h, w = like.shape[-2:]
+    return cfa_generic._tile_periodic(table, h, w, dy, dx, like.device)
 
 
 def _poly255(coeffs):
@@ -239,7 +388,12 @@ def _grad_plain(v, phase):
                       torch.where(xe, g + vpair, g + diag))
     bpl = torch.where(ye, torch.where(xe, g + diag, g + vpair),
                       torch.where(xe, g + hpair, v))
-    gpl = g
+    return _chroma_refine(v, rpl, g, bpl, at_g, at_r, at_b)
+
+
+def _chroma_refine(v, rpl, gpl, bpl, at_g, at_r, at_b):
+    """Two chroma refinements (the TPU kernel's ``_chroma_refine``): a
+    3x3 tent over R-G and B-G, each channel rebuilt from its own sites."""
     for _ in range(2):
         cb = _tent3(rpl - gpl)
         cr = _tent3(bpl - gpl)
@@ -249,18 +403,104 @@ def _grad_plain(v, phase):
     return rpl, gpl, bpl
 
 
+def _cfa_nearest_plain(v, tables: CfaTables):
+    """The generic nearest stencil: per pixel and channel one of the five
+    clamped taps, by the code of the pixel's pattern cell."""
+    taps = (v, _lf(v), _rt(v), _up(v), _dn(v))
+    planes = []
+    for chan in range(3):
+        code = _tile(tables.taps[chan], v)
+        acc = v
+        for k in range(1, 5):
+            acc = torch.where(code == k, taps[k], acc)
+        planes.append(acc)
+    return tuple(planes)
+
+
+def _cfa_masked(v, tables: CfaTables):
+    """``mv(chan, dy, dx, a)``: the tap of ``a`` at (dy, dx), its value
+    clamped at the true edge, zero where the unclamped site (y+dy, x+dx)
+    is not of ``chan``; and the per-channel site masks of the pixels."""
+    is_chan = [tables.grid == c for c in range(3)]
+
+    def mask(chan, dy, dx):
+        return _tile(is_chan[chan], v, dy, dx) > 0
+
+    def mv(chan, dy, dx, a):
+        return torch.where(mask(chan, dy, dx), _shift(_shift(a, -2, dy), -1,
+                                                      dx), 0.0)
+
+    return mv, [mask(c, 0, 0) for c in range(3)]
+
+
+def _cfa_smooth_plain(v, tables: CfaTables):
+    """Radius-1 normalised convolution in the kernel's order
+    (``_demosaic_smooth_generic``): per channel the masked 3x3 tent as
+    column sums, then the row sum, over the tiled denominator; sensor
+    sites pass through."""
+    mv, at = _cfa_masked(v, tables)
+    planes = []
+    for chan in range(3):
+        col = {dx: (mv(chan, -1, dx, v) + mv(chan, 0, dx, v) * 2.0)
+               + mv(chan, 1, dx, v) for dx in (-1, 0, 1)}
+        num = (col[-1] + col[0] * 2.0) + col[1]
+        planes.append(torch.where(at[chan], v,
+                                  num / _tile(tables.den2[chan], v)))
+    return tuple(planes)
+
+
+def _cfa_grad_plain(v, tables: CfaTables):
+    """The generic gradient-weighted demosaic in the kernel's order
+    (``_demosaic_grad_generic_window``): directional G from the masked
+    1-D tents blended by inverse raw gradients, R/B from the masked 3x3
+    tent of ``v - g``, then the two chroma refinements. Every stage reads
+    the stage below clamped at the true edge."""
+    mv, (at_r, at_g, at_b) = _cfa_masked(v, tables)
+    g_chan = cfa_generic._CHAN["G"]
+    u, d, l, r = _up(v), _dn(v), _lf(v), _rt(v)
+    vg = torch.where(at_g, v, 0.0)
+    gh = ((mv(g_chan, 0, -1, v) + vg * 2.0) + mv(g_chan, 0, 1, v)) \
+        / _tile(tables.den_h, v)
+    gv = ((mv(g_chan, -1, 0, v) + vg * 2.0) + mv(g_chan, 1, 0, v)) \
+        / _tile(tables.den_v, v)
+    eps = float(np.float32(1e-4))
+    wh = 1.0 / (torch.abs(r - l) + eps)
+    wv = 1.0 / (torch.abs(d - u) + eps)
+    g = torch.where(at_g, v, (wh * gh + wv * gv) / (wh + wv))
+    diff = v - g
+    planes = {}
+    for chan, at_c in ((0, at_r), (2, at_b)):
+        num = None
+        for dx in (-1, 0, 1):
+            col = (mv(chan, -1, dx, diff) + mv(chan, 0, dx, diff) * 2.0) \
+                + mv(chan, 1, dx, diff)
+            term = col * 2.0 if dx == 0 else col
+            num = term if num is None else num + term
+        planes[chan] = torch.where(at_c, v,
+                                   g + num / _tile(tables.den2[chan], v))
+    return _chroma_refine(v, planes[0], g, planes[2], at_g, at_r, at_b)
+
+
 def develop_rgba_folded_plain(mosaics: torch.Tensor, scal: torch.Tensor,
                               cfa_phase=(0, 0), gamma: str = "pow",
                               output: str = "rgba",
-                              demosaic: str = "nearest"):
+                              demosaic: str = "nearest",
+                              pattern: str = None):
     """The kernels' math in plain PyTorch ops, on any device.
 
-    mosaics (N, H, W) u16, scal (N, 24) f32. Returns (N, H, W) u32 RGBA
-    words, or for ``output="ycbcr420"`` (Y (N, H, W) u8, CbCr
-    (N, H/2, W) u8 with Cb at even and Cr at odd columns)."""
+    mosaics (N, H, W) u16, scal (N, 24) f32. ``pattern`` (a square
+    repeating-CFA string) selects the generic-CFA stencils, else
+    ``cfa_phase`` the Bayer ones. Returns (N, H, W) u32 RGBA words, or
+    for ``output="ycbcr420"`` (Y (N, H, W) u8, CbCr (N, H/2, W) u8 with
+    Cb at even and Cr at odd columns)."""
+    check_demosaic(demosaic, pattern)
     sc = scal.to(torch.float32)[:, :, None, None]
     v = u16_to_f32(mosaics) * sc[:, 12]
-    if demosaic == "nearest":
+    if pattern is not None:
+        cfa_plain = {"nearest": _cfa_nearest_plain,
+                     "smooth": _cfa_smooth_plain, "grad": _cfa_grad_plain}
+        r, g, b = cfa_plain[demosaic](v, cfa_tables(pattern))
+    elif demosaic == "nearest":
         r, g, b = demosaic_nearest(v, cfa_phase)
     elif demosaic == "grad":
         r, g, b = _grad_plain(v, cfa_phase)
@@ -300,7 +540,8 @@ def emit_ycbcr420(rq, gq, bq):
     return quantize_u8(y), cbcr
 
 
-def _check_inputs(mosaics, scal, cfa_phase, gamma, output, demosaic):
+def _check_inputs(mosaics, scal, cfa_phase, gamma, output, demosaic,
+                  pattern):
     if not isinstance(mosaics, torch.Tensor) or mosaics.dtype != torch.uint16:
         raise TypeError("mosaics must be a torch.uint16 tensor")
     if mosaics.dim() != 3 or 0 in mosaics.shape:
@@ -319,8 +560,7 @@ def _check_inputs(mosaics, scal, cfa_phase, gamma, output, demosaic):
         raise ValueError(f"unknown gamma {gamma!r}")
     if output not in OUTPUTS:
         raise ValueError(f"unknown output {output!r}")
-    if demosaic not in DEMOSAICS:
-        raise ValueError(f"unknown demosaic {demosaic!r}")
+    check_demosaic(demosaic, pattern)
     if output == "ycbcr420" and (h % 2 or w % 2):
         raise ValueError("ycbcr420 output requires even H and W")
     if tuple(cfa_phase) not in ((0, 0), (0, 1), (1, 0), (1, 1)):
@@ -330,21 +570,24 @@ def _check_inputs(mosaics, scal, cfa_phase, gamma, output, demosaic):
 def fused_batch_develop_rgba(mosaics: torch.Tensor, scal: torch.Tensor,
                              cfa_phase=(0, 0), gamma: str = "pow",
                              output: str = "rgba",
-                             demosaic: str = "nearest"):
+                             demosaic: str = "nearest",
+                             pattern: str = None):
     """Batched fused develop with per-image folded scalars.
 
     mosaics (N, H, W) u16 and scal (N, 24) f32, contiguous, on one
     device. ``gamma`` is the transfer lane ("pow", "poly", "srgb",
     "srgb_poly"); ``demosaic`` the Bayer stencil ("nearest", "bilinear",
-    "malvar", "grad"). Returns (N, H, W) u32 RGBA words, or for
+    "malvar", "grad") at ``cfa_phase``, or with ``pattern`` (a square
+    repeating-CFA string of period up to 6x6) the generic-CFA tier
+    ("nearest", "smooth", "grad"). Returns (N, H, W) u32 RGBA words, or for
     ``output="ycbcr420"`` (even H and W) the Y (N, H, W) u8 and
     NV12-interleaved CbCr (N, H/2, W) u8 planes. CPU tensors run the
     plain version; CUDA tensors launch the kernel or raise."""
-    _check_inputs(mosaics, scal, cfa_phase, gamma, output, demosaic)
+    _check_inputs(mosaics, scal, cfa_phase, gamma, output, demosaic, pattern)
     dev = mosaics.device
     if dev.type == "cpu":
         return develop_rgba_folded_plain(mosaics, scal, cfa_phase, gamma,
-                                         output, demosaic)
+                                         output, demosaic, pattern)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from raweditor_tpu_torch.ops import _build
@@ -359,25 +602,36 @@ def fused_batch_develop_rgba(mosaics: torch.Tensor, scal: torch.Tensor,
             out0 = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
             out1 = torch.empty((n, h // 2, w), dtype=torch.uint8, device=dev)
         args = (mosaics.data_ptr(), scal.data_ptr(), out0.data_ptr(),
-                None if out1 is None else out1.data_ptr(), n, h, w,
-                int(cfa_phase[0]), int(cfa_phase[1]), GAMMAS[gamma],
-                OUTPUTS[output])
+                None if out1 is None else out1.data_ptr(), n, h, w)
+        phase = (int(cfa_phase[0]), int(cfa_phase[1]))
+        modes = (GAMMAS[gamma], OUTPUTS[output])
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if demosaic == "grad":
-            code = lib.rtt_develop_grad_launch(*args, stream)
+        if pattern is not None:
+            packed = cfa_tables(pattern).packed
+            if demosaic == "grad":
+                code = lib.rtt_develop_grad_cfa_launch(*args, *modes, packed,
+                                                       stream)
+            else:
+                code = lib.rtt_develop_cfa_launch(
+                    *args, *modes, CFA_DEMOSAICS[demosaic], packed, stream)
+        elif demosaic == "grad":
+            code = lib.rtt_develop_grad_launch(*args, *phase, *modes, stream)
         else:
-            code = lib.rtt_develop_launch(*args, DEMOSAICS[demosaic], stream)
-    _build.check(lib, code, f"develop kernel ({output}, {gamma}, {demosaic})")
-    LAUNCHES[launch_key(output, demosaic)] += 1
+            code = lib.rtt_develop_launch(*args, *phase, *modes,
+                                          DEMOSAICS[demosaic], stream)
+    what = "develop kernel" if pattern is None else "generic-CFA develop kernel"
+    _build.check(lib, code, f"{what} ({output}, {gamma}, {demosaic})")
+    LAUNCHES[launch_key(output, demosaic, pattern)] += 1
     return out0 if output == "rgba" else (out0, out1)
 
 
 def fused_develop_rgba(mosaic: torch.Tensor, scal: torch.Tensor,
                        cfa_phase=(0, 0), gamma: str = "pow",
-                       demosaic: str = "nearest"):
+                       demosaic: str = "nearest", pattern: str = None):
     """Single-image fused develop: (H, W) u16 and (24,) f32 scalars to
     (H, W) u32 RGBA words."""
     if mosaic.dim() != 2:
         raise ValueError(f"mosaic must be (H, W), got {tuple(mosaic.shape)}")
     return fused_batch_develop_rgba(mosaic[None], scal.reshape(1, N_SCALARS),
-                                    cfa_phase, gamma, demosaic=demosaic)[0]
+                                    cfa_phase, gamma, demosaic=demosaic,
+                                    pattern=pattern)[0]

@@ -9,7 +9,9 @@ The kernel route of a batch with extras is
 ``fused_finish_extras_rgba(..., output="ycbcr420")``, as the JAX
 exporter's ``_extras_post_batch`` runs it. ``batch_develop_rgba`` is the
 plain lane over a batch (per-image extras in the chain, per-image point
-curves), with ``_maybe_ycbcr`` turning its words into JPEG planes.
+curves), with ``_maybe_ycbcr`` turning its words into JPEG planes;
+``batch_develop_xtrans_rgba`` is the same over X-Trans (generic-CFA)
+mosaics.
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raweditor_tpu_torch.ops.develop import develop_rgba
+from raweditor_tpu_torch.ops.develop import develop_rgba, develop_xtrans
 from raweditor_tpu_torch.ops.fused_develop import fold_scalars
 from raweditor_tpu_torch.ops.fused_extras import pack_extras
 
-__all__ = ["batch_develop_rgba", "pack_extras", "pack_params"]
+__all__ = ["batch_develop_rgba", "batch_develop_xtrans_rgba", "pack_extras",
+           "pack_params"]
 
 
 def _levels(n: int, white_levels, black_levels):
@@ -83,5 +86,29 @@ def batch_develop_rgba(mosaics: torch.Tensor, params_list, wbs,
                      demosaic_method=demosaic_method,
                      matrix_transpose=matrix_transpose, transfer=transfer,
                      cfa_phase=cfa_phase, extras=extras)
+        for i, p in enumerate(params_list)])
+    return _maybe_ycbcr(words, output)
+
+
+def batch_develop_xtrans_rgba(mosaics: torch.Tensor, params_list, wbs,
+                              cam_matrices, white_levels=None,
+                              black_levels=None, pattern: str = None,
+                              matrix_transpose: bool = False,
+                              transfer: str = "gamma22",
+                              demosaic_method: str = "nearest",
+                              output: str = "rgba_words", extras=False):
+    """The plain lane over a batch of X-Trans (generic-CFA) mosaics:
+    (N, H, W) u16 to (N, H, W) u32, or JPEG planes; ``output`` and
+    ``extras`` as in ``batch_develop_rgba``."""
+    n = mosaics.shape[0]
+    wbs = np.asarray(wbs, np.float32).reshape(n, 3)
+    cms = np.asarray(cam_matrices, np.float32).reshape(n, 3, 3)
+    whites, blacks = _levels(n, white_levels, black_levels)
+    words = torch.stack([
+        develop_xtrans(mosaics[i], p, wbs[i], cms[i], float(whites[i]),
+                       float(blacks[i]), pattern=pattern,
+                       matrix_transpose=matrix_transpose, transfer=transfer,
+                       rgba=True, demosaic_method=demosaic_method,
+                       extras=extras)
         for i, p in enumerate(params_list)])
     return _maybe_ycbcr(words, output)

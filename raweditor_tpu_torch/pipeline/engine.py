@@ -1,4 +1,4 @@
-"""Interactive develop session for one decoded Bayer frame.
+"""The interactive develop engine for one decoded Bayer or X-Trans frame.
 
 The PyTorch counterpart of the JAX package's ``DevelopEngine``: the u16
 mosaic stays on the device, and the slider tick (a sampled preview plus
@@ -12,14 +12,28 @@ demosaic: ``"nearest"`` (the parity stencil), ``"bilinear"``,
 ``"malvar"`` or ``"grad"``, in either mode. The preview and histogram
 keep the nearest-sampled stencil, as in the JAX engine.
 
+A frame whose ``cfa_pattern`` has 36 letters (the 6x6 X-Trans grid) is
+developed in accurate mode through the generic-CFA path
+(``xtrans_pattern`` is set; parity mode ignores the pattern, as the JAX
+engine does): the preview and histogram sample the nearest-site stencil
+(``develop_xtrans_preview``), and the full-resolution develop runs the
+tier ``generic_cfa_method(demosaic_method)``: nearest, ``"smooth"``
+(also what bilinear and malvar map to) or grad. ``"smooth"`` is a
+generic-CFA tier only; on a Bayer frame it raises ``ValueError``.
+
 ``use_kernel`` is the JAX engine's ``use_pallas`` (the CLI's ``--fast``):
 the full-resolution develop and the JPEG planes come from the fused CUDA
 kernels (``ops/fused_develop.py``, within 1 LSB of the plain lane), which
 take ``demosaic_method`` as their ``demosaic``: nearest, bilinear and
-Malvar run ``csrc/develop.cu``, grad ``csrc/develop_grad.cu``. With a
+Malvar run ``csrc/develop.cu``, grad ``csrc/develop_grad.cu``; on an
+X-Trans frame nearest and smooth run the generic-CFA kernel of
+``csrc/develop.cu`` and grad ``csrc/develop_grad_generic.cu`` (all three
+tiers take the kernel; the JAX engine keeps nearest and smooth on its
+XLA lane for reasons of TPU speed that do not carry over). With a
 CUDA device the kernel runs or the call raises; nothing demotes to
 another lane. Without ``use_kernel`` the plain lane (``ops/develop.py``
-with ``ops/demosaic.py``) renders the same method.
+with ``ops/demosaic.py`` or ``ops/cfa_generic.py``) renders the same
+method.
 
 Accurate mode uploads the mosaic with its per-CFA-site black levels
 folded out (``RawImage.fold_site_blacks``), as the JAX engine does.
@@ -40,8 +54,8 @@ point, routed as the JAX engine routes them:
   ``use_kernel`` (the develop kernels never compute it, as in the JAX
   engine); the extras post-pass after it is still the kernel.
 
-Not ported yet: ``open(path)`` (RAW decode), X-Trans and LinearRaw
-frames, clarity, dehaze, grain, local adjustments, highlight recovery
+Not ported yet: ``open(path)`` (RAW decode), LinearRaw frames, CFA
+patterns other than the four Bayer phases and 36-letter grids, clarity, dehaze, grain, local adjustments, highlight recovery
 (each raises ``NotImplementedError`` naming it), wide-gamut output, the
 pipelined tick, tiers, TIFF16, geometry and EXIF metadata in exports.
 """
@@ -59,6 +73,7 @@ from raweditor_tpu_torch.ops import develop as _develop
 from raweditor_tpu_torch.ops import fused_develop as _fused
 from raweditor_tpu_torch.ops import fused_extras as _fx
 from raweditor_tpu_torch.ops import jpeg as _jpeg
+from raweditor_tpu_torch.ops.cfa_generic import generic_cfa_method, is_xtrans
 from raweditor_tpu_torch.ops.demosaic import (CFA_PHASES, DEMOSAIC_METHODS,
                                               phase_of)
 from raweditor_tpu_torch.ops.sampling import histogram_shape, preview_shape
@@ -92,7 +107,7 @@ class DevelopEngine:
                  demosaic_method: str = "nearest"):
         if mode not in ("parity", "accurate"):
             raise ValueError(f"unknown mode {mode!r}")
-        if demosaic_method not in DEMOSAIC_METHODS:
+        if demosaic_method not in DEMOSAIC_METHODS + ("smooth",):
             raise ValueError(f"unknown demosaic method {demosaic_method!r}")
         if raw.is_linear:
             raise NotImplementedError("not ported yet: LinearRaw frames")
@@ -122,33 +137,47 @@ class DevelopEngine:
         self.wb = raw.wb_rgb()
         self.cam_matrix = cam_to_srgb_matrix(raw.xyz_to_cam, mode=mode)
         self.matrix_transpose = mode == "parity"
+        self.xtrans_pattern = None  # set for 6x6 CFAs in accurate mode
         if mode == "parity":
             self.white_level, self.black_level = 4096.0, 0.0
             self.cfa_phase = (0, 0)
         else:
             self.white_level = float(raw.white_level)
             self.black_level = float(raw.black_level)
-            if raw.cfa_pattern.upper() not in CFA_PHASES:
+            if is_xtrans(raw.cfa_pattern):
+                self.xtrans_pattern = raw.cfa_pattern
+                self.cfa_phase = (0, 0)
+            elif raw.cfa_pattern.upper() in CFA_PHASES:
+                self.cfa_phase = phase_of(raw.cfa_pattern)
+            else:
                 raise NotImplementedError(
-                    f"not ported yet: CFA pattern {raw.cfa_pattern!r}")
-            self.cfa_phase = phase_of(raw.cfa_pattern)
+                    f"not ported yet: CFA pattern {raw.cfa_pattern!r} "
+                    "(neither a 2x2 Bayer phase nor a 36-letter grid)")
+        if demosaic_method == "smooth" and self.xtrans_pattern is None:
+            raise ValueError("'smooth' is the generic-CFA tier; Bayer uses "
+                             "bilinear/malvar/grad")
 
     # -- slider tick -----------------------------------------------------
     def _view_kwargs(self, params, zoom, pan):
+        """The sampled render's keywords: the pattern for an X-Trans
+        frame (``develop_xtrans_preview``), else the Bayer phase."""
+        cfa = (dict(cfa_phase=self.cfa_phase) if self.xtrans_pattern is None
+               else dict(pattern=self.xtrans_pattern))
         return dict(zoom=float(zoom), pan_x=float(pan[0]),
                     pan_y=float(pan[1]), white_level=self.white_level,
                     black_level=self.black_level,
                     matrix_transpose=self.matrix_transpose,
-                    transfer=self.transfer, cfa_phase=self.cfa_phase,
-                    extras=params.finish_extras_mode())
+                    transfer=self.transfer,
+                    extras=params.finish_extras_mode(), **cfa)
 
     def preview_device(self, params: EditParams, zoom: float = 1.0,
                        pan: Tuple[float, float] = (0.0, 0.0)):
         """(preview_h, preview_w, 3) u8 preview, left on the device."""
-        return _develop.develop_preview(
-            self.mosaic, params, self.wb, self.cam_matrix,
-            self.preview_w, self.preview_h,
-            **self._view_kwargs(params, zoom, pan))
+        preview = (_develop.develop_preview if self.xtrans_pattern is None
+                   else _develop.develop_xtrans_preview)
+        return preview(self.mosaic, params, self.wb, self.cam_matrix,
+                       self.preview_w, self.preview_h,
+                       **self._view_kwargs(params, zoom, pan))
 
     def preview_tick(self, params: EditParams, zoom: float = 1.0,
                      pan: Tuple[float, float] = (0.0, 0.0)):
@@ -170,10 +199,12 @@ class DevelopEngine:
     def histogram(self, params: EditParams, zoom: float = 1.0,
                   pan: Tuple[float, float] = (0.0, 0.0)) -> np.ndarray:
         """(3, 256) int32 live histogram of a histogram_w-wide render."""
-        return _develop.develop_histogram(
-            self.mosaic, params, self.wb, self.cam_matrix,
-            self.histogram_w, self.histogram_h,
-            **self._view_kwargs(params, zoom, pan)).cpu().numpy()
+        histogram = (_develop.develop_histogram
+                     if self.xtrans_pattern is None
+                     else _develop.develop_xtrans_histogram)
+        return histogram(self.mosaic, params, self.wb, self.cam_matrix,
+                         self.histogram_w, self.histogram_h,
+                         **self._view_kwargs(params, zoom, pan)).cpu().numpy()
 
     def preview_jpeg(self, params: EditParams, zoom: float = 1.0,
                      pan: Tuple[float, float] = (0.0, 0.0),
@@ -195,6 +226,31 @@ class DevelopEngine:
             params, self.wb, self.cam_matrix, self.white_level,
             self.black_level, self.matrix_transpose).to(self.device)
 
+    def _kernel_demosaic(self):
+        """``demosaic=`` and ``pattern=`` of the fused kernels."""
+        if self.xtrans_pattern is None:
+            return dict(demosaic=self.demosaic_method)
+        return dict(demosaic=generic_cfa_method(self.demosaic_method),
+                    pattern=self.xtrans_pattern)
+
+    def _plain_develop(self, params: EditParams, rgba: bool):
+        """The plain lane's full-resolution develop: (H, W) u32 words
+        with ``rgba``, else (H, W, 3) u8."""
+        levels = dict(white_level=self.white_level,
+                      black_level=self.black_level,
+                      matrix_transpose=self.matrix_transpose,
+                      transfer=self.transfer)
+        if self.xtrans_pattern is not None:
+            return _develop.develop_xtrans(
+                self.mosaic, params, self.wb, self.cam_matrix,
+                pattern=self.xtrans_pattern, rgba=rgba,
+                demosaic_method=generic_cfa_method(self.demosaic_method),
+                **levels)
+        develop = _develop.develop_rgba if rgba else _develop.develop
+        return develop(self.mosaic, params, self.wb, self.cam_matrix,
+                       demosaic_method=self.demosaic_method,
+                       cfa_phase=self.cfa_phase, **levels)
+
     def _develop_words(self, params: EditParams):
         """The develop before the extras post-pass, (H, W) u32 words: the
         fused kernel with ``use_kernel``, else the plain lane. A point
@@ -204,14 +260,8 @@ class DevelopEngine:
         if self.use_kernel and not params.point_curve:
             return _fused.fused_develop_rgba(
                 self.mosaic, self.scalars(params), self.cfa_phase,
-                kernel_gamma_for(self.transfer),
-                demosaic=self.demosaic_method)
-        return _develop.develop_rgba(
-            self.mosaic, params, self.wb, self.cam_matrix,
-            white_level=self.white_level, black_level=self.black_level,
-            demosaic_method=self.demosaic_method,
-            matrix_transpose=self.matrix_transpose, transfer=self.transfer,
-            cfa_phase=self.cfa_phase)
+                kernel_gamma_for(self.transfer), **self._kernel_demosaic())
+        return self._plain_develop(params, rgba=True)
 
     def _extras_post(self, words, params: EditParams, output: str = "rgba"):
         """The finish-extras post-pass over developed words (the JAX
@@ -247,12 +297,7 @@ class DevelopEngine:
         if params.finish_extras_mode():
             return torch.stack([c.to(torch.uint8) for c in _develop.unpack_rgba(
                 self.full_rgba_device(params))], dim=-1)
-        return _develop.develop(
-            self.mosaic, params, self.wb, self.cam_matrix,
-            white_level=self.white_level, black_level=self.black_level,
-            demosaic_method=self.demosaic_method,
-            matrix_transpose=self.matrix_transpose, transfer=self.transfer,
-            cfa_phase=self.cfa_phase)
+        return self._plain_develop(params, rgba=False)
 
     def full(self, params: EditParams) -> np.ndarray:
         return self.full_device(params).cpu().numpy()
@@ -278,7 +323,7 @@ class DevelopEngine:
         y, cbcr = _fused.fused_batch_develop_rgba(
             self.mosaic[None], self.scalars(params)[None], self.cfa_phase,
             kernel_gamma_for(self.transfer), output="ycbcr420",
-            demosaic=self.demosaic_method)
+            **self._kernel_demosaic())
         return y[0], cbcr[0, :, 0::2], cbcr[0, :, 1::2]
 
     # -- export ----------------------------------------------------------

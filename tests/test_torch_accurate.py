@@ -141,12 +141,20 @@ def test_generic_helpers_match_jax():
             np.testing.assert_array_equal(mask.numpy(), np.asarray(want))
 
 
-def test_grad_fallback_not_ported():
-    """A pattern too sparse for 1-D G windows needs the isotropic
-    fallback, which is not ported yet: it raises, never guesses."""
-    m = torch.zeros(6, 6)
-    with pytest.raises(NotImplementedError):
-        tcg.demosaic_grad_generic(m, "RBGG", 2, 2)
+def test_grad_fallback_not_ported(rng):
+    """A pattern too sparse for 1-D G windows takes the isotropic
+    fallback (``demosaic_smooth_generic``), as the JAX function does.
+    (The name dates from when the port raised here instead.)"""
+    from raweditor_tpu.ops import cfa_generic as jcg
+
+    m = _normalized(rng, (14, 18))
+    assert tcg._dir_radius("RBGG", 2, 2, 1, 1) == 0
+    got = tcg.demosaic_grad_generic(torch.from_numpy(m), "RBGG", 2, 2)
+    want = jax_grad_generic(m, "RBGG", 2, 2)
+    smooth = jcg.demosaic_smooth_generic(m, "RBGG", 2, 2)
+    for g, w, sm in zip(got, want, smooth):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(np.asarray(w), np.asarray(sm))
 
 
 # -- the develop chain ----------------------------------------------------
@@ -476,11 +484,20 @@ def test_site_blacks_develop_like_jax(method, rng):
 
 def test_every_source_is_built():
     names = [p.name for p in _build._sources()]
-    assert names == ["develop.cu", "develop_grad.cu", "extras.cu"]
+    assert names == ["develop.cu", "develop_grad.cu",
+                     "develop_grad_generic.cu", "extras.cu"]
     header = _build.CSRC / "develop_common.cuh"
     assert header.exists()
     for src in names:
         assert '#include "develop_common.cuh"' in (_build.CSRC / src).read_text()
+    # The generic-CFA kernels share their tables, the grad kernels their
+    # tile machinery.
+    for src, shared in (("develop.cu", "cfa_tables.cuh"),
+                        ("develop_grad_generic.cu", "cfa_tables.cuh"),
+                        ("develop_grad.cu", "grad_tile.cuh"),
+                        ("develop_grad_generic.cu", "grad_tile.cuh")):
+        assert (_build.CSRC / shared).exists()
+        assert f'#include "{shared}"' in (_build.CSRC / src).read_text()
 
 
 def test_build_raises_when_a_source_fails(monkeypatch, tmp_path):

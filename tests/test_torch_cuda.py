@@ -342,3 +342,156 @@ def test_extras_engine_on_card(cuda, rng):
     assert _words_diff(words, cpu.full_rgba_device(pc)) <= 1
     gpu.use_kernel = False
     assert _words_diff(words, gpu.full_rgba_device(pc)) <= 1
+
+
+# -- the generic-CFA (X-Trans) kernels B5, B6, B7 ------------------------------
+
+XTRANS = fd.cfa_generic.XTRANS_PATTERN
+CFA = tuple(fd.CFA_DEMOSAICS)
+# Around the 32x16 tile, the 2x2 quad and the 6x6 period; odd and tiny.
+CFA_SHAPES = [(3, 64, 96), (2, 31, 45), (1, 1, 1), (1, 2, 3), (1, 3, 5),
+              (1, 6, 6), (1, 7, 13), (1, 36, 48), (1, 250, 32), (1, 32, 128),
+              (2, 100, 166), (1, 17, 33)]
+
+
+@pytest.mark.parametrize("demosaic", CFA)
+@pytest.mark.parametrize("gamma", sorted(fd.GAMMAS))
+@pytest.mark.parametrize("shape", CFA_SHAPES)
+def test_cfa_rgba_kernel_matches_plain(cuda, demosaic, gamma, shape, rng):
+    """0 LSB expected (the same f32 operations in the same order), 1
+    allowed; per-image scalars in the batches."""
+    mos, scal = _inputs(rng, *shape, cuda)
+    key = fd.launch_key("rgba", demosaic, XTRANS)
+    before = fd.LAUNCHES[key]
+    got = fd.fused_batch_develop_rgba(mos, scal, gamma=gamma,
+                                      demosaic=demosaic, pattern=XTRANS)
+    assert fd.LAUNCHES[key] == before + 1
+    want = fd.develop_rgba_folded_plain(mos, scal, gamma=gamma,
+                                        demosaic=demosaic, pattern=XTRANS)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint32 and got.shape == mos.shape
+    mx, share = _share(got, want)
+    print(f"cfa {demosaic} {gamma} {shape}: max {mx} LSB, differing "
+          f"{share:.2e}")
+    assert mx <= 1
+    cpu = fd.fused_batch_develop_rgba(mos.cpu(), scal.cpu(), gamma=gamma,
+                                      demosaic=demosaic, pattern=XTRANS)
+    assert _words_diff(got, cpu) <= 1
+
+
+@pytest.mark.parametrize("demosaic", CFA)
+@pytest.mark.parametrize("gamma", sorted(fd.GAMMAS))
+@pytest.mark.parametrize("shape", [(3, 48, 70), (1, 2, 2), (2, 34, 18)])
+def test_cfa_ycbcr420_kernel_matches_plain(cuda, demosaic, gamma, shape, rng):
+    mos, scal = _inputs(rng, *shape, cuda)
+    key = fd.launch_key("ycbcr420", demosaic, XTRANS)
+    before = fd.LAUNCHES[key]
+    y, cbcr = fd.fused_batch_develop_rgba(mos, scal, gamma=gamma,
+                                          output="ycbcr420",
+                                          demosaic=demosaic, pattern=XTRANS)
+    assert fd.LAUNCHES[key] == before + 1
+    wy, wc = fd.develop_rgba_folded_plain(mos, scal, gamma=gamma,
+                                          output="ycbcr420",
+                                          demosaic=demosaic, pattern=XTRANS)
+    torch.cuda.synchronize()
+    n, h, w = shape
+    assert y.shape == (n, h, w) and cbcr.shape == (n, h // 2, w)
+    for g, wnt in ((y, wy), (cbcr, wc)):
+        assert int((g.int() - wnt.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("pattern", ["RGGB", "GBRG", "RGBGBRBRG"])
+def test_cfa_kernels_take_other_periods(cuda, pattern, rng):
+    """Periods 2 and 3 through the same kernels and tables; on a 2x2
+    pattern the smooth tier is the Bayer bilinear kernel's result."""
+    assert fd.cfa_tables("RGBGBRBRG").taps is not None
+    mos, scal = _inputs(rng, 2, 37, 53, cuda)
+    for demosaic in CFA:
+        if demosaic == "nearest" and fd.cfa_tables(pattern).taps is None:
+            # A Bayer grid's nearest B of an R site lies on the diagonal,
+            # which is not one of the kernel's five taps.
+            with pytest.raises(ValueError, match="offset"):
+                fd.fused_batch_develop_rgba(mos, scal, demosaic=demosaic,
+                                            pattern=pattern)
+            continue
+        got = fd.fused_batch_develop_rgba(mos, scal, gamma="srgb",
+                                          demosaic=demosaic, pattern=pattern)
+        want = fd.develop_rgba_folded_plain(mos, scal, gamma="srgb",
+                                            demosaic=demosaic,
+                                            pattern=pattern)
+        assert _words_diff(got, want) <= 1
+    if len(pattern) == 4:
+        from raweditor_tpu_torch.ops.demosaic import phase_of
+
+        bayer = fd.fused_batch_develop_rgba(mos, scal, phase_of(pattern),
+                                            "srgb", demosaic="bilinear")
+        smooth = fd.fused_batch_develop_rgba(mos, scal, gamma="srgb",
+                                             demosaic="smooth",
+                                             pattern=pattern)
+        assert _words_diff(bayer, smooth) <= 1
+
+
+def test_cfa_kernel_rejects_and_raises(cuda, rng, monkeypatch):
+    """Bad arguments raise before a launch; a launch error raises (no
+    fallback to the plain version) and is not counted."""
+    mos, scal = _inputs(rng, 2, 12, 18, cuda)
+    for kw in ({"demosaic": "malvar"}, {"demosaic": "smooth", "pattern": None},
+               {"demosaic": "smooth", "pattern": "RGGG" "GGGG" "GGGB" "GGGG"},
+               {"pattern": "RGBRGB"}, {"pattern": "RGBGRBG" * 7}):
+        with pytest.raises(ValueError):
+            fd.fused_batch_develop_rgba(mos, scal, **{"pattern": XTRANS, **kw})
+
+    class Failing:
+        def rtt_develop_cfa_launch(self, *a):
+            return 700
+
+        rtt_develop_grad_cfa_launch = rtt_develop_cfa_launch
+
+        def rtt_error_string(self, code):
+            return b"an illegal memory access was encountered"
+
+    monkeypatch.setattr(_build, "load", lambda: Failing())
+    before = dict(fd.LAUNCHES)
+    for demosaic in CFA:
+        with pytest.raises(RuntimeError, match="generic-CFA develop kernel"):
+            fd.fused_batch_develop_rgba(mos, scal, demosaic=demosaic,
+                                        pattern=XTRANS)
+    assert fd.LAUNCHES == before
+
+
+@pytest.mark.parametrize("method", ["nearest", "malvar", "grad"])
+def test_xtrans_engine_on_card_matches_cpu(cuda, method, rng):
+    """An accurate-mode X-Trans frame: every entry point launches the
+    tier's kernel and stays within 1 LSB of the CPU engine and of the
+    plain lane on the card."""
+    raw = RawImage(rng.integers(0, 4096, (96, 150), dtype=np.uint16),
+                   np.array([2.0, 1.0, 1.5, 1.0], np.float32), REAL * 10000,
+                   black_level=100.0, white_level=4000.0, cfa_pattern=XTRANS)
+    kw = dict(mode="accurate", use_kernel=True, transfer="srgb",
+              demosaic_method=method, max_preview_width=64,
+              histogram_width=32)
+    gpu, cpu = DevelopEngine(raw, device=cuda, **kw), DevelopEngine(
+        raw, device="cpu", **kw)
+    tier = fd.cfa_generic.generic_cfa_method(method)
+    for zoom, pan in ((1.0, (0.0, 0.0)), (2.5, (0.1, -0.05))):
+        a = gpu.preview_tick(FULL, zoom, pan).cpu().numpy().astype(int)
+        b = cpu.preview_tick(FULL, zoom, pan).numpy().astype(int)
+        assert np.abs(a - b).max() <= 1
+        assert gpu.histogram(FULL, zoom, pan).sum() == 3 * 32 * gpu.histogram_h
+    before = dict(fd.LAUNCHES)
+    words = gpu.full_rgba_device(FULL)
+    planes = gpu.jpeg_planes(FULL)
+    for out in ("rgba", "ycbcr420"):
+        key = fd.launch_key(out, tier, XTRANS)
+        assert fd.LAUNCHES[key] == before[key] + 1
+    assert _words_diff(words, cpu.full_rgba_device(FULL)) <= 1
+    for g, c in zip(planes, cpu.jpeg_planes(FULL)):
+        assert int((g.cpu().int() - c.int()).abs().max()) <= 1
+    p = FULL.replace(**{k: getattr(EXTRA, k) for k in fx.EXTRAS_COLUMNS})
+    before = dict(fd.LAUNCHES), dict(fx.LAUNCHES)
+    gpu.full_rgba_device(p)
+    key = fd.launch_key("rgba", tier, XTRANS)
+    assert fd.LAUNCHES[key] == before[0][key] + 1
+    assert fx.LAUNCHES["extras_rgba"] == before[1]["extras_rgba"] + 1
+    gpu.use_kernel = False
+    assert _words_diff(words, gpu.full_rgba_device(FULL)) <= 1

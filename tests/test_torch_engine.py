@@ -160,9 +160,12 @@ def test_unported_and_invalid(rng, tmp_path, monkeypatch):
     with pytest.raises(ValueError):
         port.export(tmp_path / "x.webp", EditParams())
     raw, _ = _raws(rng, "RGGB")
-    raw.cfa_pattern = "GGRGGB" * 6
-    with pytest.raises(NotImplementedError):
-        DevelopEngine(raw, mode="accurate", device="cpu")
+    # Neither a Bayer phase nor a 36-letter grid (those develop as
+    # X-Trans: tests/test_torch_xtrans.py).
+    for pattern in ("RGGG" "GGGG" "GGGB" "GGGG", "RGBG", "GGRGGB" * 4):
+        raw.cfa_pattern = pattern
+        with pytest.raises(NotImplementedError, match="CFA pattern"):
+            DevelopEngine(raw, mode="accurate", device="cpu")
     raw.mosaic = np.zeros((4, 4, 3), np.uint16)
     with pytest.raises(NotImplementedError):
         DevelopEngine(raw, device="cpu")
