@@ -35,7 +35,9 @@ Then it holds every kernel against its plain PyTorch version (at the four
 Bayer phases and on an odd 4015x6013 frame; the extras kernel for every
 flag set, on the odd frame, a 33x17 batch and at 24 MP; the generic-CFA
 kernels at 24 MP, on the odd frame and on small frames around the tile
-and period edges) and against the plain lane, compares small frames on
+and period edges; the two grad kernels on 64 frames around their strip
+and band edges, at the four Bayer phases and for periods 2, 3 and 6) and
+against the plain lane, compares small frames on
 the card with the CPU, times each kernel beside its plain version with
 CUDA events, and prints:
 
@@ -72,6 +74,15 @@ XT_TIERS = ("nearest", "smooth", "grad")
 # RGBA frames around the 32x16 tile, the 2x2 quad and the 6x6 period.
 XT_SMALL = ((1, 1), (5, 7), (6, 6), (16, 32), (17, 33), (31, 45), (36, 48),
             (37, 65))
+# Frames around the grad kernels' strip (56 output columns of a warp's 64)
+# and band (64 output rows): one below, at and one above each and their
+# doubles, and frames narrower or shorter than one; every height with
+# every width. Periods 2, 3 and 6 for the generic-CFA kernel.
+GRAD_EDGE_W = (1, 7, 55, 56, 57, 111, 112, 113)
+GRAD_EDGE_H = (1, 9, 63, 64, 65, 127, 128, 129)
+GRAD_EDGE_EVEN = ((2, 2), (62, 54), (64, 56), (66, 58), (128, 112),
+                  (130, 114))
+GRAD_PATTERNS = ("GRBG", "RGBGBRBRG")  # beside the 6x6 X-Trans grid
 SRC = {"develop": "raweditor_tpu_torch/csrc/develop.cu",
        "grad": "raweditor_tpu_torch/csrc/develop_grad.cu",
        "cfa_grad": "raweditor_tpu_torch/csrc/develop_grad_generic.cu",
@@ -911,6 +922,39 @@ def main():
         del dev_words, y, cbcr
         torch.cuda.empty_cache()
 
+    # The grad kernels march a warp down a 64-column strip in bands of 64
+    # rows: frames around those edges, two images with their own scalars,
+    # Bayer at the four phases, the generic-CFA kernel at periods 2, 3
+    # and 6; words on every frame, planes on the even ones.
+    grad_cases = [(None, ph) for ph in PHASES] + [
+        (pat, (0, 0)) for pat in (xtrans,) + GRAD_PATTERNS]
+    edge_sc = xt_scal[:2].contiguous()
+    grad_worst = {"develop_rgba_grad": 0, "develop_rgba_cfa_grad": 0,
+             "develop_ycbcr420_grad": 0, "develop_ycbcr420_cfa_grad": 0}
+    n_edge = 0
+    for out, shapes in (("rgba", [(h, w) for h in GRAD_EDGE_H
+                                  for w in GRAD_EDGE_W]),
+                        ("ycbcr420", GRAD_EDGE_EVEN)):
+        for h, w in shapes:
+            small_b = batch[:2, 3: 3 + h, 9: 9 + w].contiguous()
+            for pat, ph in grad_cases:
+                kw = dict(cfa_phase=ph, gamma="srgb", output=out,
+                          demosaic="grad", pattern=pat)
+                got = fused.fused_batch_develop_rgba(small_b, edge_sc, **kw)
+                want = fused.develop_rgba_folded_plain(small_b, edge_sc, **kw)
+                mx = (lsb_diff(got, want)[0] if out == "rgba"
+                      else planes_diff(got, want))
+                key = fused.launch_key(out, "grad", pat)
+                check(mx == 0, f"{key} {h}x{w} phase {ph} period "
+                      f"{pat and int(len(pat) ** 0.5)}: {mx} LSB from plain")
+                note(key, mx, f"{key} {h}x{w}")
+                grad_worst[key] = max(grad_worst[key], mx)
+                n_edge += 1
+    log(f"grad kernels on {len(GRAD_EDGE_H) * len(GRAD_EDGE_W)} RGBA and "
+        f"{len(GRAD_EDGE_EVEN)} planes frames around the strip and band "
+        f"edges, four phases and periods 6, 2, 3 ({n_edge} comparisons): "
+        f"worst LSB {grad_worst}")
+
     # Small inputs: the card against the same code on the CPU (which the
     # CPU tests hold against the JAX package), parity and accurate with
     # per-site black levels.
@@ -1103,6 +1147,11 @@ def main():
     e2e["xtrans_histogram_ms"] = host_ms(lambda: e.histogram(edit), 10)
     log(f"end to end (host clock, median): {json.dumps(e2e)} [{smi}]")
     tmp.cleanup()
+
+    # The two grad kernels keep their plain versions' arithmetic bit for
+    # bit: no differing pixel in any comparison above.
+    for key in grad_worst:
+        check(errs[key] == 0, f"{key}: {errs[key]} LSB from its plain version")
 
     kernels = []
     for key, (_, _, _, out, m, pat) in timed.items():

@@ -7,7 +7,7 @@
 // _emit_ycbcr420 for output="ycbcr420"), reached from pallas_develop_rgba
 // and pallas_batch_develop_rgba with demosaic="grad". Its TPU tiling
 // mechanics (_band_realign, _clampw_fn, the width and height pad rescues,
-// _grad_block_height) have no counterpart here: a block clamps at the
+// _grad_block_height) have no counterpart here: a warp clamps at the
 // true image edge itself and takes any (H, W).
 //
 // The stages (the XLA lane is ops/cfa_generic.demosaic_grad_generic):
@@ -20,34 +20,30 @@
 // Each stage is a +-1 stencil over the one before, so an output pixel
 // sees 4 pixels around it.
 //
-// What bounds it: operations, narrowly. It moves the same bytes as the
-// quad kernel (2 B/px in; 4 B/px RGBA or 1.5 B/px planes out: 145 MB or
-// 79 MB per 24 MP frame, 0.043 ms or 0.024 ms at 3.35 TB/s) but does at
-// least 140 f32 operations per pixel with the sRGB transfer (52 of them
-// in the demosaic stages, two divisions among them), about 0.05 ms per
-// frame at the card's 67 TFLOP/s f32 rate. The design keeps every
-// intermediate stage out of device memory: one block of 128 threads owns
-// a 32x16-pixel output tile (even origin), loads the mosaic over the tile
-// plus a 4-pixel halo once, and computes each stage in shared memory over
-// a region that shrinks by one pixel per stage (G over the tile+3, R/B
-// over tile+2, refinement 1 over tile+1, refinement 2 over the tile),
-// recomputing the halo ring of each stage instead of exchanging it
-// between blocks (about 1.4x the interior work at this tile size). The
-// finish tail then runs one 2x2 quad per thread, so the YCbCr output
-// works as in develop.cu. Shared memory: six 24x40-float stage buffers,
-// 23 KB per block. Later work: larger tiles or a sliding row window to
-// cut the halo recompute, vector loads.
+// What bounds it: instruction throughput. It moves the same bytes as the quad
+// kernel (2 B/px in; 4 B/px RGBA or 1.5 B/px planes out: 0.043 ms or
+// 0.024 ms per 24 MP frame at 3.35 TB/s) and needs at least 140 f32
+// operations per pixel with the sRGB transfer (52 of them in the demosaic
+// stages, two divisions among them): 0.05 ms at the card's 67 TFLOP/s.
+// No -fmad=false kernel can reach that rate (a multiply and an add are
+// two instructions), and powf, sqrtf and an IEEE division cost tens of
+// instructions each: the finish tail alone measures about 0.25 ms per
+// frame. What a design can move is everything around the arithmetic, so
+// this one keeps every stage in registers: a warp marches down a 64-column
+// strip, each stage holds its last three rows per lane, horizontal
+// neighbours come by warp shuffles, and there is no shared memory, no
+// block barrier and no per-item index arithmetic (grad_tile.cuh). The
+// Bayer site classes are warp-uniform per row (a lane's even column is
+// the R/B site of a row or its G site), so stage 1 interpolates one G
+// per lane and row with one shuffle, and stage 2 needs two shuffles: the
+// vertical pair sums and the centre differences of the neighbour
+// columns.
 //
 // Clamp-to-edge: every stage reads its neighbours at coordinates clamped
-// to the image before it looks up the stage below (Frame::at). Padding
-// the mosaic once would be wrong for composed stages: the clamp must
-// hold at every stage, as in the TPU kernel's per-shift edge fixups. A
-// tile at the image edge therefore holds each earlier stage at every
-// clamped in-image position it reads; stage values at positions outside
-// the image are computed but never read. A tile whose halo lies inside
-// the image (all but about 2% of a 24 MP frame's tiles) takes the same
-// code without the clamps, which cost more integer work than the f32
-// stages themselves; both read the same values.
+// to the image before it looks up the stage below. Padding the mosaic
+// once would be wrong for composed stages: the clamp must hold at every
+// stage, as in the TPU kernel's per-shift edge fixups (grad_tile.cuh
+// says how the march does it for rows and for columns).
 //
 // Numerics: _demosaic_grad_window's operation order on raw * scale, the
 // black level folded into the finish offset (the gradient weights see
@@ -60,93 +56,97 @@
 
 namespace {
 
-template <int GAMMA, bool YCBCR, bool INTERIOR>
-__device__ __forceinline__ void grad_tile(
-    const Stages& st, const uint16_t* __restrict__ m, const float* sc,
-    size_t img, int h, int w, int py, int px, int ty0, int tx0,
-    uint32_t* __restrict__ rgba, uint8_t* __restrict__ yplane,
-    uint8_t* __restrict__ cbcr) {
-  float* const V = st.V;
-  float* const G = st.G;
-  float* const R = st.R;
-  float* const B = st.B;
-  const Frame<INTERIOR> f{ty0 - kHalo, tx0 - kHalo, h, w};
+// The Bayer pattern seen from a lane: column a is even, so it is in the
+// x-even class iff the phase px is 0; rows alternate.
+struct BayerSite {
+  bool a_even;  // column a is of the x-even class
+  bool t_even;  // row t (the mosaic row of this step) is of the y-even class
 
-  // Site classes in global coordinates (the phase applied).
-  auto ye = [&](int gy) { return ((gy + py) & 1) == 0; };
-  auto xe = [&](int gx) { return ((gx + px) & 1) == 0; };
+  __device__ __forceinline__ BayerSite(int py, int px, int t_first)
+      : a_even(px == 0), t_even(((t_first - 1 + py) & 1) == 0) {}
+  __device__ __forceinline__ void step() { t_even = !t_even; }
+  __device__ __forceinline__ bool row_even(int lag) const {
+    return (lag & 1) ? !t_even : t_even;
+  }
+  // G sites are where the row and column classes differ, R where both
+  // are even.
+  __device__ __forceinline__ int chan(int lag, int half) const {
+    const bool ye = row_even(lag);
+    const bool xe = half == 0 ? a_even : !a_even;
+    return ye != xe ? 1 : (ye ? 0 : 2);
+  }
 
-  load_tile(st, f, m, sc[12]);
-  __syncthreads();
-
-  // 1. G: directional means blended by inverse gradients.
-  over_region(f.oy, f.ox, 3, 3, [&](int gy, int gx, int i) {
-    const float c = V[f.at(i, gy, gx, 0, 0)];
-    if (ye(gy) != xe(gx)) {
-      G[i] = c;
-      return;
+  // 1. G at row t-1: directional means blended by inverse gradients at
+  //    the row's R/B column, the sensor value at its G column.
+  __device__ __forceinline__ Pair green(const Pair& u, const Pair& c,
+                                        const Pair& d) const {
+    const bool site_a = row_even(1) == a_even;  // warp-uniform
+    float l, r, up, dn;
+    if (site_a) {
+      l = left_of_a(c);
+      r = c.b;
+      up = u.a;
+      dn = d.a;
+    } else {
+      l = c.a;
+      r = right_of_b(c);
+      up = u.b;
+      dn = d.b;
     }
-    const float l = V[f.at(i, gy, gx, 0, -1)];
-    const float r = V[f.at(i, gy, gx, 0, 1)];
-    const float u = V[f.at(i, gy, gx, -1, 0)];
-    const float d = V[f.at(i, gy, gx, 1, 0)];
     const float wh = 1.0f / (fabsf(r - l) + kEps);
-    const float wv = 1.0f / (fabsf(d - u) + kEps);
-    G[i] = (wh * ((l + r) * 0.5f) + wv * ((u + d) * 0.5f)) / (wh + wv);
-  });
-  __syncthreads();
+    const float wv = 1.0f / (fabsf(dn - up) + kEps);
+    const float g =
+        (wh * ((l + r) * 0.5f) + wv * ((up + dn) * 0.5f)) / (wh + wv);
+    return site_a ? Pair{g, c.b} : Pair{c.a, g};
+  }
 
-  // 2. R/B by colour differences; diff is exactly 0 at G sites.
-  over_region(f.oy, f.ox, 2, 2, [&](int gy, int gx, int i) {
-    auto diff = [&](int dy, int dx) {
-      const int k = f.at(i, gy, gx, dy, dx);
-      return V[k] - G[k];
-    };
-    const int k = f.at(i, gy, gx, 0, 0);
-    const float c = V[k];
-    const float g = G[k];
-    const float hpair = (diff(0, -1) + diff(0, 1)) * 0.5f;
-    const float vpair = (diff(-1, 0) + diff(1, 0)) * 0.5f;
-    const float diag = ((diff(-1, -1) + diff(1, -1)) +
-                        (diff(-1, 1) + diff(1, 1))) *
-                       0.25f;
-    const bool y_even = ye(gy);
-    const bool x_even = xe(gx);
-    R[i] = y_even ? (x_even ? c : g + hpair) : (x_even ? g + vpair : g + diag);
-    B[i] = y_even ? (x_even ? g + diag : g + vpair) : (x_even ? g + hpair : c);
-  });
-  __syncthreads();
-
-  // 3. The refinements and the finish tail; G sites are where the row
-  //    and column parities differ, R where both are even.
-  refine_and_finish<GAMMA, YCBCR>(
-      st, f, sc, img, ty0, tx0,
-      [&](int gy, int gx, int) { return ye(gy) != xe(gx) ? 1 : (ye(gy) ? 0 : 2); },
-      rgba, yplane, cbcr);
-}
+  // 2. R and B at row t-2 by colour differences (diff is exactly 0 at G
+  //    sites): at the row's R/B column the other colour from the diagonal
+  //    quad, at its G column one colour from the row pair and one from
+  //    the column pair.
+  __device__ __forceinline__ void red_blue(const Pair& c, const Pair& g,
+                                           const Win3& diff, Pair& r,
+                                           Pair& b) const {
+    const bool ye = row_even(2);
+    const bool site_a = ye == a_even;  // warp-uniform
+    const Pair vs{diff.up.a + diff.dn.a, diff.up.b + diff.dn.b};
+    float diag, hpair, vpair;
+    if (site_a) {
+      diag = (left_of_a(vs) + vs.b) * 0.25f;
+      hpair = (diff.mid.a + right_of_b(diff.mid)) * 0.5f;
+      vpair = vs.b * 0.5f;
+    } else {
+      hpair = (left_of_a(diff.mid) + diff.mid.b) * 0.5f;
+      vpair = vs.a * 0.5f;
+      diag = (vs.a + right_of_b(vs)) * 0.25f;
+    }
+    const float cs = site_a ? c.a : c.b;  // the R/B site and its G
+    const float gs = site_a ? g.a : g.b;
+    const float go = site_a ? g.b : g.a;  // the G site's G
+    const float rs = ye ? cs : gs + diag;
+    const float bs = ye ? gs + diag : cs;
+    const float ro = ye ? go + hpair : go + vpair;
+    const float bo = ye ? go + vpair : go + hpair;
+    r = site_a ? Pair{rs, ro} : Pair{ro, rs};
+    b = site_a ? Pair{bs, bo} : Pair{bo, bs};
+  }
+};
 
 template <int GAMMA, bool YCBCR>
-__global__ void __launch_bounds__(kThreads)
-    develop_grad_tiles(const uint16_t* __restrict__ mosaics,
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    develop_grad_bands(const uint16_t* __restrict__ mosaics,
                        const float* __restrict__ scal, int h, int w, int py,
                        int px, uint32_t* __restrict__ rgba,
                        uint8_t* __restrict__ yplane,
                        uint8_t* __restrict__ cbcr) {
-  __shared__ float V[kCells], G[kCells], R[kCells], B[kCells], XB[kCells],
-      XR[kCells];
-  const Stages st{V, G, R, B, XB, XR};
+  const int sx = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kStripW;
+  if (sx >= w) return;  // the whole warp; warps share nothing
+  const int y0 = blockIdx.y * kBandH;
   const size_t img = blockIdx.z;
   const float* sc = scal + img * kScalars;
   const uint16_t* m = mosaics + img * static_cast<size_t>(h) * w;
-  const int ty0 = blockIdx.y * kTileH;
-  const int tx0 = blockIdx.x * kTileW;
-  // Block-uniform: most tiles of a large frame read no pixel outside it.
-  if (tile_is_interior(ty0, tx0, h, w))
-    grad_tile<GAMMA, YCBCR, true>(st, m, sc, img, h, w, py, px, ty0, tx0,
-                                  rgba, yplane, cbcr);
-  else
-    grad_tile<GAMMA, YCBCR, false>(st, m, sc, img, h, w, py, px, ty0, tx0,
-                                   rgba, yplane, cbcr);
+  const BayerSite site(py, px, y0 - kHalo);
+  march<GAMMA, YCBCR>(site, m, sc, img, h, w, y0, sx, rgba, yplane, cbcr);
 }
 
 template <int GAMMA>
@@ -154,11 +154,11 @@ void launch(bool ycbcr, dim3 grid, cudaStream_t st, const uint16_t* mos,
             const float* scal, int h, int w, int py, int px, void* out0,
             void* out1) {
   if (ycbcr)
-    develop_grad_tiles<GAMMA, true><<<grid, kThreads, 0, st>>>(
+    develop_grad_bands<GAMMA, true><<<grid, kThreads, 0, st>>>(
         mos, scal, h, w, py, px, nullptr, static_cast<uint8_t*>(out0),
         static_cast<uint8_t*>(out1));
   else
-    develop_grad_tiles<GAMMA, false><<<grid, kThreads, 0, st>>>(
+    develop_grad_bands<GAMMA, false><<<grid, kThreads, 0, st>>>(
         mos, scal, h, w, py, px, static_cast<uint32_t*>(out0), nullptr,
         nullptr);
 }
@@ -175,7 +175,7 @@ extern "C" int rtt_develop_grad_launch(const void* mosaics, const void* scal,
                                        int w, int py, int px, int gamma,
                                        int output, void* stream) {
   if (const int bad = check_args(n, h, w, py, px, output)) return bad;
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
+  const dim3 grid = band_grid(n, h, w);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto* mos = static_cast<const uint16_t*>(mosaics);
   const auto* sc = static_cast<const float*>(scal);

@@ -10,7 +10,7 @@
 // pallas_batch_develop_rgba with pattern= and demosaic="grad". Its TPU
 // tiling mechanics (_band_realign, _clampw_fn, the roll-mask fast path,
 // the lcm(128, side) width pad, the height-pad rescue, the block-height
-// cap) have no counterpart here: a block clamps at the true image edge
+// cap) have no counterpart here: a warp clamps at the true image edge
 // itself and takes any (H, W).
 //
 // The stages (the plain lane is ops/cfa_generic.demosaic_grad_generic):
@@ -28,24 +28,42 @@
 // at coordinates clamped to the image, its site MASK at the unclamped
 // coordinates modulo the period, so the mask continues periodically past
 // the edge while the value repeats the edge pixel (the plain lane's
-// edge-padded values times a periodic mask). The block therefore keeps
-// the channel of every local position, in or out of the image, in shared
-// memory (CH), next to the cell index of the denominators (CELL).
+// edge-padded values times a periodic mask). The march of grad_tile.cuh
+// gives exactly that: a lane outside the image carries the clamped
+// column's value at every stage and its own, unclamped, channel.
 //
-// What bounds it: operations. It moves the bytes of the other develop
-// kernels (2 B/px in; 4 B/px RGBA or 1.5 B/px planes out) and needs about
-// 140 f32 operations per pixel with the sRGB transfer (50 in the demosaic
-// stages, averaged over the 36 X-Trans cells and counting only the taps
-// the pattern fills, since a masked tap adds an exact zero: G 5.8, R/B
-// 6.8 with their divisions, the refinements 36). The kernel itself sums
-// every masked tap, with a select per tap on top, so it does more than
-// that. The design is the Bayer grad kernel's: one block of 128
-// threads per 32x16 tile, the mosaic over the tile plus a 4-pixel halo
-// loaded once, every stage in shared memory over a region that shrinks
-// by one pixel, a clamp-free path for tiles whose halo lies inside the
-// image. Shared memory: six 24x40-float stage buffers, two byte maps and
-// the tables, 26 KB per block. Later work: as for the Bayer kernel, and
-// skipping the R/B tents' taps that the pattern never fills.
+// What bounds it: instruction throughput (develop_grad.cu says why the f32
+// operation bound, about 140 per pixel here, 50 of them in the demosaic
+// stages counting only the taps the pattern fills, is out of reach of
+// any -fmad=false kernel). Stage 1 has five IEEE divisions per R/B site
+// and stage 2 two per pixel; these, not the masked taps, are what the
+// stages cost (dropping eight of stage 2's nine taps from the earlier
+// tile design did not change its time). The design is the Bayer grad
+// kernel's march in registers, and for the pattern:
+// - a lane's two columns fix its cell columns for the whole band, and
+//   the cell row of each stage advances by one per step (no modulo per
+//   pixel). The channels of the four columns a lane looks at (its own
+//   two and the one on either side) over the period's rows are packed
+//   into two registers, two bits each, once per band; the tile design
+//   kept two byte maps in shared memory and built them with a division
+//   and two modulos per position (0.09 ms per frame);
+// - the masked 3x3 tent of stage 2 is separable as the plain version
+//   writes it: each lane sums its own two columns over the three rows in
+//   registers, per channel, and the row pass takes the neighbours' column
+//   sums by shuffle, so a column sum is computed once and not three
+//   times. Every masked tap is still a select that adds an exact zero;
+// - stage 1 interpolates G once per lane and row, at whichever of the
+//   lane's two columns is the R/B site, and a second time only in rows
+//   where some column pair holds two (a warp vote: two of the X-Trans
+//   grid's six rows);
+// - a division by a tent's denominator becomes a multiply by its exact
+//   reciprocal where every lane's denominator is a power of two (a warp
+//   vote again: all of stage 1 on any radius-1 pattern, two rows in six
+//   of stage 2 on X-Trans): both are the correctly rounded quotient, so
+//   no bit changes;
+// - the denominators are looked up per cell from the tables in shared
+//   memory (868 bytes per block), where lanes in different cells do not
+//   serialise: four loads per pixel.
 //
 // Numerics: _demosaic_grad_generic_window's operation order on
 // raw * scale (tents as (a + b*2) + c, the R/B numerator as column sums
@@ -58,134 +76,196 @@
 
 namespace {
 
-template <int GAMMA, bool YCBCR, bool INTERIOR>
-__device__ __forceinline__ void grad_cfa_tile(
-    const Stages& st, const unsigned char* CH, const unsigned char* CELL,
-    const CfaTables& t, const uint16_t* __restrict__ m, const float* sc,
-    size_t img, int h, int w, int ty0, int tx0, uint32_t* __restrict__ rgba,
-    uint8_t* __restrict__ yplane, uint8_t* __restrict__ cbcr) {
-  float* const V = st.V;
-  float* const G = st.G;
-  float* const R = st.R;
-  float* const B = st.B;
-  const Frame<INTERIOR> f{ty0 - kHalo, tx0 - kHalo, h, w};
+// The pattern seen from a lane. Channels are packed two bits each at
+// bit 4 * (cell row) + 2 * half: `own` for the lane's columns a and b,
+// `out` for the column left of a and the column right of b.
+struct CfaSite {
+  const CfaTables* t;  // in shared memory
+  int side;
+  int cy0, cy1, cy2, cy3, cy4;  // cell rows of rows t (this step's
+                                // mosaic row), t-1, ..., t-4
+  int cell_a, cell_b;  // cell columns of a and b
+  unsigned own, out;
 
-  load_tile(st, f, m, sc[12]);
-  __syncthreads();
-
-  // 1. G: directional normalised tents blended by inverse gradients. At
-  //    an R/B site the centre adds nothing to the numerators.
-  over_region(f.oy, f.ox, 3, 3, [&](int gy, int gx, int i) {
-    const float c = V[f.at(i, gy, gx, 0, 0)];
-    if (CH[i] == 1) {
-      G[i] = c;
-      return;
+  __device__ __forceinline__ CfaSite(const CfaTables* tables, int x0,
+                                     int t_first)
+      : t(tables), side(tables->side) {
+    cy0 = cell_mod(t_first - 1, side);
+    cy1 = cell_mod(t_first - 2, side);
+    cy2 = cell_mod(t_first - 3, side);
+    cy3 = cell_mod(t_first - 4, side);
+    cy4 = cell_mod(t_first - 5, side);
+    cell_a = cell_mod(x0, side);
+    cell_b = cell_mod(x0 + 1, side);
+    const int cell_l = cell_mod(x0 - 1, side);
+    const int cell_r = cell_mod(x0 + 2, side);
+    own = 0;
+    out = 0;
+    for (int y = 0; y < side; ++y) {
+      const unsigned char* row = t->chan + y * side;
+      own |= (static_cast<unsigned>(row[cell_a]) |
+              (static_cast<unsigned>(row[cell_b]) << 2))
+             << (4 * y);
+      out |= (static_cast<unsigned>(row[cell_l]) |
+              (static_cast<unsigned>(row[cell_r]) << 2))
+             << (4 * y);
     }
-    const float l = V[f.at(i, gy, gx, 0, -1)];
-    const float r = V[f.at(i, gy, gx, 0, 1)];
-    const float u = V[f.at(i, gy, gx, -1, 0)];
-    const float d = V[f.at(i, gy, gx, 1, 0)];
+  }
+  __device__ __forceinline__ void step() {
+    cy4 = cy3;
+    cy3 = cy2;
+    cy2 = cy1;
+    cy1 = cy0;
+    cy0 = next_row(cy0);
+  }
+  // Cell row of row t - lag, lag in 1..4.
+  __device__ __forceinline__ int row_of(int lag) const {
+    return lag == 1 ? cy1 : lag == 2 ? cy2 : lag == 3 ? cy3 : cy4;
+  }
+  __device__ __forceinline__ int next_row(int r) const {
+    return r + 1 == side ? 0 : r + 1;
+  }
+  __device__ __forceinline__ int prev_row(int r) const {
+    return r == 0 ? side - 1 : r - 1;
+  }
+  static __device__ __forceinline__ int at(unsigned bits, int r, int half) {
+    return (bits >> (4 * r + 2 * half)) & 3u;
+  }
+  __device__ __forceinline__ int chan(int lag, int half) const {
+    return at(own, row_of(lag), half);
+  }
+
+  // x / d for two quotients at once. A tent's denominator is a small
+  // integer, often a power of two, and x * (1/d) with an exact 1/d is the
+  // same correctly rounded value as x / d; so where every lane's
+  // denominators are normal powers of two (a vote, so the warp stays
+  // together) two multiplies replace two IEEE divisions.
+  static __device__ __forceinline__ bool pow2(float d) {
+    const unsigned bits = __float_as_uint(d);
+    const unsigned e = bits >> 23;  // the sign bit must be clear too
+    return (bits & 0x007fffffu) == 0 && e >= 1 && e <= 253;
+  }
+  static __device__ __forceinline__ void divide2(float x0, float d0, float x1,
+                                                 float d1, float& q0,
+                                                 float& q1) {
+    if (__all_sync(kAllLanes, pow2(d0) && pow2(d1))) {
+      q0 = x0 * __uint_as_float(0x7f000000u - __float_as_uint(d0));
+      q1 = x1 * __uint_as_float(0x7f000000u - __float_as_uint(d1));
+    } else {
+      q0 = x0 / d0;
+      q1 = x1 / d1;
+    }
+  }
+
+  // G of one R/B site: the 1-D normalised tents over the G sites of the
+  // row and of the column (the centre, masked, adds nothing), blended by
+  // inverse gradients. `live` is false in a lane that has no such site
+  // (its result is dropped; it must not hold the others' vote back).
+  __device__ __forceinline__ float green_at(float l, float r, float u,
+                                            float d, bool ml, bool mr,
+                                            bool mu, bool md, int cell,
+                                            bool live) const {
     const float vg2 = 0.0f;  // (the centre, masked) * 2
-    const float gh_num =
-        ((CH[i - 1] == 1 ? l : 0.0f) + vg2) + (CH[i + 1] == 1 ? r : 0.0f);
-    const float gv_num = ((CH[i - kPitch] == 1 ? u : 0.0f) + vg2) +
-                         (CH[i + kPitch] == 1 ? d : 0.0f);
-    const int cell = CELL[i];
-    const float gh = gh_num / t.den_h[cell];
-    const float gv = gv_num / t.den_v[cell];
+    const float gh_num = ((ml ? l : 0.0f) + vg2) + (mr ? r : 0.0f);
+    const float gv_num = ((mu ? u : 0.0f) + vg2) + (md ? d : 0.0f);
+    float gh, gv;
+    divide2(gh_num, live ? t->den_h[cell] : 1.0f, gv_num,
+            live ? t->den_v[cell] : 1.0f, gh, gv);
     const float wh = 1.0f / (fabsf(r - l) + kEps);
     const float wv = 1.0f / (fabsf(d - u) + kEps);
-    G[i] = (wh * gh + wv * gv) / (wh + wv);
-  });
-  __syncthreads();
+    return (wh * gh + wv * gv) / (wh + wv);
+  }
 
-  // 2. R/B: the masked 3x3 tent of value - G, column sums left to right.
-  over_region(f.oy, f.ox, 2, 2, [&](int gy, int gx, int i) {
-    float num_r = 0.0f;
-    float num_b = 0.0f;
-#pragma unroll
-    for (int dx = -1; dx <= 1; ++dx) {
-      float dr[3], db[3];
-#pragma unroll
-      for (int dy = -1; dy <= 1; ++dy) {
-        const int k = f.at(i, gy, gx, dy, dx);
-        const float diff = V[k] - G[k];
-        const int ch = CH[i + dy * kPitch + dx];
-        dr[dy + 1] = ch == 0 ? diff : 0.0f;
-        db[dy + 1] = ch == 2 ? diff : 0.0f;
-      }
-      const float col_r = (dr[0] + dr[1] * 2.0f) + dr[2];
-      const float col_b = (db[0] + db[1] * 2.0f) + db[2];
-      if (dx == -1) {
-        num_r = col_r;
-        num_b = col_b;
-      } else if (dx == 0) {
-        num_r = num_r + col_r * 2.0f;
-        num_b = num_b + col_b * 2.0f;
-      } else {
-        num_r = num_r + col_r;
-        num_b = num_b + col_b;
-      }
+  // 1. G at row t-1. In most rows of most patterns (four of the X-Trans
+  //    grid's six, every row of a 2x2 one) no column pair holds two R/B
+  //    sites, so one interpolation per lane serves the row: at column a
+  //    where that is the R/B site, else at b. A second one, for b, runs
+  //    only in rows where some lane has both (a vote).
+  __device__ __forceinline__ Pair green(const Pair& u, const Pair& c,
+                                        const Pair& d) const {
+    const int r = row_of(1);
+    const int ru = prev_row(r);
+    const int rd = next_row(r);
+    const bool site_a = at(own, r, 0) != 1;
+    const bool site_b = at(own, r, 1) != 1;
+    const float l = left_of_a(c);
+    const float rt = right_of_b(c);
+    const int half = site_a ? 0 : 1;
+    const float g1 = green_at(
+        site_a ? l : c.a, site_a ? c.b : rt, site_a ? u.a : u.b,
+        site_a ? d.a : d.b, site_a ? at(out, r, 0) == 1 : true,
+        site_a ? !site_b : at(out, r, 1) == 1, at(own, ru, half) == 1,
+        at(own, rd, half) == 1, r * side + (site_a ? cell_a : cell_b),
+        site_a || site_b);
+    Pair g{site_a ? g1 : c.a, site_a || !site_b ? c.b : g1};
+    const bool both = site_a && site_b;
+    if (__any_sync(kAllLanes, both)) {
+      const float g2 =
+          green_at(c.a, rt, u.b, d.b, false, at(out, r, 1) == 1,
+                   at(own, ru, 1) == 1, at(own, rd, 1) == 1,
+                   r * side + cell_b, both);
+      if (both) g.b = g2;
     }
-    const int k = f.at(i, gy, gx, 0, 0);
-    const float c = V[k];
-    const float g = G[k];
-    const int ch = CH[i];
-    const int cell = CELL[i];
-    R[i] = ch == 0 ? c : g + num_r / t.den2[0][cell];
-    B[i] = ch == 2 ? c : g + num_b / t.den2[2][cell];
-  });
-  __syncthreads();
+    return g;
+  }
 
-  // 3. The refinements and the finish tail.
-  refine_and_finish<GAMMA, YCBCR>(
-      st, f, sc, img, ty0, tx0, [&](int, int, int i) { return int(CH[i]); },
-      rgba, yplane, cbcr);
-}
+  // 2. R and B at row t-2: the masked 3x3 tent of value - G, column sums
+  //    left to right, over the pattern's 2-D denominators, G added back.
+  __device__ __forceinline__ void red_blue(const Pair& c, const Pair& g,
+                                           const Win3& diff, Pair& r,
+                                           Pair& b) const {
+    const int rc = row_of(2);
+    const int ru = prev_row(rc);
+    const int rd = next_row(rc);
+    auto col = [&](int chan, int half, float du, float dc, float dd) {
+      return ((at(own, ru, half) == chan ? du : 0.0f) +
+              (at(own, rc, half) == chan ? dc : 0.0f) * 2.0f) +
+             (at(own, rd, half) == chan ? dd : 0.0f);
+    };
+    const Pair col_r{col(0, 0, diff.up.a, diff.mid.a, diff.dn.a),
+                     col(0, 1, diff.up.b, diff.mid.b, diff.dn.b)};
+    const Pair col_b{col(2, 0, diff.up.a, diff.mid.a, diff.dn.a),
+                     col(2, 1, diff.up.b, diff.mid.b, diff.dn.b)};
+    const float rl = left_of_a(col_r);
+    const float rr = right_of_b(col_r);
+    const float bl = left_of_a(col_b);
+    const float br = right_of_b(col_b);
+    const int ia = rc * side + cell_a;
+    const int ib = rc * side + cell_b;
+    const int ch_a = at(own, rc, 0);
+    const int ch_b = at(own, rc, 1);
+    const float nra = (rl + col_r.a * 2.0f) + col_r.b;
+    const float nrb = (col_r.a + col_r.b * 2.0f) + rr;
+    const float nba = (bl + col_b.a * 2.0f) + col_b.b;
+    const float nbb = (col_b.a + col_b.b * 2.0f) + br;
+    float qra, qrb, qba, qbb;
+    divide2(nra, t->den2[0][ia], nrb, t->den2[0][ib], qra, qrb);
+    divide2(nba, t->den2[2][ia], nbb, t->den2[2][ib], qba, qbb);
+    r = {ch_a == 0 ? c.a : g.a + qra, ch_b == 0 ? c.b : g.b + qrb};
+    b = {ch_a == 2 ? c.a : g.a + qba, ch_b == 2 ? c.b : g.b + qbb};
+  }
+};
 
 template <int GAMMA, bool YCBCR>
-__global__ void __launch_bounds__(kThreads)
-    develop_grad_cfa_tiles(const uint16_t* __restrict__ mosaics,
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    develop_grad_cfa_bands(const uint16_t* __restrict__ mosaics,
                            const float* __restrict__ scal, int h, int w,
                            const __grid_constant__ CfaTables tables,
                            uint32_t* __restrict__ rgba,
                            uint8_t* __restrict__ yplane,
                            uint8_t* __restrict__ cbcr) {
-  __shared__ float V[kCells], G[kCells], R[kCells], B[kCells], XB[kCells],
-      XR[kCells];
-  __shared__ unsigned char CH[kCells], CELL[kCells];
   __shared__ CfaTables t;
-  const Stages st{V, G, R, B, XB, XR};
+  copy_tables(tables, &t, threadIdx.x, kThreads);
+  __syncthreads();  // the only one: from here on warps share nothing
+
+  const int sx = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kStripW;
+  if (sx >= w) return;  // the whole warp
+  const int y0 = blockIdx.y * kBandH;
   const size_t img = blockIdx.z;
   const float* sc = scal + img * kScalars;
   const uint16_t* m = mosaics + img * static_cast<size_t>(h) * w;
-  const int ty0 = blockIdx.y * kTileH;
-  const int tx0 = blockIdx.x * kTileW;
-
-  // The tables, then the pattern cell and channel of every local
-  // position, periodic in the unclamped global coordinates.
-  copy_tables(tables, &t, threadIdx.x, kThreads);
-  __syncthreads();
-  {
-    const int side = t.side;
-    const int cy0 = cell_mod(ty0 - kHalo, side);
-    const int cx0 = cell_mod(tx0 - kHalo, side);
-    for (int k = threadIdx.x; k < kCells; k += kThreads) {
-      const int cell =
-          ((cy0 + k / kPitch) % side) * side + (cx0 + k % kPitch) % side;
-      CELL[k] = static_cast<unsigned char>(cell);
-      CH[k] = t.chan[cell];
-    }
-  }
-  // (load_tile's barrier also orders CH and CELL before their readers.)
-
-  // Block-uniform: most tiles of a large frame read no pixel outside it.
-  if (tile_is_interior(ty0, tx0, h, w))
-    grad_cfa_tile<GAMMA, YCBCR, true>(st, CH, CELL, t, m, sc, img, h, w, ty0,
-                                      tx0, rgba, yplane, cbcr);
-  else
-    grad_cfa_tile<GAMMA, YCBCR, false>(st, CH, CELL, t, m, sc, img, h, w,
-                                       ty0, tx0, rgba, yplane, cbcr);
+  const CfaSite site(&t, lane_column(sx), y0 - kHalo);
+  march<GAMMA, YCBCR>(site, m, sc, img, h, w, y0, sx, rgba, yplane, cbcr);
 }
 
 template <int GAMMA>
@@ -193,11 +273,11 @@ void launch(bool ycbcr, dim3 grid, cudaStream_t st, const uint16_t* mos,
             const float* scal, int h, int w, const CfaTables& tables,
             void* out0, void* out1) {
   if (ycbcr)
-    develop_grad_cfa_tiles<GAMMA, true><<<grid, kThreads, 0, st>>>(
+    develop_grad_cfa_bands<GAMMA, true><<<grid, kThreads, 0, st>>>(
         mos, scal, h, w, tables, nullptr, static_cast<uint8_t*>(out0),
         static_cast<uint8_t*>(out1));
   else
-    develop_grad_cfa_tiles<GAMMA, false><<<grid, kThreads, 0, st>>>(
+    develop_grad_cfa_bands<GAMMA, false><<<grid, kThreads, 0, st>>>(
         mos, scal, h, w, tables, static_cast<uint32_t*>(out0), nullptr,
         nullptr);
 }
@@ -218,7 +298,7 @@ extern "C" int rtt_develop_grad_cfa_launch(const void* mosaics,
   if (const int bad = check_args(n, h, w, 0, 0, output)) return bad;
   CfaTables t;
   if (!unpack_tables(tables, &t)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
+  const dim3 grid = band_grid(n, h, w);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto* mos = static_cast<const uint16_t*>(mosaics);
   const auto* sc = static_cast<const float*>(scal);

@@ -1,19 +1,58 @@
-// The tile machinery and the chroma-refinement tail shared by the two
+// The band machinery and the chroma-refinement tail shared by the two
 // gradient-weighted develop kernels (develop_grad.cu on a Bayer phase,
 // develop_grad_generic.cu on a repeating-CFA pattern).
 //
-// One block of 128 threads owns a 32x16-pixel output tile (even origin)
-// and holds every stage in shared memory over the tile plus a 4-pixel
-// halo, each stage over a region that shrinks by one pixel. The two
-// kernels differ in stages 1 and 2 (G, then R/B by colour differences)
-// and in how a position's channel is found; the refinements and the
-// finish tail are the same and live here (the TPU kernel's
-// _chroma_refine, then _finish_block).
+// What bounds these kernels on an H100 is instruction throughput, not bytes
+// (0.043 ms per 24 MP frame) and not the f32 rate (0.05 ms): with
+// -fmad=false, IEEE divisions and powf the finish tail alone measures
+// about 0.25 ms per frame. A design that stages every step of a 32x16
+// tile in shared memory behind block barriers spent another 0.45 ms
+// (Bayer) to 0.7 ms (X-Trans) around the arithmetic: 80 to 120 shared
+// accesses, a division and a modulo of index arithmetic and the
+// recompute of a 4-pixel halo ring per output pixel; loading the tile
+// and storing a trivial result already took 0.15 to 0.24 ms. So the
+// design here keeps the stages in registers and marches down the image:
 //
-// Clamp-to-edge: every stage reads its neighbours at coordinates clamped
-// to the image before it looks up the stage below (Frame::at). A tile
-// whose halo lies inside the image takes the same code without the
-// clamps; both read the same values.
+// - One WARP owns a strip of 64 columns (56 output columns plus the
+//   4-column halo either side; a lane holds two adjacent columns, so it
+//   owns the 2x2 quad and its 4:2:0 chroma sample) and walks a band of
+//   kBandH output rows from top to bottom, one mosaic row per step.
+// - Every stage keeps its last three rows in registers (Win3). A 3x3
+//   stencil takes one new row per step; the vertical taps (the tents'
+//   column pass, the u/d taps of G) touch no memory at all.
+// - Horizontal neighbours come by __shfl_sync: 12 to 14 shuffles per
+//   lane and row where the tile design made 170 to 230 shared accesses
+//   for the same two pixels. A shuffle moves bits, so nothing rounds
+//   differently. Warps share nothing: there is no block barrier.
+// - lane = column pair, loop = row: no division, no modulo per item.
+// - Stage 2 and refinement 1 hand on the colour differences R-G and B-G
+//   (the one subtraction the tents' column pass would do on each of its
+//   three reads) instead of R and B.
+// - Only the band's first 8 rows are recomputed (1.125x at 64 rows) and
+//   the strip's halo (1.14x); the finish tail is skipped on them.
+// - The next mosaic row is loaded (4 bytes per lane where the row is
+//   aligned) before the current one is worked on.
+// - Bands of 64 rows and 20 warps per SM (kMinBlocks) measured best: 32
+//   rows recompute too much, 128 leave too few warps for one frame.
+//
+// The two kernels differ in stages 1 and 2 (G, then R/B by colour
+// differences) and in how a position's channel is found: a Site type
+// gives green(), red_blue() and chan(). The refinements and the finish
+// tail are the same and live here (the TPU kernel's _chroma_refine,
+// then _finish_block).
+//
+// Clamp-to-edge: every stage reads the stage below at coordinates
+// clamped to the image. Rows: a stage's row -1 is its row 0 and its row
+// h is its row h-1, so the first in-image row fills the whole window and
+// past the last one the newest row is pushed again (warp-uniform
+// branches, and only in bands that reach the top or bottom edge: ROWS).
+// Columns: a lane whose column lies outside the image holds,
+// at EVERY stage, the value of the nearest in-image column of that
+// stage (clamp_columns, four shuffles per value); only strips that touch
+// the left or right image edge pay for it (EDGE), the others take the
+// same code without it. A site's channel is always that of the
+// unclamped position, which is what the generic-CFA rule needs (value
+// clamped, mask periodic).
 
 #pragma once
 
@@ -21,154 +60,289 @@
 
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 16;
 constexpr int kHalo = 4;
-constexpr int kPitch = kTileW + 2 * kHalo;  // 40
-constexpr int kRows = kTileH + 2 * kHalo;   // 24
-constexpr int kCells = kPitch * kRows;
-constexpr int kThreads = (kTileW / 2) * (kTileH / 2);  // one per quad
+constexpr int kWarpCols = 64;                     // two per lane
+constexpr int kStripW = kWarpCols - 2 * kHalo;    // 56 output columns
+constexpr int kBandH = 64;                        // output rows per warp
+constexpr int kWarps = 4;                         // strips per block
+constexpr int kThreads = 32 * kWarps;
+// Five blocks (20 warps) per SM: caps the kernels at 96 registers. The
+// march is bound by instruction throughput and its chains are long, so warps
+// in flight buy more than the few registers cost.
+constexpr int kMinBlocks = 5;
+constexpr unsigned kAllLanes = 0xffffffffu;
 constexpr float kEps = 1e-4f;
 
-// The tile's local frame: local (0, 0) is global (oy, ox) = the tile
-// origin minus the halo; every stage buffer uses it. An INTERIOR frame
-// lies inside the image, so no read needs a clamp there.
-template <bool INTERIOR>
-struct Frame {
-  int oy, ox, h, w;
-  // Local index of the image pixel nearest to (gy + dy, gx + dx), where
-  // i is the local index of (gy, gx).
-  __device__ __forceinline__ int at(int i, int gy, int gx, int dy,
-                                    int dx) const {
-    if constexpr (INTERIOR) return i + dy * kPitch + dx;
-    return (min(max(gy + dy, 0), h - 1) - oy) * kPitch +
-           (min(max(gx + dx, 0), w - 1) - ox);
-  }
+// One value for each of the lane's two columns: a at the even column
+// x0, b at x0 + 1.
+struct Pair {
+  float a, b;
 };
 
-// Calls fn(gy, gx, local index) for every position of the tile grown by
-// gy_grow rows and gx_grow columns on each side.
-template <typename F>
-__device__ __forceinline__ void over_region(int oy, int ox, int gy_grow,
-                                            int gx_grow, F fn) {
-  const int rows = kTileH + 2 * gy_grow;
-  const int cols = kTileW + 2 * gx_grow;
-  const int ly0 = kHalo - gy_grow;
-  const int lx0 = kHalo - gx_grow;
-  for (int k = threadIdx.x; k < rows * cols; k += kThreads) {
-    const int ly = ly0 + k / cols;
-    const int lx = lx0 + k % cols;
-    fn(oy + ly, ox + lx, ly * kPitch + lx);
+__device__ __forceinline__ Pair operator-(const Pair& x, const Pair& y) {
+  return {x.a - y.a, x.b - y.b};
+}
+
+// The value left of column a (the lane below's b) and right of column b
+// (the lane above's a).
+__device__ __forceinline__ float left_of_a(const Pair& v) {
+  return __shfl_up_sync(kAllLanes, v.b, 1);
+}
+__device__ __forceinline__ float right_of_b(const Pair& v) {
+  return __shfl_down_sync(kAllLanes, v.a, 1);
+}
+
+// Where a lane's columns sit, and for a strip at the left or right image
+// edge the lane and half (0 = a, 1 = b) that hold the nearest in-image
+// column of each.
+template <bool EDGE>
+struct Lane {
+  int x0;
+  int src_a, src_b;
+  bool half_a, half_b;
+};
+
+// The even column x0 of the calling lane in the strip whose first output
+// column is sx.
+__device__ __forceinline__ int lane_column(int sx) {
+  return sx - kHalo + 2 * static_cast<int>(threadIdx.x & 31);
+}
+
+template <bool EDGE>
+__device__ __forceinline__ Lane<EDGE> make_lane(int sx, int w) {
+  Lane<EDGE> ln{};
+  const int first = sx - kHalo;
+  ln.x0 = lane_column(sx);
+  if constexpr (EDGE) {
+    const int ca = min(max(ln.x0, 0), w - 1) - first;
+    const int cb = min(max(ln.x0 + 1, 0), w - 1) - first;
+    ln.src_a = ca >> 1;
+    ln.half_a = ca & 1;
+    ln.src_b = cb >> 1;
+    ln.half_b = cb & 1;
+  }
+  return ln;
+}
+
+// Columns outside the image take the stage's value at the nearest
+// in-image column; in-image columns read themselves.
+template <bool EDGE>
+__device__ __forceinline__ void clamp_columns(const Lane<EDGE>& ln, Pair& v) {
+  if constexpr (EDGE) {
+    const float aa = __shfl_sync(kAllLanes, v.a, ln.src_a);
+    const float ab = __shfl_sync(kAllLanes, v.b, ln.src_a);
+    const float ba = __shfl_sync(kAllLanes, v.a, ln.src_b);
+    const float bb = __shfl_sync(kAllLanes, v.b, ln.src_b);
+    v.a = ln.half_a ? ab : aa;
+    v.b = ln.half_b ? bb : ba;
   }
 }
 
-// The shared-memory stage buffers of one block. V: raw * scale. G, R, B:
-// stages 1-2, then refinement 1 in place. XB, XR: the column passes of
-// the tents over R-G and B-G.
-struct Stages {
-  float *V, *G, *R, *B, *XB, *XR;
+// The last three rows of one stage: rows r-1, r, r+1 of the row r that
+// the stage above computes next.
+struct Win3 {
+  Pair up, mid, dn;
+  // Pushes row `row` of an image of h rows. In a band that touches the
+  // top or bottom image edge (ROWS) row 0 also stands for row -1 (`v` of
+  // an earlier row is never read) and rows past h-1 repeat row h-1.
+  template <bool ROWS>
+  __device__ __forceinline__ void push(Pair v, int row, int h) {
+    if constexpr (ROWS) {
+      if (row >= h) v = dn;
+      if (row <= 0) up = mid = dn = v;
+    }
+    up = mid;
+    mid = dn;
+    dn = v;
+  }
 };
 
-// Loads raw * scale over the tile plus its halo, clamped to the image.
-template <bool INTERIOR>
-__device__ __forceinline__ void load_tile(const Stages& st,
-                                          const Frame<INTERIOR>& f,
-                                          const uint16_t* __restrict__ m,
-                                          float s) {
-  over_region(f.oy, f.ox, kHalo, kHalo, [&](int gy, int gx, int i) {
-    const int y = INTERIOR ? gy : min(max(gy, 0), f.h - 1);
-    const int x = INTERIOR ? gx : min(max(gx, 0), f.w - 1);
-    st.V[i] =
-        static_cast<float>(__ldg(m + static_cast<size_t>(y) * f.w + x)) * s;
-  });
+// The 3x3 tent (1 2 1)x(1 2 1)/16 over a window: the column pass on the
+// lane's own columns, then the row pass over the neighbours' sums.
+__device__ __forceinline__ Pair tent3(const Win3& x) {
+  const Pair s{(x.up.a + x.mid.a * 2.0f) + x.dn.a,
+               (x.up.b + x.mid.b * 2.0f) + x.dn.b};
+  const float l = left_of_a(s);
+  const float r = right_of_b(s);
+  return {((l + s.a * 2.0f) + s.b) * 0.0625f,
+          ((s.a + s.b * 2.0f) + r) * 0.0625f};
 }
 
-// Stage 3 and the finish tail, after G, R and B hold stages 1-2 over the
-// tile+2 and the block has synchronised: two chroma refinements (a 3x3
-// tent over R-G and B-G: column pass, then row pass, then /16; each
-// channel rebuilt from its own sites), then per quad the folded edit
-// stack and the store. chan_at(gy, gx, i) is the channel (0 R, 1 G, 2 B)
-// of the sensor site at global (gy, gx), local index i.
-template <int GAMMA, bool YCBCR, bool INTERIOR, typename ChanAt>
-__device__ __forceinline__ void refine_and_finish(
-    const Stages& st, const Frame<INTERIOR>& f, const float* sc, size_t img,
-    int ty0, int tx0, ChanAt chan_at, uint32_t* __restrict__ rgba,
+// One pixel of a chroma refinement: the channels rebuilt from the sensor
+// value c of channel ch (0 R, 1 G, 2 B) and the smoothed differences.
+__device__ __forceinline__ void rebuild(int ch, float c, float cb, float cr,
+                                        float& r, float& g, float& b) {
+  g = ch == 1 ? c : (ch == 0 ? c - cb : c - cr);
+  r = ch == 0 ? c : g + cb;
+  b = ch == 2 ? c : g + cr;
+}
+
+// One mosaic row of the lane's two columns as u16 pairs (low half: a),
+// from the row clamped to the image; the columns clamped too for EDGE.
+template <bool EDGE>
+__device__ __forceinline__ uint32_t load_pair(const uint16_t* __restrict__ m,
+                                              const Lane<EDGE>& ln, int row,
+                                              int h, int w, bool aligned) {
+  const uint16_t* p =
+      m + static_cast<size_t>(min(max(row, 0), h - 1)) * w;
+  if constexpr (EDGE) {
+    const uint32_t lo = __ldg(p + min(max(ln.x0, 0), w - 1));
+    const uint32_t hi = __ldg(p + min(max(ln.x0 + 1, 0), w - 1));
+    return lo | (hi << 16);
+  } else {
+    if (aligned) return __ldg(reinterpret_cast<const uint32_t*>(p + ln.x0));
+    const uint32_t lo = __ldg(p + ln.x0);
+    const uint32_t hi = __ldg(p + ln.x0 + 1);
+    return lo | (hi << 16);
+  }
+}
+
+// Marches one warp down the band of output rows [y0, y0 + kBandH) of the
+// strip whose first output column is sx (both even). At step t it loads
+// mosaic row t and computes G at row t-1, R/B at t-2, refinement 1 at
+// t-3 and refinement 2 with the finish tail at t-4.
+//
+// Site gives the pattern: step() once per row before the stages (the row
+// t of that step is y0 - kHalo at the first call); green(u, c, d): G of
+// row t-1 from raw*scale rows t-2, t-1, t; red_blue(c, g, diff, r, b):
+// R and B of row t-2 from that row's raw*scale and G and the window of
+// raw*scale - G; chan(lag, half): the channel of the lane's column at
+// row t-lag.
+template <int GAMMA, bool YCBCR, bool EDGE, bool ROWS, typename Site>
+__device__ __forceinline__ void march_band(
+    Site site, const uint16_t* __restrict__ m, const float* __restrict__ sc,
+    size_t img, int h, int w, int y0, int sx, uint32_t* __restrict__ rgba,
     uint8_t* __restrict__ yplane, uint8_t* __restrict__ cbcr) {
-  float* const V = st.V;
-  float* const G = st.G;
-  float* const R = st.R;
-  float* const B = st.B;
-  float* const XB = st.XB;
-  float* const XR = st.XR;
+  const Lane<EDGE> ln = make_lane<EDGE>(sx, w);
+  const int lane = threadIdx.x & 31;
+  const bool aligned =
+      ((w & 1) == 0) && ((reinterpret_cast<uintptr_t>(m) & 3) == 0);
+  const float s = sc[12];
+  const int rows = min(kBandH, h - y0);
+  const int y_end = y0 + rows + (rows & 1);  // whole quads
+  const bool stores = lane >= kHalo / 2 && lane < 32 - kHalo / 2 && ln.x0 < w;
 
-  // Column pass of the tent over (R-G, B-G), rows grown by `grow` and
-  // columns by grow+1 (the row pass reads one column either side).
-  auto column_pass = [&](int grow) {
-    over_region(f.oy, f.ox, grow, grow + 1, [&](int gy, int gx, int i) {
-      const int ku = f.at(i, gy, gx, -1, 0);
-      const int kc = f.at(i, gy, gx, 0, 0);
-      const int kd = f.at(i, gy, gx, 1, 0);
-      XB[i] = ((R[ku] - G[ku]) + (R[kc] - G[kc]) * 2.0f) + (R[kd] - G[kd]);
-      XR[i] = ((B[ku] - G[ku]) + (B[kc] - G[kc]) * 2.0f) + (B[kd] - G[kd]);
-    });
-  };
-  auto row_pass = [&](const float* x, int i, int gy, int gx) {
-    return ((x[f.at(i, gy, gx, 0, -1)] + x[f.at(i, gy, gx, 0, 0)] * 2.0f) +
-            x[f.at(i, gy, gx, 0, 1)]) *
-           0.0625f;
-  };
+  const Pair zero{0.0f, 0.0f};
+  Pair v0 = zero, v1 = zero, v2 = zero, v3 = zero, v4 = zero;  // rows t-4..t
+  Pair g1 = zero, g2 = zero;                                   // rows t-1, t-2
+  Win3 diff{zero, zero, zero};   // raw*scale - G, rows t-3..t-1
+  Win3 rg{zero, zero, zero}, bg{zero, zero, zero};      // R-G, B-G: t-4..t-2
+  Win3 rg2{zero, zero, zero}, bg2{zero, zero, zero};    // refined: t-5..t-3
+  int q[2][2][3];  // q[0]: the quad's first row, kept for its second
 
-  // 3a. Refinement 1 over the tile+1, rebuilt in place into G, R, B
-  //     (this step reads only V, XB and XR).
-  column_pass(1);
-  __syncthreads();
-  over_region(f.oy, f.ox, 1, 1, [&](int gy, int gx, int i) {
-    const float cb = row_pass(XB, i, gy, gx);
-    const float cr = row_pass(XR, i, gy, gx);
-    const float c = V[f.at(i, gy, gx, 0, 0)];
-    const int ch = chan_at(gy, gx, i);
-    const float g = ch == 1 ? c : (ch == 0 ? c - cb : c - cr);
-    G[i] = g;
-    R[i] = ch == 0 ? c : g + cb;
-    B[i] = ch == 2 ? c : g + cr;
-  });
-  __syncthreads();
+  uint32_t next = load_pair<EDGE>(m, ln, y0 - kHalo, h, w, aligned);
+  for (int t = y0 - kHalo; t < y_end + kHalo; ++t) {
+    const uint32_t raw = next;
+    next = load_pair<EDGE>(m, ln, t + 1, h, w, aligned);
+    site.step();
 
-  // 3b. Refinement 2: the column pass over the tile, then per quad the
-  //     row pass, the rebuild and the finish tail.
-  column_pass(0);
-  __syncthreads();
-  const int qx = threadIdx.x % (kTileW / 2);
-  const int qy = threadIdx.x / (kTileW / 2);
-  const int y0 = ty0 + 2 * qy;
-  const int x0 = tx0 + 2 * qx;
-  if (y0 >= f.h || x0 >= f.w) return;
-  int q[2][2][3];
+    // 0. raw * scale.
+    v0 = v1;
+    v1 = v2;
+    v2 = v3;
+    v3 = v4;
+    v4 = {static_cast<float>(raw & 0xffffu) * s,
+          static_cast<float>(raw >> 16) * s};
+
+    // 1. G at row t-1, and raw*scale - G.
+    {
+      const int row = t - 1;
+      Pair g = site.green(v2, v3, v4);
+      clamp_columns(ln, g);
+      g2 = g1;
+      if constexpr (ROWS) {
+        if (row >= h) g = g1;
+        if (row <= 0) g2 = g;
+      }
+      g1 = g;
+      diff.template push<ROWS>(v3 - g, row, h);
+    }
+
+    // 2. R and B at row t-2, kept as R-G and B-G.
+    {
+      Pair r, b;
+      site.red_blue(v2, g2, diff, r, b);
+      Pair dr = r - g2;
+      Pair db = b - g2;
+      clamp_columns(ln, dr);
+      clamp_columns(ln, db);
+      rg.template push<ROWS>(dr, t - 2, h);
+      bg.template push<ROWS>(db, t - 2, h);
+    }
+
+    // 3a. Refinement 1 at row t-3.
+    {
+      const Pair cb = tent3(rg);
+      const Pair cr = tent3(bg);
+      float r, g, b;
+      Pair dr, db;
+      rebuild(site.chan(3, 0), v1.a, cb.a, cr.a, r, g, b);
+      dr.a = r - g;
+      db.a = b - g;
+      rebuild(site.chan(3, 1), v1.b, cb.b, cr.b, r, g, b);
+      dr.b = r - g;
+      db.b = b - g;
+      clamp_columns(ln, dr);
+      clamp_columns(ln, db);
+      rg2.template push<ROWS>(dr, t - 3, h);
+      bg2.template push<ROWS>(db, t - 3, h);
+    }
+
+    // 3b. Refinement 2 and the finish tail at row t-4; the quad is
+    //     stored with its second row. (tent3 shuffles, so every lane
+    //     of the warp takes this branch together.)
+    const int row = t - kHalo;
+    if (row >= y0) {
+      const Pair cb = tent3(rg2);
+      const Pair cr = tent3(bg2);
+      float r, g, b;
+      rebuild(site.chan(4, 0), v0.a, cb.a, cr.a, r, g, b);
+      finish<GAMMA>(sc, r, g, b, q[1][0]);
+      rebuild(site.chan(4, 1), v0.b, cb.b, cr.b, r, g, b);
+      finish<GAMMA>(sc, r, g, b, q[1][1]);
+      if (row & 1) {  // y0 is even: the quad's second row
+        if (stores)
+          store_quad<YCBCR>(q, img, h, w, row - 1, ln.x0, rgba, yplane, cbcr);
+      } else {
 #pragma unroll
-  for (int iy = 0; iy < 2; ++iy) {
-#pragma unroll
-    for (int ix = 0; ix < 2; ++ix) {
-      const int gy = y0 + iy;
-      const int gx = x0 + ix;
-      const int i = (gy - f.oy) * kPitch + (gx - f.ox);
-      const float cb = row_pass(XB, i, gy, gx);
-      const float cr = row_pass(XR, i, gy, gx);
-      const float c = V[f.at(i, gy, gx, 0, 0)];
-      const int ch = chan_at(gy, gx, i);
-      const float g = ch == 1 ? c : (ch == 0 ? c - cb : c - cr);
-      finish<GAMMA>(sc, ch == 0 ? c : g + cb, g, ch == 2 ? c : g + cr,
-                    q[iy][ix]);
+        for (int c = 0; c < 3; ++c) {
+          q[0][0][c] = q[1][0][c];
+          q[0][1][c] = q[1][1][c];
+        }
+      }
     }
   }
-  store_quad<YCBCR>(q, img, f.h, f.w, y0, x0, rgba, yplane, cbcr);
 }
 
-// True when the tile at (ty0, tx0) reads no pixel outside the (h, w)
-// image (block-uniform).
-__device__ __forceinline__ bool tile_is_interior(int ty0, int tx0, int h,
-                                                 int w) {
-  return ty0 >= kHalo && tx0 >= kHalo && ty0 + kTileH + kHalo <= h &&
-         tx0 + kTileW + kHalo <= w;
+// Picks the march for a warp's strip and band: EDGE when the strip reads
+// a column outside the (h, w) image, ROWS when the band's stages reach
+// row 0 or row h-1 (both warp-uniform; most of a large frame is neither).
+template <int GAMMA, bool YCBCR, typename Site>
+__device__ __forceinline__ void march(
+    const Site& site, const uint16_t* __restrict__ m,
+    const float* __restrict__ sc, size_t img, int h, int w, int y0, int sx,
+    uint32_t* __restrict__ rgba, uint8_t* __restrict__ yplane,
+    uint8_t* __restrict__ cbcr) {
+  const bool edge = sx - kHalo < 0 || sx + kStripW + kHalo > w;
+  const bool ends = y0 == 0 || y0 + kBandH + kHalo >= h;
+  if (edge || ends) {
+    // One checked form for both kinds of border: they are few.
+    if (edge)
+      march_band<GAMMA, YCBCR, true, true>(site, m, sc, img, h, w, y0, sx,
+                                           rgba, yplane, cbcr);
+    else
+      march_band<GAMMA, YCBCR, false, true>(site, m, sc, img, h, w, y0, sx,
+                                            rgba, yplane, cbcr);
+  } else {
+    march_band<GAMMA, YCBCR, false, false>(site, m, sc, img, h, w, y0, sx,
+                                           rgba, yplane, cbcr);
+  }
+}
+
+// The launch grid of the band kernels for n images of (h, w).
+inline dim3 band_grid(int n, int h, int w) {
+  const int strips = (w + kStripW - 1) / kStripW;
+  return dim3((strips + kWarps - 1) / kWarps, (h + kBandH - 1) / kBandH, n);
 }
 
 }  // namespace

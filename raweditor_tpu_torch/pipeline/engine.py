@@ -57,12 +57,13 @@ point, routed as the JAX engine routes them:
 Not ported yet: ``open(path)`` (RAW decode), LinearRaw frames, CFA
 patterns other than the four Bayer phases and 36-letter grids, clarity, dehaze, grain, local adjustments, highlight recovery
 (each raises ``NotImplementedError`` naming it), wide-gamut output, the
-pipelined tick, tiers, TIFF16, geometry and EXIF metadata in exports.
+pipelined tick, tiers, TIFF16 and geometry in exports.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -86,7 +87,12 @@ HISTOGRAM_WIDTH = 128
 
 
 def _atomic_write(path: str, data: bytes) -> None:
-    tmp = f"{path}.tmp{os.getpid()}"
+    """Write through a temporary name and a rename, so an interrupted
+    export leaves no partial file. The name carries the process and the
+    thread, so two writers of one path do not collide; the parent
+    directory is made."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
         with open(tmp, "wb") as f:
             f.write(data)
@@ -104,7 +110,8 @@ class DevelopEngine:
                  transfer: str = "gamma22", device="cuda",
                  max_preview_width: int = MAX_PREVIEW_WIDTH,
                  histogram_width: int = HISTOGRAM_WIDTH,
-                 demosaic_method: str = "nearest"):
+                 demosaic_method: str = "nearest",
+                 auto_orient: bool = False):
         if mode not in ("parity", "accurate"):
             raise ValueError(f"unknown mode {mode!r}")
         if demosaic_method not in DEMOSAIC_METHODS + ("smooth",):
@@ -115,6 +122,10 @@ class DevelopEngine:
         self.mode = mode
         self.use_kernel = use_kernel
         self.demosaic_method = demosaic_method
+        # Exports rotate the pixels by the frame's TIFF orientation and
+        # tag them upright; otherwise they stay as stored and carry the
+        # orientation tag.
+        self.auto_orient = auto_orient
         # The fast transfers: a polynomial in place of the pow, within
         # 1 LSB after u8 quantisation.
         if fast_gamma and transfer == "gamma22":
@@ -328,29 +339,64 @@ class DevelopEngine:
 
     # -- export ----------------------------------------------------------
     @staticmethod
+    def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
+        """Apply a TIFF orientation (1/3/6/8 rotations; the mirrored
+        values 2/4/5/7 flip) to an (H, W[, C]) host array."""
+        if orientation == 2:
+            return img[:, ::-1]
+        if orientation == 3:
+            return img[::-1, ::-1]
+        if orientation == 4:
+            return img[::-1]
+        if orientation == 5:
+            return np.rot90(img, k=-1)[:, ::-1]
+        if orientation == 6:
+            return np.rot90(img, k=-1)
+        if orientation == 7:
+            return np.rot90(img, k=1)[:, ::-1]
+        if orientation == 8:
+            return np.rot90(img, k=1)
+        return img
+
+    def _exif_bytes(self) -> bytes:
+        """Export metadata: camera make and model and the orientation tag
+        (1 when ``auto_orient`` has rotated the pixels, else the stored
+        orientation, so that viewers rotate)."""
+        from raweditor_tpu_torch.raw.exif import build_exif
+
+        orientation = 1 if self.auto_orient else self.raw.orientation
+        return build_exif(self.raw.camera_make, self.raw.camera_model,
+                          orientation)
+
+    @staticmethod
     def _encode_420(planes, w: int, h: int, quality: int) -> bytes:
         from raweditor_tpu_torch.native import get_rawkit
 
         y, cb, cr = (np.ascontiguousarray(p.cpu().numpy()) for p in planes)
-        # optimize=False, restart_rows=0, threads=0 (all host cores).
+        # optimize=False, restart_rows=0, threads=0. Without restart
+        # markers the stream is one segment, which the encoder codes on
+        # one thread whatever ``threads`` says.
         return get_rawkit().encode_jpeg_420(y, cb, cr, w, h, int(quality),
                                             False, 0, 0)
 
     @staticmethod
-    def _pil_jpeg(rgb: np.ndarray, quality: int) -> bytes:
+    def _pil_jpeg(rgb: np.ndarray, quality: int, exif: bytes = b"") -> bytes:
         import io
 
         from PIL import Image
 
         buf = io.BytesIO()
-        Image.fromarray(rgb).save(buf, format="JPEG", quality=int(quality))
+        Image.fromarray(rgb).save(buf, format="JPEG", quality=int(quality),
+                                  exif=exif)
         return buf.getvalue()
 
     def export(self, path: os.PathLike, params: EditParams,
                quality: int = 95) -> str:
         """Full-resolution develop written as JPEG (``.jpg``/``.jpeg``,
-        4:2:0 planes and the native encoder; odd frames through PIL) or
-        PNG (``.png``, PIL). Written atomically; returns the path."""
+        4:2:0 planes and the native encoder; odd frames and frames that
+        ``auto_orient`` rotates through PIL) or RGBA PNG (``.png``, PIL).
+        Every file carries the EXIF block of ``_exif_bytes``. Written
+        atomically; returns the path."""
         path = os.fspath(path)
         ext = os.path.splitext(path)[1].lower()
         if ext in (".tif", ".tiff"):
@@ -358,21 +404,31 @@ class DevelopEngine:
         if ext not in (".jpg", ".jpeg", ".png"):
             raise ValueError(
                 f"unsupported export extension {ext!r} (use .jpg/.jpeg/.png)")
-        if ext != ".png" and self.height % 2 == 0 and self.width % 2 == 0:
-            data = self._encode_420(self.jpeg_planes(params), self.width,
-                                    self.height, quality)
+        rotates = self.auto_orient and self.raw.orientation != 1
+        exif = self._exif_bytes()
+        if (ext != ".png" and not rotates and self.height % 2 == 0
+                and self.width % 2 == 0):
+            from raweditor_tpu_torch.raw.exif import splice_exif
+
+            data = splice_exif(
+                self._encode_420(self.jpeg_planes(params), self.width,
+                                 self.height, quality), exif)
         else:
-            import io
-
-            from PIL import Image
-
-            rgb = np.ascontiguousarray(
-                _develop.rgba_view(self.full_rgba_device(params))[..., :3])
+            words = np.ascontiguousarray(_develop.rgba_view(
+                self.full_rgba_device(params)))
+            if rotates:
+                words = np.ascontiguousarray(
+                    self.apply_orientation(words, self.raw.orientation))
             if ext == ".png":
+                import io
+
+                from PIL import Image
+
                 buf = io.BytesIO()
-                Image.fromarray(rgb).save(buf, format="PNG")
+                Image.fromarray(words).save(buf, format="PNG", exif=exif)
                 data = buf.getvalue()
             else:
-                data = self._pil_jpeg(rgb, quality)
+                data = self._pil_jpeg(
+                    np.ascontiguousarray(words[..., :3]), quality, exif)
         _atomic_write(path, data)
         return path

@@ -495,3 +495,65 @@ def test_xtrans_engine_on_card_matches_cpu(cuda, method, rng):
     assert fx.LAUNCHES["extras_rgba"] == before[1]["extras_rgba"] + 1
     gpu.use_kernel = False
     assert _words_diff(words, gpu.full_rgba_device(FULL)) <= 1
+
+
+# -- the grad kernels' strips and bands (B4, B7) -------------------------------
+
+# A warp of the grad kernels marches down a strip of 56 output columns (64
+# with its halo) in bands of 64 rows. Sizes one below, at and one above
+# each edge and their doubles, and frames narrower or shorter than one
+# strip or band; always a batch of three with per-image scalars.
+GRAD_EDGE_RGBA = [(63, 55), (64, 56), (65, 57), (127, 111), (128, 112),
+                  (129, 113), (9, 7), (64, 113), (129, 56), (65, 7), (1, 57),
+                  (128, 1)]
+GRAD_EDGE_PLANES = [(2, 2), (62, 54), (64, 56), (66, 58), (128, 112),
+                    (130, 114)]
+# Bayer at the four phases; the generic-CFA kernel at periods 6, 2 and 3.
+GRAD_KERNELS = {
+    "bayer": [dict(cfa_phase=ph) for ph in ((0, 0), (0, 1), (1, 0), (1, 1))],
+    "cfa": [dict(pattern=p) for p in (XTRANS, "GRBG", "RGBGBRBRG")],
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(GRAD_KERNELS))
+@pytest.mark.parametrize("gamma", sorted(fd.GAMMAS))
+@pytest.mark.parametrize("shape", GRAD_EDGE_RGBA,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_grad_rgba_equals_plain_at_strip_and_band_edges(cuda, kernel, gamma,
+                                                        shape, rng):
+    """0 LSB: the kernels keep the plain versions' f32 operations and
+    their order, whatever strip or band a pixel falls in."""
+    mos, scal = _inputs(rng, 3, *shape, cuda)
+    for kw in GRAD_KERNELS[kernel]:
+        key = fd.launch_key("rgba", "grad", kw.get("pattern"))
+        before = fd.LAUNCHES[key]
+        got = fd.fused_batch_develop_rgba(mos, scal, gamma=gamma,
+                                          demosaic="grad", **kw)
+        assert fd.LAUNCHES[key] == before + 1
+        want = fd.develop_rgba_folded_plain(mos, scal, gamma=gamma,
+                                            demosaic="grad", **kw)
+        torch.cuda.synchronize()
+        assert got.shape == mos.shape
+        mx, share = _share(got, want)
+        assert mx == 0, f"{kw}: max {mx} LSB, differing {share:.2e}"
+
+
+@pytest.mark.parametrize("kernel", sorted(GRAD_KERNELS))
+@pytest.mark.parametrize("gamma", sorted(fd.GAMMAS))
+@pytest.mark.parametrize("shape", GRAD_EDGE_PLANES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_grad_planes_equal_plain_at_strip_and_band_edges(cuda, kernel, gamma,
+                                                         shape, rng):
+    mos, scal = _inputs(rng, 3, *shape, cuda)
+    for kw in GRAD_KERNELS[kernel]:
+        key = fd.launch_key("ycbcr420", "grad", kw.get("pattern"))
+        before = fd.LAUNCHES[key]
+        y, cbcr = fd.fused_batch_develop_rgba(
+            mos, scal, gamma=gamma, output="ycbcr420", demosaic="grad", **kw)
+        assert fd.LAUNCHES[key] == before + 1
+        wy, wc = fd.develop_rgba_folded_plain(
+            mos, scal, gamma=gamma, output="ycbcr420", demosaic="grad", **kw)
+        torch.cuda.synchronize()
+        h, w = shape
+        assert y.shape == (3, h, w) and cbcr.shape == (3, h // 2, w)
+        assert torch.equal(y, wy) and torch.equal(cbcr, wc), kw

@@ -133,12 +133,115 @@ def test_jpeg_export(use_kernel, rng, tmp_path):
     mx, share = _max_diff(img, want)
     print(f"decoded export vs JAX export: max {mx}, differing {share:.2e}")
     assert np.abs(img.astype(int) - want.astype(int)).mean() < 0.05
+    # The PNG keeps the alpha channel, as the JAX engine's does: same
+    # mode, and the pixels within the lanes' 1 LSB (equal for this seed
+    # on the plain lane).
     port.export(tmp_path / "out.png", p)
-    png = np.asarray(Image.open(tmp_path / "out.png"))
+    ref.export(tmp_path / "ref.png", jp)
+    png, ref_png = (Image.open(tmp_path / n) for n in ("out.png", "ref.png"))
+    assert png.mode == ref_png.mode == "RGBA"
+    mx, share = _max_diff(np.asarray(png), np.asarray(ref_png))
+    print(f"PNG vs JAX PNG (kernel={use_kernel}): max {mx}, differing "
+          f"{share:.2e}")
+    assert np.asarray(png).shape == (port.height, port.width, 4)
+    assert mx <= 1 and (use_kernel or mx == 0)
     np.testing.assert_array_equal(
-        png, rgba_view(port.full_rgba_device(p))[..., :3])
+        np.asarray(png), rgba_view(port.full_rgba_device(p)))
     assert sorted(x.name for x in tmp_path.iterdir()) == [
-        "out.jpg", "out.png", "ref.jpg"]
+        "out.jpg", "out.png", "ref.jpg", "ref.png"]
+
+
+def _tags(path):
+    """(make, model, orientation) from a file's EXIF block."""
+    from PIL import Image
+
+    exif = Image.open(path).getexif()
+    return exif.get(271), exif.get(272), exif.get(274)
+
+
+@pytest.mark.parametrize("auto_orient", [False, True])
+@pytest.mark.parametrize("ext", [".jpg", ".png"])
+def test_export_metadata_and_orientation(ext, auto_orient, rng, tmp_path):
+    """A frame shot on its side (orientation 6): both engines write the
+    same make, model and orientation tag, and with ``auto_orient`` the
+    same rotated picture tagged upright."""
+    from PIL import Image
+
+    raw, jraw = _raws(rng, "RGGB")
+    for r in (raw, jraw):
+        r.orientation = 6
+        r.camera_make, r.camera_model = "NIKON CORPORATION", "NIKON D3300"
+    port = DevelopEngine(raw, device="cpu", auto_orient=auto_orient)
+    ref = JaxEngine(jraw, auto_orient=auto_orient)
+    p, jp = EditParams(**SLIDERS), JaxParams(**SLIDERS)
+    port.export(tmp_path / ("out" + ext), p)
+    ref.export(tmp_path / ("ref" + ext), jp)
+    got, want = _tags(tmp_path / ("out" + ext)), _tags(tmp_path / ("ref" + ext))
+    assert got == want == ("NIKON CORPORATION", "NIKON D3300",
+                           1 if auto_orient else 6)
+    a = Image.open(tmp_path / ("out" + ext))
+    b = Image.open(tmp_path / ("ref" + ext))
+    assert a.mode == b.mode and a.size == b.size
+    assert a.size == ((raw.height, raw.width) if auto_orient
+                      else (raw.width, raw.height))
+    mx, share = _max_diff(np.asarray(a), np.asarray(b))
+    print(f"{ext} auto_orient={auto_orient}: max {mx}, differing {share:.2e}")
+    if ext == ".png" or auto_orient:
+        # PNG, and the rotated JPEG (PIL on both sides): the same pixels.
+        assert mx == 0
+    else:
+        assert np.abs(np.asarray(a).astype(int)
+                      - np.asarray(b).astype(int)).mean() < 0.05
+
+
+def test_apply_orientation_matches_jax():
+    img = np.arange(2 * 3 * 4, dtype=np.uint8).reshape(2, 3, 4)
+    for orientation in range(0, 10):
+        np.testing.assert_array_equal(
+            DevelopEngine.apply_orientation(img, orientation),
+            JaxEngine.apply_orientation(img, orientation))
+
+
+def test_export_makes_directory_and_leaves_no_temporary(rng, tmp_path,
+                                                        monkeypatch):
+    """The atomic write makes the parent directory, names its temporary
+    file by process and thread, and leaves only the export behind."""
+    import os
+    import threading
+
+    from raweditor_tpu_torch.pipeline import engine as engine_mod
+
+    port, _ = _engines(rng, SETUPS[0])
+    out = tmp_path / "not" / "there" / "yet" / "out.jpg"
+    assert port.export(out, EditParams()) == str(out)
+    assert [x.name for x in out.parent.iterdir()] == ["out.jpg"]
+    seen = []
+    real_replace = os.replace
+
+    def spy(src, dst):
+        seen.append(os.path.basename(src))
+        return real_replace(src, dst)
+
+    gate = threading.Barrier(4)  # all four alive at once: no reused ident
+
+    def write(i):
+        gate.wait()
+        engine_mod._atomic_write(str(tmp_path / "same.bin"),
+                                 bytes([i]) * 1000)
+        gate.wait()
+
+    monkeypatch.setattr(os, "replace", spy)
+    threads = [threading.Thread(target=write, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    monkeypatch.undo()
+    assert len(set(seen)) == 4
+    assert all(n.startswith(f"same.bin.{os.getpid()}.") for n in seen)
+    data = (tmp_path / "same.bin").read_bytes()
+    assert len(data) == 1000 and len(set(data)) == 1
+    assert sorted(x.name for x in tmp_path.iterdir()) == ["not", "same.bin"]
 
 
 def test_preview_jpeg(rng):
@@ -146,6 +249,19 @@ def test_preview_jpeg(rng):
     data, w, h = port.preview_jpeg(EditParams(**SLIDERS))
     assert (w, h) == (port.preview_w, port.preview_h)
     assert data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
+
+
+def test_preview_jpeg_of_an_odd_preview(rng):
+    """An odd preview height cannot be 4:2:0 planes: it goes through PIL
+    and decodes to the preview's size."""
+    from PIL import Image
+
+    raw, _ = _raws(rng, "RGGB", h=52, w=120)
+    port = DevelopEngine(raw, device="cpu", max_preview_width=40)
+    assert port.preview_h % 2 == 1
+    data, w, h = port.preview_jpeg(EditParams(**SLIDERS))
+    assert (w, h) == (port.preview_w, port.preview_h)
+    assert Image.open(io.BytesIO(data)).size == (w, h)
 
 
 def test_unported_and_invalid(rng, tmp_path, monkeypatch):

@@ -178,10 +178,15 @@ def test_jpeg_export_with_point_curve(rng, tmp_path):
         print(f"export with curve (use_kernel={use_kernel}): decoded max "
               f"{mx}, differing {share:.2e}")
         assert got.shape == (64, 96, 3) and mx <= 1
+        # The PNG keeps the alpha channel, as the JAX engine's does.
         port.export(tmp_path / "port.png", p)
+        ref.export(tmp_path / "ref.png", jp)
         png = np.asarray(Image.open(tmp_path / "port.png"))
+        ref_png = np.asarray(Image.open(tmp_path / "ref.png"))
         np.testing.assert_array_equal(
-            png, td.rgba_view(port.full_rgba_device(p))[..., :3])
+            png, td.rgba_view(port.full_rgba_device(p)))
+        assert png.shape == ref_png.shape == (64, 96, 4)
+        assert _max_diff(png, ref_png)[0] <= 2  # the extras post-pass
         data = (tmp_path / "port.jpg").read_bytes()
         assert np.asarray(Image.open(io.BytesIO(data))).shape == got.shape
 

@@ -325,3 +325,66 @@ def test_packed_tables_match_the_kernel_struct():
     codes = re.search(r"// (0 centre, 1 left, 2 right, 3 up, 4 down)", src)
     assert codes and fd.NEAREST_TAP_CODES == {
         (0, 0): 0, (0, -1): 1, (0, 1): 2, (-1, 0): 3, (1, 0): 4}
+
+
+@pytest.mark.parametrize("pattern", [XTRANS, "RGGB", "GBRG", "RGBGBRBRG"],
+                         ids=["xtrans", "rggb", "gbrg", "3x3"])
+def test_grad_kernel_reads_match_jax_site_masks(pattern):
+    """What csrc/develop_grad_generic.cu reads of the pattern, held against
+    the TPU kernel's trace-time constructions on a window whose global
+    origin is not a multiple of the period (a strip's first column minus
+    its halo, a band's first row minus its halo):
+
+    - a tap's channel is ``tables.grid`` at the unclamped position modulo
+      the period: the lane's own two columns, the column either side, the
+      rows above and below (``_site_mask_fn`` at every offset of the 3x3);
+    - the denominators are the tables at the pixel's own cell
+      (``_tile_consts_fn`` at the TPU kernel's offsets);
+    - at every R/B cell the 1-D denominators are 1 or 2, so the kernel's
+      exact-reciprocal path serves stage 1 and its division stays unused.
+
+    The tables themselves (``struct CfaTables``) are unchanged; the packed
+    bytes are held by test_packed_tables_match_the_kernel_struct."""
+    import jax.numpy as jnp
+
+    from raweditor_tpu.ops import cfa_generic as jcg
+    from raweditor_tpu.ops import pallas_develop as jp
+
+    tables = fd.cfa_tables(pattern)
+    side = tables.side
+    grid = jcg.channel_grid(pattern, side, side)
+    np.testing.assert_array_equal(tables.grid, grid)
+    y0, x0, h, w = 60, 52, 14, 17  # 64 - 4 and 56 - 4: not multiples of 6
+    rows = jnp.arange(y0, y0 + h)[:, None] + jnp.zeros((1, w), jnp.int32)
+    cols = jnp.arange(x0, x0 + w)[None, :] + jnp.zeros((h, 1), jnp.int32)
+    rind, cind = jp._parity_indicators(rows, cols, side)
+    mask = jp._site_mask_fn(grid, rind, cind)
+    tile = jp._tile_consts_fn(rind, cind)
+    yy, xx = np.mgrid[y0:y0 + h, x0:x0 + w]
+    for chan in range(3):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                want = np.asarray(mask(chan, dy, dx))
+                got = tables.grid[(yy + dy) % side, (xx + dx) % side] == chan
+                np.testing.assert_array_equal(got, want)
+    g = jcg._CHAN["G"]
+    cell = (yy % side, xx % side)
+    np.testing.assert_array_equal(
+        tables.den_h[cell],
+        np.asarray(tile(jcg._periodic_den_1d(grid, g, 1, 1), 0, -1)))
+    np.testing.assert_array_equal(
+        tables.den_v[cell],
+        np.asarray(tile(jcg._periodic_den_1d(grid, g, 1, 0), -1, 0)))
+    for chan in (0, 2):
+        np.testing.assert_array_equal(
+            tables.den2[chan][cell],
+            np.asarray(tile(jcg._periodic_den_2d(grid, chan, 1), -1, -1)))
+    at_rb = tables.grid != g
+    assert set(np.unique(tables.den_h[at_rb])) <= {1.0, 2.0}
+    assert set(np.unique(tables.den_v[at_rb])) <= {1.0, 2.0}
+    # Rows in which an even-aligned column pair holds two R/B sites (the
+    # kernel interpolates a second G there): two of the X-Trans grid's six.
+    if side % 2 == 0:
+        twice = [bool((at_rb[y, 0::2] & at_rb[y, 1::2]).any())
+                 for y in range(side)]
+        assert sum(twice) == (2 if pattern == XTRANS else 0)

@@ -48,3 +48,20 @@ def test_guard_catches_violations(tmp_path):
                                       if isinstance(n, ast.ImportFrom)]
         assert any(_forbidden(n) for n in names), src
     assert not _forbidden("raweditor_tpu_torch.ops")
+
+
+# Host-side modules of the JAX package that import no jax are kept in the
+# port as copies with the package name rewritten; the copies must not
+# drift from their sources.
+COPIES = ["raw/exif.py", "version.py"]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copy_equals_its_source_after_the_rename(rel):
+    source = (ROOT / "raweditor_tpu" / rel).read_text()
+    copy = ROOT / "raweditor_tpu_torch" / rel
+    assert copy in PORT_FILES  # so the import guard above reads it too
+    assert copy.read_text() == source.replace("raweditor_tpu.",
+                                              "raweditor_tpu_torch.")
+    assert "raweditor_tpu." not in copy.read_text().replace(
+        "raweditor_tpu_torch.", "")

@@ -420,6 +420,8 @@ def test_engine_entry_points_against_jax(method, edit, rng, tmp_path):
     want_planes = rgba_words_to_ycbcr420(want_words)
     ref.export(tmp_path / "ref.jpg", jp, quality=90)
     want_img = np.asarray(Image.open(tmp_path / "ref.jpg").convert("RGB"))
+    ref.export(tmp_path / "ref.png", jp)
+    want_png = np.asarray(Image.open(tmp_path / "ref.png"))
     for use_kernel in (False, True):
         port.use_kernel = use_kernel
         words = port.full_rgba_device(p)
@@ -439,7 +441,10 @@ def test_engine_entry_points_against_jax(method, edit, rng, tmp_path):
               f"decoded JPEG mean diff {mean:.2e}")
         assert mx <= 1 and mx_full <= 1 and mxp <= 1
         assert img.shape == want_img.shape and mean < 0.05
-        np.testing.assert_array_equal(png, td.rgba_view(words)[..., :3])
+        # The PNG keeps the alpha channel, as the JAX engine's does.
+        np.testing.assert_array_equal(png, td.rgba_view(words))
+        assert png.shape == want_png.shape
+        assert _diff(png, want_png)[0] == mx
 
 
 @pytest.mark.parametrize("method", ["nearest", "bilinear", "smooth", "grad"])
