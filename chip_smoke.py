@@ -36,8 +36,11 @@ Bayer phases and on an odd 4015x6013 frame; the extras kernel for every
 flag set, on the odd frame, a 33x17 batch and at 24 MP; the generic-CFA
 kernels at 24 MP, on the odd frame and on small frames around the tile
 and period edges; the two grad kernels on 64 frames around their strip
-and band edges, at the four Bayer phases and for periods 2, 3 and 6) and
-against the plain lane, compares small frames on
+and band edges, at the four Bayer phases and for periods 2, 3 and 6; the
+extras kernel and the generic-CFA nearest and smooth kernels on 49 RGBA
+and 6 planes frames each around theirs) and against the plain lane; the
+grad, extras and generic-CFA kernels must equal their plain versions
+exactly, the others within 1 LSB. It compares small frames on
 the card with the CPU, times each kernel beside its plain version with
 CUDA events, and prints:
 
@@ -83,6 +86,36 @@ GRAD_EDGE_H = (1, 9, 63, 64, 65, 127, 128, 129)
 GRAD_EDGE_EVEN = ((2, 2), (62, 54), (64, 56), (66, 58), (128, 112),
                   (130, 114))
 GRAD_PATTERNS = ("GRBG", "RGBGBRBRG")  # beside the 6x6 X-Trans grid
+# The extras kernel (B8) marches a strip of 60 output columns (halo 2) in
+# bands of 64 rows; the generic-CFA smooth kernel (B6) 62 columns (halo 1)
+# in bands of 24 rows (csrc/extras.cu kStripW, kBandH; csrc/develop.cu
+# kCfaStripW, kCfaBandH; a test holds these four against the sources).
+EXTRAS_STRIP, EXTRAS_BAND = 60, 64
+CFA_STRIP, CFA_BAND = 62, 24
+
+
+def around(unit):
+    """Sizes around a strip width or band height: a single pixel, one
+    below, at and one above the unit and its double."""
+    return (1, unit - 1, unit, unit + 1, 2 * unit - 1, 2 * unit, 2 * unit + 1)
+
+
+def around_even(band, strip):
+    """Even (h, w) frames around a band and strip, for 4:2:0 planes."""
+    return ((2, 2), (band - 2, strip - 2), (band, strip),
+            (band + 2, strip + 2), (2 * band, 2 * strip),
+            (2 * band + 2, 2 * strip + 2))
+
+
+EXTRAS_EDGE_W, EXTRAS_EDGE_H = around(EXTRAS_STRIP), around(EXTRAS_BAND)
+EXTRAS_EDGE_EVEN = around_even(EXTRAS_BAND, EXTRAS_STRIP)
+CFA_EDGE_W, CFA_EDGE_H = around(CFA_STRIP), around(CFA_BAND)
+CFA_EDGE_EVEN = around_even(CFA_BAND, CFA_STRIP)
+# The quad stencils' tiers and the patterns each takes beside the X-Trans
+# grid (a Bayer grid's nearest B of an R site lies on a diagonal, which is
+# not one of the nearest kernel's five taps).
+CFA_EDGE_PATTERNS = {"nearest": ("RGBGBRBRG",),
+                     "smooth": ("GRBG", "RGBGBRBRG")}
 SRC = {"develop": "raweditor_tpu_torch/csrc/develop.cu",
        "grad": "raweditor_tpu_torch/csrc/develop_grad.cu",
        "cfa_grad": "raweditor_tpu_torch/csrc/develop_grad_generic.cu",
@@ -955,6 +988,78 @@ def main():
         f"edges, four phases and periods 6, 2, 3 ({n_edge} comparisons): "
         f"worst LSB {grad_worst}")
 
+    # The extras kernel marches like the grad kernels (strips of 60 output
+    # columns, bands of 64 rows): two images with their own amounts on
+    # every frame, the all-on flag set everywhere and all eight on the
+    # frames of the diagonal; words on every size, planes on the even ones.
+    edge_params = [xedit, EditParams(sharpen=100.0, vignette=50.0,
+                                     grade_mid_hue=120.0,
+                                     grade_mid_sat=-40.0)]
+    edge_table = fx.pack_extras(edge_params)[0].cuda()
+    x_edge_worst = {"extras_rgba": 0, "extras_ycbcr420": 0}
+    n_edge = 0
+    rgba_shapes = [(h, w) for h in EXTRAS_EDGE_H for w in EXTRAS_EDGE_W]
+    diagonal = set(zip(EXTRAS_EDGE_H, EXTRAS_EDGE_W))
+    for out, shapes in (("rgba", rgba_shapes),
+                        ("ycbcr420", EXTRAS_EDGE_EVEN)):
+        for h, w in shapes:
+            wd = xb_words[:2, 11: 11 + h, 5: 5 + w].contiguous()
+            every = out == "ycbcr420" or (h, w) in diagonal
+            for flags in FLAG_SETS if every else [(True, True, True)]:
+                kw = dict(zip(("mixer_on", "grading_on", "stencils"), flags))
+                got = fx.fused_finish_extras_rgba(wd, edge_table, output=out,
+                                                  **kw)
+                want = fx.finish_extras_plain(wd, edge_table, *flags,
+                                              output=out)
+                mx = (lsb_diff(got, want)[0] if out == "rgba"
+                      else planes_diff(got, want))
+                key = "extras_" + out
+                check(mx == 0, f"{key} {h}x{w} flags {flags}: {mx} LSB from "
+                      "plain")
+                note(key, mx, f"{key} {h}x{w}")
+                x_edge_worst[key] = max(x_edge_worst[key], mx)
+                n_edge += 1
+    log(f"extras kernel on {len(rgba_shapes)} RGBA and "
+        f"{len(EXTRAS_EDGE_EVEN)} planes frames around the strip "
+        f"({EXTRAS_STRIP}) and band ({EXTRAS_BAND}) edges, the eight flag "
+        f"sets on {len(diagonal) + len(EXTRAS_EDGE_EVEN)} of them "
+        f"({n_edge} comparisons): worst LSB {x_edge_worst}")
+
+    # The generic-CFA nearest and smooth kernels around the smooth march's
+    # strips (62 output columns) and bands (24 rows), periods 6, 2 and 3;
+    # the sRGB transfer everywhere, all four on the diagonal and the planes.
+    cfa_edge_worst = {}
+    n_edge = 0
+    rgba_shapes = [(h, w) for h in CFA_EDGE_H for w in CFA_EDGE_W]
+    diagonal = set(zip(CFA_EDGE_H, CFA_EDGE_W))
+    for out, shapes in (("rgba", rgba_shapes), ("ycbcr420", CFA_EDGE_EVEN)):
+        for h, w in shapes:
+            small_b = batch[:2, 3: 3 + h, 9: 9 + w].contiguous()
+            every = out == "ycbcr420" or (h, w) in diagonal
+            for tier, more in CFA_EDGE_PATTERNS.items():
+                for pat in (xtrans,) + more:
+                    for gamma in fused.GAMMAS if every else ("srgb",):
+                        kw = dict(gamma=gamma, output=out, demosaic=tier,
+                                  pattern=pat)
+                        got = fused.fused_batch_develop_rgba(small_b, edge_sc,
+                                                             **kw)
+                        want = fused.develop_rgba_folded_plain(
+                            small_b, edge_sc, **kw)
+                        mx = (lsb_diff(got, want)[0] if out == "rgba"
+                              else planes_diff(got, want))
+                        key = fused.launch_key(out, tier, pat)
+                        check(mx == 0, f"{key} {h}x{w} period "
+                              f"{int(len(pat) ** 0.5)} {gamma}: {mx} LSB "
+                              "from plain")
+                        note(key, mx, f"{key} {h}x{w}")
+                        cfa_edge_worst[key] = max(cfa_edge_worst.get(key, 0),
+                                                  mx)
+                        n_edge += 1
+    log(f"generic-CFA nearest and smooth kernels on {len(rgba_shapes)} RGBA "
+        f"and {len(CFA_EDGE_EVEN)} planes frames around the strip "
+        f"({CFA_STRIP}) and band ({CFA_BAND}) edges, periods 6, 2 and 3 "
+        f"({n_edge} comparisons): worst LSB {cfa_edge_worst}")
+
     # Small inputs: the card against the same code on the CPU (which the
     # CPU tests hold against the JAX package), parity and accurate with
     # per-site black levels.
@@ -1148,9 +1253,10 @@ def main():
     log(f"end to end (host clock, median): {json.dumps(e2e)} [{smi}]")
     tmp.cleanup()
 
-    # The two grad kernels keep their plain versions' arithmetic bit for
-    # bit: no differing pixel in any comparison above.
-    for key in grad_worst:
+    # The grad kernels, the extras kernel and the generic-CFA nearest and
+    # smooth kernels keep their plain versions' arithmetic bit for bit: no
+    # differing pixel in any comparison above, at 24 MP or on the edges.
+    for key in (*grad_worst, *x_edge_worst, *cfa_edge_worst):
         check(errs[key] == 0, f"{key}: {errs[key]} LSB from its plain version")
 
     kernels = []

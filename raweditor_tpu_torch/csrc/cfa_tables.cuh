@@ -43,6 +43,24 @@ __device__ __forceinline__ int cell_mod(int a, int side) {
   return r < 0 ? r + side : r;
 }
 
+// The channels of the cell columns c0 and c1 over the period's rows, two
+// bits each at bit 4 * (cell row) + 2 * half (half 0: c0, half 1: c1):
+// what a lane of the band kernels keeps of its two columns for a band.
+__device__ __forceinline__ unsigned pack_channels(const CfaTables& t, int c0,
+                                                  int c1) {
+  unsigned bits = 0;
+  for (int y = 0; y < t.side; ++y) {
+    const unsigned char* row = t.chan + y * t.side;
+    bits |= (static_cast<unsigned>(row[c0]) |
+             (static_cast<unsigned>(row[c1]) << 2))
+            << (4 * y);
+  }
+  return bits;
+}
+__device__ __forceinline__ int channel_at(unsigned bits, int row, int half) {
+  return (bits >> (4 * row + 2 * half)) & 3u;
+}
+
 // Block-cooperative copy of the by-value kernel parameter into shared
 // memory; the caller synchronises.
 __device__ __forceinline__ void copy_tables(const CfaTables& from,

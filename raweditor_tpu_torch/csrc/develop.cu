@@ -1,9 +1,9 @@
-// Fused develop for Hopper (sm_90a) with the quad-local stencils: on a
+// Fused develop for Hopper (sm_90a) with the one-stage stencils: on a
 // Bayer phase nearest (the parity stencil), bilinear and
 // Malvar-He-Cutler (develop_quads); on a repeating-CFA pattern such as
-// the 6x6 X-Trans grid nearest-site and the radius-1 normalised
-// convolution "smooth" (develop_quads_cfa). u16 mosaic in, packed RGBA
-// u32 words or JPEG YCbCr 4:2:0 planes out, in one pass. The
+// the 6x6 X-Trans grid nearest-site (develop_quads_cfa) and the radius-1
+// normalised convolution "smooth" (develop_bands_cfa). u16 mosaic in,
+// packed RGBA u32 words or JPEG YCbCr 4:2:0 planes out, in one pass. The
 // gradient-weighted stencils, whose stages compose, are develop_grad.cu
 // and develop_grad_generic.cu.
 //
@@ -15,47 +15,59 @@
 // _emit_ycbcr420 for output="ycbcr420"), reached from
 // pallas_develop_rgba and pallas_batch_develop_rgba.
 //
-// What bounds it: memory. At 24 MP the kernel reads 2 B/px of mosaic and
-// writes 4 B/px (RGBA) or 1.5 B/px (planes), about 145 MB or 79 MB per
-// image against 3.35 TB/s, with under a hundred flops per pixel. The
-// design reads each mosaic sample from device memory about once
-// (neighbouring threads share their windows through L1/L2), keeps the
-// demosaic, the edit stack and the 2x2 chroma box in registers, and
-// writes each output byte once. The Malvar window grows from 16 to 36
-// loads per thread; they overlap between threads and are served by L1,
-// not device memory. Later work: a shared-memory row tile (which would
-// also serve Malvar's 6x6 window), 16-byte vector loads, TMA.
+// What bounds it: the finish tail's instructions, not bytes. At 24 MP a
+// kernel reads 2 B/px of mosaic and writes 4 B/px (RGBA) or 1.5 B/px
+// (planes), about 145 MB or 79 MB per image, 0.043 or 0.024 ms at
+// 3.35 TB/s. On an NVIDIA H100 80GB HBM3 at 700.00 W the generic-CFA
+// nearest kernel takes 0.36 ms for one frame: 0.24 ms of it is the tail
+// (develop_common.cuh: the matrix without multiply-adds, three powf a
+// pixel), 0.09 ms the window load and the store, 0.02 ms the stencil.
+// Smooth adds its masked tents and two IEEE divisions a pixel.
 //
-// Design: one thread per 2x2 pixel quad, grid (W/2, H/2, N) with the
-// batch as the z dimension. A quad is the unit of both the Bayer parity
-// pattern and the 4:2:0 chroma sample, so one thread owns a whole chroma
-// sample and no cross-thread reduction is needed. Each thread loads the
-// clamped window around its quad: 4x4 (rows y0-1..y0+2, columns
-// x0-1..x0+2) for nearest and bilinear, 6x6 (rows y0-2..y0+3) for
-// Malvar's +-2 taps. Clamping each coordinate at the true image edge
-// gives clamp-to-edge for every pixel inside the image (it reproduces the
-// TPU kernel's up2/down2 row fixups and the edge columns of _shift_x),
-// and the ragged quad of an odd H or W masks its stores. Any (H, W) works.
+// Design, thread per quad (develop_quads, develop_quads_cfa): one thread
+// per 2x2 pixel quad, grid (W/2, H/2, N) with the batch as the z
+// dimension. A quad is the unit of both the Bayer parity pattern and the
+// 4:2:0 chroma sample, so one thread owns a whole chroma sample and no
+// cross-thread reduction is needed. Each thread loads the clamped window
+// around its quad: 4x4 (rows y0-1..y0+2, columns x0-1..x0+2) for nearest
+// and bilinear, 6x6 (rows y0-2..y0+3) for Malvar's +-2 taps; neighbouring
+// threads share their windows through L1. Clamping each coordinate at the
+// true image edge gives clamp-to-edge for every pixel inside the image
+// (it reproduces the TPU kernel's up2/down2 row fixups and the edge
+// columns of _shift_x), and the ragged quad of an odd H or W masks its
+// stores. Any (H, W) works. On a repeating-CFA pattern the quad does not
+// align with the period, but it is still the chroma sample, so each of
+// its four pixels looks up its own pattern cell in the tables
+// (cfa_tables.cuh): nearest picks, per pixel and channel, one of the five
+// taps centre/left/right/up/down by the cell's tap code.
 //
-// The generic-CFA stencils (develop_quads_cfa) keep the thread per quad:
-// the quad does not align with a 6x6 period, but it is still the 4:2:0
-// chroma sample, so each of its four pixels looks up its own pattern
-// cell in the tables (cfa_tables.cuh). Nearest picks, per pixel and
-// channel, one of the five taps centre/left/right/up/down of the same
-// clamped 4x4 window by the cell's tap code. Smooth sums the nine
-// clamped taps of each channel, each zeroed unless the site at its
-// UNCLAMPED coordinates is of that channel (the mask continues
-// periodically past the image edge while the value repeats the edge
-// pixel), as column sums (a + b*2) + c, then the row sum in the same
-// form, over the cell's denominator; a sensor site passes through.
-// Nearest is bound by memory like the Bayer stencil. Smooth needs about
-// 100 f32 operations per pixel with the sRGB transfer: on the X-Trans grid
-// only 2-3 of a missing R/B's nine taps and 5 of a missing G's are ever
-// filled, so the taps that change a bit come to 8.6 operations per pixel
-// (averaged over the 36 cells, divisions included), then the tail. That
-// keeps its RGBA form bound by memory and puts its planes form (123
-// operations with the chroma box) on the operations side. The kernel
-// itself sums all nine masked taps: the never-filled ones are later work.
+// Design, smooth (develop_bands_cfa): the warp march of band_march.cuh
+// with a halo of one. A warp owns 64 columns, 62 of them output, a lane
+// two; it walks a band of kCfaBandH rows, loads each mosaic row once (the
+// next row requested before this one is worked on) and keeps three rows
+// of raw * scale in registers. Smooth sums the nine taps of each channel,
+// each zeroed unless the site at its UNCLAMPED coordinates is of that
+// channel (the mask continues periodically past the image edge while the
+// value repeats the edge pixel): a lane's two columns fix its cell
+// columns for the band, so their channels over the period's rows sit
+// packed in one register and the cell row advances with a wrap, no
+// modulo per pixel. The column sums (a + b*2) + c are computed once per
+// lane, row and channel and handed to the neighbours by shuffle (the
+// thread per quad summed three columns per pixel), then the row sum in
+// the same form, over the cell's denominator. Only the two channels a
+// site lacks are divided, and where a warp vote finds every lane's
+// denominators a power of two (two of the X-Trans grid's six rows) by a
+// multiply with the exact reciprocal, which is the same rounded quotient.
+// A strip starts one column left of an even column, so a lane's first
+// column is odd: it stores the quad of its second column and the right
+// neighbour's first, whose quantised pixel comes by one shuffle. Against
+// the thread per quad in turns (same card): smooth 0.46 -> 0.43 ms for
+// one frame, 1.86 -> 1.71 ms for four to planes; bands of 24 rows beat 64
+// by 6% on one frame (1.4 waves of long bands leave SMs idle at the end).
+// Nearest through the same march lost 1 to 4% on one frame and tied on
+// four: it is all tail, and the march runs the tail on its two halo
+// columns too. So nearest keeps the thread per quad.
+// Later work: the finish tail, which every develop kernel shares.
 //
 // Numerics: the stencils keep _demosaic_smooth_taps' factored sums in its
 // written order (hsum, vsum, diag4, then each filter's terms), on
@@ -63,8 +75,9 @@
 // folded black level sc[19], not at 0. The finish tail is
 // develop_common.cuh.
 
-#include "develop_common.cuh"
+#include "band_march.cuh"
 #include "cfa_tables.cuh"
+#include "develop_common.cuh"
 
 namespace {
 
@@ -167,9 +180,25 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   store_quad<YCBCR>(q, img, h, w, y0, x0, rgba, yplane, cbcr);
 }
 
-// The generic-CFA stencils: the quad's window as above, each pixel's
-// pattern cell from the tables.
-template <int GAMMA, bool YCBCR, int DEMOSAIC>
+// Nearest-site: per channel one of the five taps by the cell's tap code.
+__device__ __forceinline__ void nearest_site(const CfaTables& t, int cell,
+                                             float c, float left, float right,
+                                             float up, float down,
+                                             float (&rgb)[3]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int code = t.tap[k][cell];
+    rgb[k] = code == 0 ? c
+           : code == 1 ? left
+           : code == 2 ? right
+           : code == 3 ? up
+                       : down;
+  }
+}
+
+// The generic-CFA nearest-site stencil: the quad's window as above, each
+// pixel's pattern cell from the tables.
+template <int GAMMA, bool YCBCR>
 __global__ void __launch_bounds__(kBlockX* kBlockY)
     develop_quads_cfa(const uint16_t* __restrict__ mosaics,
                       const float* __restrict__ scal, int h, int w,
@@ -193,25 +222,14 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
   float v[4][4];
   load_window<1>(m, h, w, y0, x0, sc[12], v);
 
-  // The pattern row and column of each window position, by the unclamped
-  // coordinates y0-1+i and x0-1+j.
+  // The pattern row and column of the quad's pixels, by their unclamped
+  // coordinates.
   const int side = t.side;
-  int cy[4], cx[4];
-  cy[0] = cell_mod(y0 - 1, side);
-  cx[0] = cell_mod(x0 - 1, side);
-#pragma unroll
-  for (int i = 1; i < 4; ++i) {
-    cy[i] = cy[i - 1] + 1 == side ? 0 : cy[i - 1] + 1;
-    cx[i] = cx[i - 1] + 1 == side ? 0 : cx[i - 1] + 1;
-  }
-  // Smooth: the channel of every window position.
-  int ch[4][4];
-  if constexpr (DEMOSAIC == kCfaSmooth) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ch[i][j] = t.chan[cy[i] * side + cx[j]];
-  }
+  int cy[2], cx[2];
+  cy[0] = cell_mod(y0, side);
+  cx[0] = cell_mod(x0, side);
+  cy[1] = cy[0] + 1 == side ? 0 : cy[0] + 1;
+  cx[1] = cx[0] + 1 == side ? 0 : cx[0] + 1;
 
   int q[2][2][3];
 #pragma unroll
@@ -220,67 +238,149 @@ __global__ void __launch_bounds__(kBlockX* kBlockY)
     for (int ix = 0; ix < 2; ++ix) {
       const int wy = iy + 1;
       const int wx = ix + 1;
-      const int cell = cy[wy] * side + cx[wx];
-      const float c = v[wy][wx];
       float rgb[3];
-      if constexpr (DEMOSAIC == kCfaNearest) {
-        const float left = v[wy][wx - 1];
-        const float right = v[wy][wx + 1];
-        const float up = v[wy - 1][wx];
-        const float down = v[wy + 1][wx];
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          const int code = t.tap[k][cell];
-          rgb[k] = code == 0 ? c
-                 : code == 1 ? left
-                 : code == 2 ? right
-                 : code == 3 ? up
-                             : down;
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          float col[3];
-#pragma unroll
-          for (int dx = -1; dx <= 1; ++dx) {
-            const float a = ch[wy - 1][wx + dx] == k ? v[wy - 1][wx + dx] : 0.0f;
-            const float b = ch[wy][wx + dx] == k ? v[wy][wx + dx] : 0.0f;
-            const float d = ch[wy + 1][wx + dx] == k ? v[wy + 1][wx + dx] : 0.0f;
-            col[dx + 1] = (a + b * 2.0f) + d;
-          }
-          const float num = (col[0] + col[1] * 2.0f) + col[2];
-          rgb[k] = ch[wy][wx] == k ? c : num / t.den2[k][cell];
-        }
-      }
+      nearest_site(t, cy[iy] * side + cx[ix], v[wy][wx], v[wy][wx - 1],
+                   v[wy][wx + 1], v[wy - 1][wx], v[wy + 1][wx], rgb);
       finish<GAMMA>(sc, rgb[0], rgb[1], rgb[2], q[iy][ix]);
     }
   }
   store_quad<YCBCR>(q, img, h, w, y0, x0, rgba, yplane, cbcr);
 }
 
-template <int GAMMA, int DEMOSAIC>
-void launch_cfa(bool ycbcr, dim3 grid, cudaStream_t st, const uint16_t* mos,
-                const float* scal, int h, int w, const CfaTables& tables,
-                void* out0, void* out1) {
-  const dim3 block(kBlockX, kBlockY);
-  if (ycbcr)
-    develop_quads_cfa<GAMMA, true, DEMOSAIC><<<grid, block, 0, st>>>(
-        mos, scal, h, w, tables, nullptr, static_cast<uint8_t*>(out0),
-        static_cast<uint8_t*>(out1));
-  else
-    develop_quads_cfa<GAMMA, false, DEMOSAIC><<<grid, block, 0, st>>>(
-        mos, scal, h, w, tables, static_cast<uint32_t*>(out0), nullptr,
-        nullptr);
+// The generic-CFA smooth stencil as a warp march (band_march.cuh). The
+// stencil is one deep, so one column of a strip's 64 is halo on each side and a
+// band recomputes two rows; the mosaic is read at clamped coordinates, so
+// no stage needs an edge rule.
+constexpr int kCfaHalo = 1;
+constexpr int kCfaStripW = kWarpCols - 2 * kCfaHalo;  // 62 output columns
+constexpr int kCfaBandH = 24;                         // output rows per warp
+constexpr int kCfaWarps = 4;                          // strips per block
+constexpr int kCfaThreads = 32 * kCfaWarps;
+constexpr int kCfaMinBlocks = 6;  // 24 warps per SM: caps at 80 registers
+
+// Smooth on one pixel of channel ch: its own value, and for the two
+// channels it lacks the 3x3 masked tent num[k] over the cell's
+// denominator. Only those two are divided.
+__device__ __forceinline__ void smooth_site(const CfaTables& t, int cell,
+                                            int ch, float c,
+                                            const float (&num)[3],
+                                            float (&rgb)[3]) {
+  const int k1 = ch == 0 ? 1 : 0;  // the lacking channels, in order
+  const int k2 = ch == 2 ? 1 : 2;
+  float q1, q2;
+  divide2(ch == 0 ? num[1] : num[0], t.den2[k1][cell],
+          ch == 2 ? num[1] : num[2], t.den2[k2][cell], q1, q2);
+  rgb[0] = ch == 0 ? c : q1;
+  rgb[1] = ch == 1 ? c : (ch == 0 ? q1 : q2);
+  rgb[2] = ch == 2 ? c : q2;
 }
 
-template <int GAMMA>
-bool launch_cfa_demosaic(int demosaic, bool ycbcr, dim3 grid, cudaStream_t st,
-                         const uint16_t* mos, const float* sc, int h, int w,
-                         const CfaTables& tables, void* out0, void* out1) {
-  switch (demosaic) {
-    case kCfaNearest: launch_cfa<GAMMA, kCfaNearest>(ycbcr, grid, st, mos, sc, h, w, tables, out0, out1); return true;
-    case kCfaSmooth: launch_cfa<GAMMA, kCfaSmooth>(ycbcr, grid, st, mos, sc, h, w, tables, out0, out1); return true;
-    default: return false;
+// One warp per strip of kCfaStripW output columns and band of kCfaBandH
+// output rows. A lane's first column x0 is ODD: the strip starts one
+// halo column left of an even output column, so the lane holds the
+// second column of one 2x2 quad and the first of the next. Each lane
+// stores the quad of its column b and the right neighbour's column a,
+// whose quantised pixel comes by one shuffle.
+template <int GAMMA, bool YCBCR>
+__global__ void __launch_bounds__(kCfaThreads, kCfaMinBlocks)
+    develop_bands_cfa(const uint16_t* __restrict__ mosaics,
+                      const float* __restrict__ scal, int h, int w,
+                      const __grid_constant__ CfaTables tables,
+                      uint32_t* __restrict__ rgba,
+                      uint8_t* __restrict__ yplane,
+                      uint8_t* __restrict__ cbcr) {
+  __shared__ CfaTables t;
+  copy_tables(tables, &t, threadIdx.x, kCfaThreads);
+  __syncthreads();  // the only one: from here on warps share nothing
+
+  const int sx = (blockIdx.x * kCfaWarps + (threadIdx.x >> 5)) * kCfaStripW;
+  if (sx >= w) return;  // the whole warp
+  const int y0 = blockIdx.y * kCfaBandH;
+  const size_t img = blockIdx.z;
+  const float* sc = scal + img * kScalars;
+  const uint16_t* m = mosaics + img * static_cast<size_t>(h) * w;
+  const int lane = threadIdx.x & 31;
+  const int x0 = lane_column(sx - kCfaHalo);
+  // The value is read at clamped coordinates, the pattern cell at the
+  // unclamped ones modulo the period.
+  const int xa = min(max(x0, 0), w - 1);
+  const int xb = min(max(x0 + 1, 0), w - 1);
+  const int side = t.side;
+  const int cell_a = cell_mod(x0, side);
+  const int cell_b = cell_mod(x0 + 1, side);
+  const unsigned own = pack_channels(t, cell_a, cell_b);
+  const float s = sc[12];
+  const int rows = min(kCfaBandH, h - y0);
+  const int y_end = y0 + rows + (rows & 1);  // whole quads
+  const bool stores = lane < 31 && x0 + 1 < w;
+
+  const Pair zero{0.0f, 0.0f};
+  Win3 V{zero, zero, zero};  // raw * scale, rows t-2..t
+  int cy = cell_mod(y0 - kCfaHalo - 2, side);  // cell row of row t-1
+  int q[2][2][3];  // q[0]: the quad's first row, kept for its second
+
+  auto load = [&](int row, uint32_t& a, uint32_t& b) {
+    const uint16_t* p = m + static_cast<size_t>(min(max(row, 0), h - 1)) * w;
+    a = __ldg(p + xa);
+    b = __ldg(p + xb);
+  };
+  uint32_t next_a, next_b;
+  load(y0 - kCfaHalo, next_a, next_b);
+  for (int t_row = y0 - kCfaHalo; t_row < y_end + kCfaHalo; ++t_row) {
+    const Pair v{static_cast<float>(next_a) * s,
+                 static_cast<float>(next_b) * s};
+    load(t_row + 1, next_a, next_b);
+    V.template push<false>(v, t_row, h);
+    cy = cy + 1 == side ? 0 : cy + 1;
+    const int row = t_row - kCfaHalo;
+    if (row < y0) continue;  // the whole warp
+
+    // The masked tents: per channel the column sums (a + b*2) + d of the
+    // lane's own two columns, once, the neighbours' by shuffle, then the
+    // row sum in the same form.
+    const int ru = cy == 0 ? side - 1 : cy - 1;
+    const int rd = cy + 1 == side ? 0 : cy + 1;
+    float num_a[3], num_b[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const Pair col{((channel_at(own, ru, 0) == k ? V.up.a : 0.0f) +
+                      (channel_at(own, cy, 0) == k ? V.mid.a : 0.0f) * 2.0f) +
+                         (channel_at(own, rd, 0) == k ? V.dn.a : 0.0f),
+                     ((channel_at(own, ru, 1) == k ? V.up.b : 0.0f) +
+                      (channel_at(own, cy, 1) == k ? V.mid.b : 0.0f) * 2.0f) +
+                         (channel_at(own, rd, 1) == k ? V.dn.b : 0.0f)};
+      const float l = left_of_a(col);
+      const float r = right_of_b(col);
+      num_a[k] = (l + col.a * 2.0f) + col.b;
+      num_b[k] = (col.a + col.b * 2.0f) + r;
+    }
+    const int cell_row = cy * side;
+    float rgb_a[3], rgb_b[3];
+    smooth_site(t, cell_row + cell_a, channel_at(own, cy, 0), V.mid.a, num_a,
+                rgb_a);
+    smooth_site(t, cell_row + cell_b, channel_at(own, cy, 1), V.mid.b, num_b,
+                rgb_b);
+    int qa[3];
+    finish<GAMMA>(sc, rgb_a[0], rgb_a[1], rgb_a[2], qa);
+    finish<GAMMA>(sc, rgb_b[0], rgb_b[1], rgb_b[2], q[1][0]);
+    // The quad's second column is the right neighbour's column a.
+    const uint32_t word_a = static_cast<uint32_t>(qa[0]) |
+                            (static_cast<uint32_t>(qa[1]) << 8) |
+                            (static_cast<uint32_t>(qa[2]) << 16);
+    const uint32_t right = __shfl_down_sync(kAllLanes, word_a, 1);
+    q[1][1][0] = right & 0xffu;
+    q[1][1][1] = (right >> 8) & 0xffu;
+    q[1][1][2] = right >> 16;
+    if (row & 1) {  // y0 is even: the quad's second row
+      if (stores)
+        store_quad<YCBCR>(q, img, h, w, row - 1, x0 + 1, rgba, yplane, cbcr);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        q[0][0][c] = q[1][0][c];
+        q[0][1][c] = q[1][1][c];
+      }
+    }
   }
 }
 
@@ -290,6 +390,56 @@ inline bool quad_grid(int n, int h, int w, dim3* grid) {
   const int qw = (w + 1) / 2;
   *grid = dim3((qw + kBlockX - 1) / kBlockX, (qh + kBlockY - 1) / kBlockY, n);
   return grid->y <= 65535;
+}
+
+template <int GAMMA>
+bool launch_cfa_quads(bool ycbcr, int n, cudaStream_t st, const uint16_t* mos,
+                      const float* scal, int h, int w,
+                      const CfaTables& tables, void* out0, void* out1) {
+  dim3 grid;
+  if (!quad_grid(n, h, w, &grid)) return false;
+  const dim3 block(kBlockX, kBlockY);
+  if (ycbcr)
+    develop_quads_cfa<GAMMA, true><<<grid, block, 0, st>>>(
+        mos, scal, h, w, tables, nullptr, static_cast<uint8_t*>(out0),
+        static_cast<uint8_t*>(out1));
+  else
+    develop_quads_cfa<GAMMA, false><<<grid, block, 0, st>>>(
+        mos, scal, h, w, tables, static_cast<uint32_t*>(out0), nullptr,
+        nullptr);
+  return true;
+}
+
+template <int GAMMA>
+bool launch_cfa_bands(bool ycbcr, int n, cudaStream_t st, const uint16_t* mos,
+                      const float* scal, int h, int w,
+                      const CfaTables& tables, void* out0, void* out1) {
+  const int strips = (w + kCfaStripW - 1) / kCfaStripW;
+  const dim3 grid((strips + kCfaWarps - 1) / kCfaWarps,
+                  (h + kCfaBandH - 1) / kCfaBandH, n);
+  if (grid.y > 65535) return false;
+  if (ycbcr)
+    develop_bands_cfa<GAMMA, true><<<grid, kCfaThreads, 0, st>>>(
+        mos, scal, h, w, tables, nullptr, static_cast<uint8_t*>(out0),
+        static_cast<uint8_t*>(out1));
+  else
+    develop_bands_cfa<GAMMA, false><<<grid, kCfaThreads, 0, st>>>(
+        mos, scal, h, w, tables, static_cast<uint32_t*>(out0), nullptr,
+        nullptr);
+  return true;
+}
+
+// Nearest-site keeps the thread per quad, smooth marches (the header says
+// what each measured). False: the grid does not fit.
+template <int GAMMA>
+bool launch_cfa_demosaic(int demosaic, bool ycbcr, int n, cudaStream_t st,
+                         const uint16_t* mos, const float* sc, int h, int w,
+                         const CfaTables& tables, void* out0, void* out1) {
+  if (demosaic == kCfaSmooth)
+    return launch_cfa_bands<GAMMA>(ycbcr, n, st, mos, sc, h, w, tables, out0,
+                                   out1);
+  return launch_cfa_quads<GAMMA>(ycbcr, n, st, mos, sc, h, w, tables, out0,
+                                 out1);
 }
 
 template <int GAMMA, int DEMOSAIC>
@@ -361,23 +511,22 @@ extern "C" int rtt_develop_cfa_launch(const void* mosaics, const void* scal,
                                       void* stream) {
   if (const int bad = check_args(n, h, w, 0, 0, output)) return bad;
   CfaTables t;
-  if (!unpack_tables(tables, &t)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid;
-  if (!quad_grid(n, h, w, &grid))
-    return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (!unpack_tables(tables, &t) ||
+      (demosaic != kCfaNearest && demosaic != kCfaSmooth))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* mos = static_cast<const uint16_t*>(mosaics);
   const auto* sc = static_cast<const float*>(scal);
   const auto st = static_cast<cudaStream_t>(stream);
   const bool ycbcr = output == 1;
-  bool ok = false;
+  bool fits = false;
   switch (gamma) {
-    case kPow: ok = launch_cfa_demosaic<kPow>(demosaic, ycbcr, grid, st, mos, sc, h, w, t, out0, out1); break;
-    case kPoly: ok = launch_cfa_demosaic<kPoly>(demosaic, ycbcr, grid, st, mos, sc, h, w, t, out0, out1); break;
-    case kSrgb: ok = launch_cfa_demosaic<kSrgb>(demosaic, ycbcr, grid, st, mos, sc, h, w, t, out0, out1); break;
-    case kSrgbPoly: ok = launch_cfa_demosaic<kSrgbPoly>(demosaic, ycbcr, grid, st, mos, sc, h, w, t, out0, out1); break;
-    default: break;
+    case kPow: fits = launch_cfa_demosaic<kPow>(demosaic, ycbcr, n, st, mos, sc, h, w, t, out0, out1); break;
+    case kPoly: fits = launch_cfa_demosaic<kPoly>(demosaic, ycbcr, n, st, mos, sc, h, w, t, out0, out1); break;
+    case kSrgb: fits = launch_cfa_demosaic<kSrgb>(demosaic, ycbcr, n, st, mos, sc, h, w, t, out0, out1); break;
+    case kSrgbPoly: fits = launch_cfa_demosaic<kSrgbPoly>(demosaic, ycbcr, n, st, mos, sc, h, w, t, out0, out1); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!fits) return static_cast<int>(cudaErrorInvalidConfiguration);
   return static_cast<int>(cudaGetLastError());
 }
 

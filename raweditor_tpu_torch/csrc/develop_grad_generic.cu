@@ -99,17 +99,8 @@ struct CfaSite {
     cell_b = cell_mod(x0 + 1, side);
     const int cell_l = cell_mod(x0 - 1, side);
     const int cell_r = cell_mod(x0 + 2, side);
-    own = 0;
-    out = 0;
-    for (int y = 0; y < side; ++y) {
-      const unsigned char* row = t->chan + y * side;
-      own |= (static_cast<unsigned>(row[cell_a]) |
-              (static_cast<unsigned>(row[cell_b]) << 2))
-             << (4 * y);
-      out |= (static_cast<unsigned>(row[cell_l]) |
-              (static_cast<unsigned>(row[cell_r]) << 2))
-             << (4 * y);
-    }
+    own = pack_channels(*t, cell_a, cell_b);
+    out = pack_channels(*t, cell_l, cell_r);
   }
   __device__ __forceinline__ void step() {
     cy4 = cy3;
@@ -129,32 +120,10 @@ struct CfaSite {
     return r == 0 ? side - 1 : r - 1;
   }
   static __device__ __forceinline__ int at(unsigned bits, int r, int half) {
-    return (bits >> (4 * r + 2 * half)) & 3u;
+    return channel_at(bits, r, half);
   }
   __device__ __forceinline__ int chan(int lag, int half) const {
     return at(own, row_of(lag), half);
-  }
-
-  // x / d for two quotients at once. A tent's denominator is a small
-  // integer, often a power of two, and x * (1/d) with an exact 1/d is the
-  // same correctly rounded value as x / d; so where every lane's
-  // denominators are normal powers of two (a vote, so the warp stays
-  // together) two multiplies replace two IEEE divisions.
-  static __device__ __forceinline__ bool pow2(float d) {
-    const unsigned bits = __float_as_uint(d);
-    const unsigned e = bits >> 23;  // the sign bit must be clear too
-    return (bits & 0x007fffffu) == 0 && e >= 1 && e <= 253;
-  }
-  static __device__ __forceinline__ void divide2(float x0, float d0, float x1,
-                                                 float d1, float& q0,
-                                                 float& q1) {
-    if (__all_sync(kAllLanes, pow2(d0) && pow2(d1))) {
-      q0 = x0 * __uint_as_float(0x7f000000u - __float_as_uint(d0));
-      q1 = x1 * __uint_as_float(0x7f000000u - __float_as_uint(d1));
-    } else {
-      q0 = x0 / d0;
-      q1 = x1 / d1;
-    }
   }
 
   // G of one R/B site: the 1-D normalised tents over the G sites of the
@@ -264,7 +233,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const size_t img = blockIdx.z;
   const float* sc = scal + img * kScalars;
   const uint16_t* m = mosaics + img * static_cast<size_t>(h) * w;
-  const CfaSite site(&t, lane_column(sx), y0 - kHalo);
+  const CfaSite site(&t, lane_column(sx - kHalo), y0 - kHalo);
   march<GAMMA, YCBCR>(site, m, sc, img, h, w, y0, sx, rgba, yplane, cbcr);
 }
 

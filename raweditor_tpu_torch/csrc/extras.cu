@@ -7,7 +7,7 @@
 // _emit_ycbcr420 tail). Its TPU mechanics (_band_realign, the roll
 // fix-ups of _clamp_shift_fns, the 128-lane width pad, the row pad and
 // grid overhang, the (bh+16)-row DMA windows, the SMEM scalar table) have
-// no counterpart here: a block clamps at the true image edge itself and
+// no counterpart here: a warp clamps at the true image edge itself and
 // takes any (H, W).
 //
 // Per pixel, on the u8 values times f32(1/255) (the plain version is
@@ -25,35 +25,64 @@
 // The amounts come per image from an (n, 38) table: sharpen, denoise,
 // the 4 curve sliders, vignette, the 24 mixer and the 7 grading sliders.
 //
-// What bounds it: operations. It reads 4 B/px and writes 4 B/px (RGBA)
-// or 1.5 B/px (planes): 193 MB or 133 MB per 24 MP frame, 0.058 ms or
-// 0.040 ms at 3.35 TB/s. The stencil stages alone are some 150 f32
-// operations per output pixel with the halo recompute, the mixer about
-// 200 and grading about 45 more on every loaded pixel, two divisions
-// per bilateral tap among them: 0.06-0.13 ms per frame at 67 TFLOP/s.
-// The design keeps every stage out of device memory: one block of 128
-// threads owns a 32x16-pixel output tile (even origin, batch index as
-// grid z), loads the words of the tile plus a 2-pixel halo once, runs
-// the pointwise heads and the opponent split on every loaded pixel, and
-// computes each stencil stage in shared memory over a region one pixel
-// wider than the stage that reads it:
-//   load, heads, y/cr/cb         tile+2
-//   column pass of tent 1 (cr/cb) rows tile+1, columns tile+2
-//   bilateral, curve, vignette    tile+1
-//   tent 1 row pass (cr/cb)       tile+1
-//   column pass of the sharpen tent (y) and of tent 2 (cr/cb)
-//                                 rows tile, columns tile+1
-//   per quad: the row passes, the chroma blend, the unsharp mask, the
-//   rebuild, quantisation and the store (one thread per 2x2 quad).
-// Shared memory: eight 20x36-float stage buffers, 23 KB per block.
-// Later work: larger tiles or a sliding row window to cut the halo
-// recompute (1.4x on the heads), vector loads.
+// What bounds it: instruction throughput. It reads 4 B/px and writes
+// 4 B/px (RGBA) or 1.5 B/px (planes): 193 MB or 133 MB per 24 MP frame,
+// 0.058 ms or 0.040 ms at 3.35 TB/s, and needs some 440 f32 operations per
+// pixel with every stage on (0.16 ms at 67 TFLOP/s). With -fmad=false a
+// multiply and an add are two instructions, and an IEEE division or an
+// exp2f is ten or more, so that rate is out of reach: on an NVIDIA H100
+// 80GB HBM3 at 700.00 W one 24 MP frame takes 0.56 ms with every stage on,
+// 0.33 ms with the stencils alone and 0.22 ms for mixer and grading alone.
+// A design that staged every step of a 32x16 tile in shared memory behind
+// four block barriers took 0.79, 0.44 and 0.28 ms: it ran the heads on the
+// 36x20 pixels a tile loads (1.41x), divided eight times per bilateral
+// pixel, and spent 0.13 ms on the load, the barriers and a trivial store.
+//
+// Design, with stencils: the warp march of band_march.cuh. A warp owns a
+// strip of 64 columns (60 output columns plus the 2-column halo either
+// side; a lane holds two adjacent columns, so it owns the 2x2 quad and its
+// 4:2:0 chroma sample) and walks a band of kBandH output rows from top to
+// bottom. At step t it
+//   loads input row t (8 bytes per lane where the row is aligned; the next
+//     row is requested before this one is worked on), runs the pointwise
+//     heads and the opponent split y/cr/cb on it;
+//   computes at row t-1 tent 1 of cr/cb and, from y, the bilateral, the
+//     tone curve and the vignette (yv);
+//   computes at row t-2 tent 2 and the chroma blend, the sharpen tent over
+//     yv and the unsharp mask, rebuilds, quantises, and stores each quad
+//     with its second row.
+// Each of y, cr, cb, tent 1 (two planes) and yv keeps its last three rows
+// in registers; vertical taps touch no memory and horizontal ones come by
+// shuffle. Only the band's first four rows and the strip's halo are
+// recomputed (1.06x and 1.07x against the tile's 1.41x on the heads).
+// - The bilateral's weight kw / (1 + d^2 / sigma^2) is the same for both
+//   pixels of a neighbour pair ((p - q) and (q - p) have one square), so
+//   each of a pixel's four undirected pairs is divided once: the pairs
+//   down from a row are kept for the next step, the pairs that cross to a
+//   neighbour lane go there by shuffle. Four divisions a pixel, not eight.
+// - The mixer's hue lies under at most two of its nine hats; the others
+//   weigh an exact zero and add nothing, so only those two are evaluated
+//   (looked up by the hue in shared memory), in the full sum's order. Its
+//   three sector quotients share one division: the numerator is selected
+//   first.
+// - The derived amounts (the hats' tables beside them) are computed once
+//   per block into shared memory, not per thread and tile.
+// - Bands of 64 rows and 20 warps per SM (96 registers, no spill) measured
+//   best: 32 rows gain 2% on one frame and lose 3% on four, 128 lose both;
+//   16 warps (128 registers) lose 4%, unrolling the row loop loses 14%.
+// Without stencils nothing looks at a neighbour: a thread per 2x2 quad
+// runs the heads and stores (0.19 to 0.23 ms per frame against the tile
+// kernel's 0.23 to 0.29, by the two mixer points above).
+// Later work: the heads are 0.22 of the 0.56 ms with every stage on; what
+// is left there is the mixer's own arithmetic (one division, one exp2f,
+// some 150 instructions a pixel).
 //
 // Clamp-to-edge: every stage reads the stage below at coordinates
-// clamped to the image (Frame::at), as the JAX shift closures
-// _pad_shift_fns do, so a composed stage never reads a stage value that
-// lies outside the image. A tile whose halo lies inside the image takes
-// the same code without the clamps.
+// clamped to the image, as the JAX shift closures _pad_shift_fns do, so a
+// composed stage never reads a stage value that lies outside the image.
+// band_march.cuh says how the march does it for rows and columns; y, cr
+// and cb come pointwise from words loaded at clamped coordinates and need
+// no rule of their own, and the bilateral's pair weights follow from them.
 //
 // Numerics: ops/extras.py's operation order (tent3 as ((up + 2x) + dn),
 // then ((lf + 2xv) + rt) * 0.0625; the bilateral's num from 4y and den
@@ -62,17 +91,26 @@
 // division, as the plain PyTorch version rounds. The f32 constants are
 // the JAX expressions: a double quotient rounded once to float.
 
+#include "band_march.cuh"
 #include "develop_common.cuh"
 
 namespace {
 
+// The stencil form: the warp march of band_march.cuh. The stencil chain
+// is two deep on both branches (bilateral -> sharpen tent on luma, tent 1
+// -> tent 2 on chroma), so two columns of a strip's 64 are halo on each
+// side and a band recomputes four rows.
+constexpr int kHalo = 2;
+constexpr int kStripW = kWarpCols - 2 * kHalo;  // 60 output columns
+constexpr int kBandH = 64;                      // output rows per warp
+constexpr int kWarps = 4;                       // strips per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMinBlocks = 5;  // 20 warps per SM: caps at 96 registers
+// The pointwise form (no stencils): one thread per 2x2 quad, a block of
+// kThreads threads on a 32x16-pixel tile.
 constexpr int kTileW = 32;
 constexpr int kTileH = 16;
-constexpr int kHalo = 2;
-constexpr int kPitch = kTileW + 2 * kHalo;  // 36
-constexpr int kRows = kTileH + 2 * kHalo;   // 20
-constexpr int kCells = kPitch * kRows;
-constexpr int kThreads = (kTileW / 2) * (kTileH / 2);  // one per quad
+static_assert((kTileW / 2) * (kTileH / 2) == kThreads, "one thread per quad");
 constexpr int kExtras = 38;
 constexpr int kMixerCol = 7;
 constexpr int kGradingCol = 31;
@@ -85,17 +123,21 @@ constexpr float kInvLumaG = static_cast<float>(1.0 / 0.7152);
 
 // Mixer hats: knot k of hat i is kHatKnot[i + k] (left, centre, right);
 // the circle closes with magenta - 360 on the left and orange + 360 on
-// the right. The slopes are the f32 of the double reciprocals.
-__constant__ float kHatKnot[11] = {-40.0f, 0.0f,   30.0f,  60.0f,
-                                   120.0f, 180.0f, 240.0f, 280.0f,
-                                   320.0f, 360.0f, 390.0f};
-__constant__ float kHatRise[9] = {
+// the right, so hat 8 is red again. The slopes are the f32 of the double
+// reciprocals. A pixel looks its two hats up by its hue, so a copy of the
+// tables sits beside the amounts in shared memory, where lanes that read
+// different entries do not serialise.
+constexpr int kHats = 9;
+__constant__ float kHatKnot[kHats + 2] = {-40.0f, 0.0f,   30.0f,  60.0f,
+                                       120.0f, 180.0f, 240.0f, 280.0f,
+                                       320.0f, 360.0f, 390.0f};
+__constant__ float kHatRise[kHats] = {
     static_cast<float>(1.0 / 40.0),  static_cast<float>(1.0 / 30.0),
     static_cast<float>(1.0 / 30.0),  static_cast<float>(1.0 / 60.0),
     static_cast<float>(1.0 / 60.0),  static_cast<float>(1.0 / 60.0),
     static_cast<float>(1.0 / 40.0),  static_cast<float>(1.0 / 40.0),
     static_cast<float>(1.0 / 40.0)};
-__constant__ float kHatFall[9] = {
+__constant__ float kHatFall[kHats] = {
     static_cast<float>(1.0 / 30.0),  static_cast<float>(1.0 / 30.0),
     static_cast<float>(1.0 / 60.0),  static_cast<float>(1.0 / 60.0),
     static_cast<float>(1.0 / 60.0),  static_cast<float>(1.0 / 40.0),
@@ -106,12 +148,14 @@ __device__ __forceinline__ float clip01(float v) {
   return fminf(fmaxf(v, 0.0f), 1.0f);
 }
 
-// The per-image amounts and what the kernel derives from them once.
+// The per-image amounts and what the kernel derives from them, once per
+// block, in shared memory.
 struct Amounts {
   float hue[8], sat[8], lum[8];         // mixer knots
   float gdr[3], gdg[3], gdb[3], gsat[3], balance;  // grading wheels
   float s, inv_s2, a, vig, knot[4];     // denoise, sharpen, vignette, curve
   float cy, cx, icy, icx;               // radial_sq constants
+  float hat_knot[kHats + 2], hat_rise[kHats], hat_fall[kHats];
 };
 
 // The zero-luma chroma direction of a grading hue (grading._hue_dir).
@@ -134,6 +178,13 @@ __device__ __forceinline__ void load_amounts(const float* __restrict__ t,
     am.hue[i] = __ldg(t + kMixerCol + i);
     am.sat[i] = __ldg(t + kMixerCol + 8 + i);
     am.lum[i] = __ldg(t + kMixerCol + 16 + i);
+  }
+#pragma unroll
+  for (int i = 0; i < kHats + 2; ++i) am.hat_knot[i] = kHatKnot[i];
+#pragma unroll
+  for (int i = 0; i < kHats; ++i) {
+    am.hat_rise[i] = kHatRise[i];
+    am.hat_fall[i] = kHatFall[i];
   }
   for (int k = 0; k < 3; ++k) {
     hue_dir(__ldg(t + kGradingCol + 2 * k), am.gdr[k], am.gdg[k], am.gdb[k]);
@@ -179,25 +230,29 @@ __device__ __forceinline__ void mixer(const Amounts& am, float& r, float& g,
   const float mn = fminf(fminf(r, g), b);
   const float c = mx - mn;
   const float safe = c > 0.0f ? c : 1.0f;
-  float hr = (g - b) / safe;
-  hr = hr - 6.0f * floorf(hr * static_cast<float>(1.0 / 6.0));
-  const float hg = (b - r) / safe + 2.0f;
-  const float hb = (r - g) / safe + 4.0f;
+  // The hue of the largest channel's sector; only that sector's quotient
+  // is used, so its numerator is selected first and divided once.
   const bool is_r = mx == r;
   const bool is_g = !is_r && mx == g;
-  const float h = (is_r ? hr : (is_g ? hg : hb)) * 60.0f;
-  float dh = 0.0f, ds = 0.0f, dl = 0.0f;
+  const float qh = (is_r ? g - b : (is_g ? b - r : r - g)) / safe;
+  const float hr = qh - 6.0f * floorf(qh * static_cast<float>(1.0 / 6.0));
+  const float h = (is_r ? hr : (is_g ? qh + 2.0f : qh + 4.0f)) * 60.0f;
+  // The hue lies under at most two hats, j and j + 1 with j the last
+  // centre at or below it; every other hat's weight is an exact zero,
+  // which adds nothing to the three sums, so only these two are
+  // evaluated, in the order the full sum takes them.
+  int j = 0;
 #pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    const float rise = (h - kHatKnot[i]) * kHatRise[i];
-    const float fall = (kHatKnot[i + 2] - h) * kHatFall[i];
-    const float w = clip01(fminf(rise, fall));
-    const int k = i % 8;
-    // The first term starts each sum (0 + x is x, also for -0).
-    dh = i == 0 ? w * am.hue[k] : dh + w * am.hue[k];
-    ds = i == 0 ? w * am.sat[k] : ds + w * am.sat[k];
-    dl = i == 0 ? w * am.lum[k] : dl + w * am.lum[k];
-  }
+  for (int i = 2; i < kHats; ++i) j += h >= kHatKnot[i];  // centres 1..7
+  const float w0 = clip01(fminf((h - am.hat_knot[j]) * am.hat_rise[j],
+                                (am.hat_knot[j + 2] - h) * am.hat_fall[j]));
+  const float w1 =
+      clip01(fminf((h - am.hat_knot[j + 1]) * am.hat_rise[j + 1],
+                   (am.hat_knot[j + 3] - h) * am.hat_fall[j + 1]));
+  const int k1 = j == 7 ? 0 : j + 1;
+  float dh = w0 * am.hue[j] + w1 * am.hue[k1];
+  const float ds = w0 * am.sat[j] + w1 * am.sat[k1];
+  const float dl = w0 * am.lum[j] + w1 * am.lum[k1];
   dh = dh * 0.3f;
   const float fs = fmaxf(1.0f + ds * 0.01f, 0.0f);
   const float fl = exp2f(dl * 0.0075f);
@@ -252,10 +307,11 @@ __device__ __forceinline__ int quantize01(float c) {
   return static_cast<int>(floorf(c * 255.0f + 0.5f));
 }
 
-// The tone curve (extras.tone_curve) and the vignette on one luma value
-// at global (gy, gx).
+// The tone curve (extras.tone_curve) and the vignette on one luma value;
+// ry2 and rx2 are the squares of radial_sq's row and column terms,
+// (coordinate - centre) * inverse half-extent.
 __device__ __forceinline__ float curve_vignette(const Amounts& am, float y,
-                                                int gy, int gx) {
+                                                float ry2, float rx2) {
   const float t = clip01(y) * 5.0f;
   float out = 0.0f;
   float prev = 0.0f;
@@ -265,235 +321,313 @@ __device__ __forceinline__ float curve_vignette(const Amounts& am, float y,
     out = out + (kn - prev) * clip01(t - static_cast<float>(i));
     prev = kn;
   }
-  const float ry = (static_cast<float>(gy) - am.cy) * am.icy;
-  const float rx = (static_cast<float>(gx) - am.cx) * am.icx;
-  const float r2 = (ry * ry + rx * rx) * 0.5f;
+  const float r2 = (ry2 + rx2) * 0.5f;
   return out * (1.0f + am.vig * r2);
 }
 
-// The tile's local frame: local (0, 0) is global (oy, ox) = the tile
-// origin minus the halo. An INTERIOR frame lies inside the image, so no
-// read needs a clamp there.
-template <bool INTERIOR>
-struct Frame {
-  int oy, ox, h, w;
-  // Local index of the image pixel nearest to (gy + dy, gx + dx), where
-  // i is the local index of (gy, gx).
-  __device__ __forceinline__ int at(int i, int gy, int gx, int dy,
-                                    int dx) const {
-    if constexpr (INTERIOR) return i + dy * kPitch + dx;
-    return (min(max(gy + dy, 0), h - 1) - oy) * kPitch +
-           (min(max(gx + dx, 0), w - 1) - ox);
-  }
-};
+// Rebuilds r, g, b of one pixel from its luma and chroma, clamps and
+// quantises them.
+__device__ __forceinline__ void finish_pixel(float cr, float cb, float y,
+                                             int* q) {
+  const float r = y + cr;
+  const float b = y + cb;
+  const float g = (y - kLumaR * r - kLumaB * b) * kInvLumaG;
+  q[0] = quantize01(clip01(r));
+  q[1] = quantize01(clip01(g));
+  q[2] = quantize01(clip01(b));
+}
 
-// Calls fn(gy, gx, local index) for every position of the tile grown by
-// gy_grow rows and gx_grow columns on each side.
-template <typename F>
-__device__ __forceinline__ void over_region(int oy, int ox, int gy_grow,
-                                            int gx_grow, F fn) {
-  const int rows = kTileH + 2 * gy_grow;
-  const int cols = kTileW + 2 * gx_grow;
-  const int ly0 = kHalo - gy_grow;
-  const int lx0 = kHalo - gx_grow;
-  for (int k = threadIdx.x; k < rows * cols; k += kThreads) {
-    const int ly = ly0 + k / cols;
-    const int lx = lx0 + k % cols;
-    fn(oy + ly, ox + lx, ly * kPitch + lx);
+// One input row of the lane's two columns as packed RGBA words, from the
+// row clamped to the image; the columns clamped too for EDGE.
+template <bool EDGE>
+__device__ __forceinline__ uint2 load_words(const uint32_t* __restrict__ src,
+                                            const Lane<EDGE>& ln, int row,
+                                            int h, int w, bool aligned) {
+  const uint32_t* p =
+      src + static_cast<size_t>(min(max(row, 0), h - 1)) * w;
+  if constexpr (EDGE) {
+    return make_uint2(__ldg(p + min(max(ln.x0, 0), w - 1)),
+                      __ldg(p + min(max(ln.x0 + 1, 0), w - 1)));
+  } else {
+    if (aligned) return __ldg(reinterpret_cast<const uint2*>(p + ln.x0));
+    return make_uint2(__ldg(p + ln.x0), __ldg(p + ln.x0 + 1));
   }
 }
 
-// The shared-memory stage buffers of one block. Y, CR, CB: the opponent
-// planes. XR, XB: column passes over cr/cb (tent 1, then tent 2). TR, TB:
-// tent 1 of cr/cb. YV: luma after the bilateral, curve and vignette. The
-// column pass of the sharpen tent reuses Y.
-struct Stages {
-  float *Y, *CR, *CB, *XR, *XB, *TR, *TB, *YV;
-};
+// The bilateral's weight of one neighbour pair: kw (2 beside or above, 1
+// on a diagonal) over 1 + (difference)^2 / sigma^2. It is the same for
+// both pixels of the pair, since (p - q) and (q - p) have one square, so
+// each pair is divided once and serves both.
+__device__ __forceinline__ float pair_weight(float kw, float p, float q,
+                                             float inv_s2) {
+  const float dlt = q - p;
+  return kw / (1.0f + dlt * dlt * inv_s2);
+}
 
-template <bool MIXER, bool GRADING, bool YCBCR, bool INTERIOR>
-__device__ __forceinline__ void stencil_tile(
-    const Stages& st, const Amounts& am, const uint32_t* __restrict__ src,
-    size_t img, int h, int w, int ty0, int tx0, uint32_t* __restrict__ rgba,
-    uint8_t* __restrict__ yplane, uint8_t* __restrict__ cbcr) {
-  float* const Y = st.Y;
-  float* const CR = st.CR;
-  float* const CB = st.CB;
-  float* const XR = st.XR;
-  float* const XB = st.XB;
-  float* const TR = st.TR;
-  float* const TB = st.TB;
-  float* const YV = st.YV;
-  const Frame<INTERIOR> f{ty0 - kHalo, tx0 - kHalo, h, w};
-
-  // Load the tile + 2 at clamped coordinates: heads, opponent split.
-  over_region(f.oy, f.ox, 2, 2, [&](int gy, int gx, int i) {
-    const int y = INTERIOR ? gy : min(max(gy, 0), h - 1);
-    const int x = INTERIOR ? gx : min(max(gx, 0), w - 1);
-    float r, g, b;
-    unpack_heads<MIXER, GRADING>(__ldg(src + static_cast<size_t>(y) * w + x),
-                                 am, r, g, b);
-    const float yl = kLumaR * r + kLumaG * g + kLumaB * b;
-    Y[i] = yl;
-    CR[i] = r - yl;
-    CB[i] = b - yl;
-  });
-  __syncthreads();
-
-  // Tent 1's column pass over cr/cb; the bilateral, the tone curve and
-  // the vignette over the tile + 1.
-  over_region(f.oy, f.ox, 1, 2, [&](int gy, int gx, int i) {
-    const int ku = f.at(i, gy, gx, -1, 0);
-    const int kc = f.at(i, gy, gx, 0, 0);
-    const int kd = f.at(i, gy, gx, 1, 0);
-    XR[i] = (CR[ku] + CR[kc] * 2.0f) + CR[kd];
-    XB[i] = (CB[ku] + CB[kc] * 2.0f) + CB[kd];
-  });
-  over_region(f.oy, f.ox, 1, 1, [&](int gy, int gx, int i) {
-    const float yc = Y[f.at(i, gy, gx, 0, 0)];
-    constexpr int kDy[8] = {-1, -1, -1, 0, 0, 1, 1, 1};
-    constexpr int kDx[8] = {-1, 0, 1, -1, 1, -1, 0, 1};
-    constexpr float kW[8] = {1.0f, 2.0f, 1.0f, 2.0f, 2.0f, 1.0f, 2.0f, 1.0f};
-    float num = yc * 4.0f;
-    float den = 4.0f;
+// The bilateral-lite pass on one pixel: num from 4y and den from 4 over
+// the eight taps in the order up-left, up, up-right, left, right,
+// down-left, down, down-right.
+__device__ __forceinline__ float bilateral(float yc, const float (&t)[8],
+                                           const float (&wk)[8], float s) {
+  float num = yc * 4.0f;
+  float den = 4.0f;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float t = Y[f.at(i, gy, gx, kDy[k], kDx[k])];
-      const float dlt = t - yc;
-      const float wk = kW[k] / (1.0f + dlt * dlt * am.inv_s2);
-      num = num + t * wk;
-      den = den + wk;
+  for (int k = 0; k < 8; ++k) {
+    num = num + t[k] * wk[k];
+    den = den + wk[k];
+  }
+  return yc + (num / den - yc) * s;
+}
+
+// Marches one warp down the band of output rows [y0, y0 + kBandH) of the
+// strip whose first output column is sx (both even). At step t it loads
+// input row t and runs the heads and the opponent split on it, computes
+// tent 1 of cr/cb and the luma after bilateral, curve and vignette at row
+// t-1, and tent 2, the chroma blend, the unsharp mask, the rebuild and
+// the store at row t-2.
+template <bool MIXER, bool GRADING, bool YCBCR, bool EDGE, bool ROWS>
+__device__ __forceinline__ void march_band(
+    const Amounts& am, const uint32_t* __restrict__ src, size_t img, int h,
+    int w, int y0, int sx, uint32_t* __restrict__ rgba,
+    uint8_t* __restrict__ yplane, uint8_t* __restrict__ cbcr) {
+  const Lane<EDGE> ln = make_lane<EDGE>(sx - kHalo, w);
+  const int lane = threadIdx.x & 31;
+  const bool aligned =
+      ((w & 1) == 0) && ((reinterpret_cast<uintptr_t>(src) & 7) == 0);
+  const int rows = min(kBandH, h - y0);
+  const int y_end = y0 + rows + (rows & 1);  // whole quads
+  const bool stores = lane >= kHalo / 2 && lane < 32 - kHalo / 2 && ln.x0 < w;
+  // The vignette's column terms (a column outside the image takes its
+  // neighbour's luma by clamp_columns, whatever is computed here).
+  const float rxa = (static_cast<float>(ln.x0) - am.cx) * am.icx;
+  const float rxb = (static_cast<float>(ln.x0 + 1) - am.cx) * am.icx;
+  const float rxa2 = rxa * rxa;
+  const float rxb2 = rxb * rxb;
+  const float s = am.s;
+  const float inv_s2 = am.inv_s2;
+
+  const Pair zero{0.0f, 0.0f};
+  // Rows t-2..t of the opponent planes. The input is read at clamped
+  // coordinates and the heads are pointwise, so these need no edge rule.
+  Win3 Y{zero, zero, zero}, CR{zero, zero, zero}, CB{zero, zero, zero};
+  // Y left of column a and right of column b, rows t-2..t.
+  float yl_up = 0.0f, yl_mid = 0.0f, yl_dn = 0.0f;
+  float yr_up = 0.0f, yr_mid = 0.0f, yr_dn = 0.0f;
+  // The weights of the pairs between rows t-2 and t-1, from the step
+  // before: straight down from a and b, a to the b below and b to the a
+  // below, and the two that cross to the neighbour lanes as seen from
+  // the lower row (up-left of a, up-right of b).
+  float pv_a = 0.0f, pv_b = 0.0f, pd_ab = 0.0f, pd_ba = 0.0f;
+  float p_ul_a = 0.0f, p_ur_b = 0.0f;
+  Win3 TR{zero, zero, zero}, TB{zero, zero, zero};  // tent 1: rows t-3..t-1
+  Win3 YV{zero, zero, zero};  // luma after curve and vignette: t-3..t-1
+  int q[2][2][3];  // q[0]: the quad's first row, kept for its second
+
+  uint2 next = load_words<EDGE>(src, ln, y0 - kHalo, h, w, aligned);
+  for (int t = y0 - kHalo; t < y_end + kHalo; ++t) {
+    const uint2 raw = next;
+    next = load_words<EDGE>(src, ln, t + 1, h, w, aligned);
+
+    // 0. Row t: heads, opponent split.
+    {
+      float r, g, b;
+      Pair y, cr, cb;
+      unpack_heads<MIXER, GRADING>(raw.x, am, r, g, b);
+      y.a = kLumaR * r + kLumaG * g + kLumaB * b;
+      cr.a = r - y.a;
+      cb.a = b - y.a;
+      unpack_heads<MIXER, GRADING>(raw.y, am, r, g, b);
+      y.b = kLumaR * r + kLumaG * g + kLumaB * b;
+      cr.b = r - y.b;
+      cb.b = b - y.b;
+      Y.template push<false>(y, t, h);
+      CR.template push<false>(cr, t, h);
+      CB.template push<false>(cb, t, h);
+      yl_up = yl_mid;
+      yl_mid = yl_dn;
+      yl_dn = left_of_a(y);
+      yr_up = yr_mid;
+      yr_mid = yr_dn;
+      yr_dn = right_of_b(y);
     }
-    const float yb = yc + (num / den - yc) * am.s;
-    YV[i] = curve_vignette(am, yb, gy, gx);
-  });
+
+    // 1. Row t-1: the bilateral, tone curve and vignette on luma; tent 1
+    //    on cr/cb.
+    {
+      const int row = t - 1;
+      // The pairs inside row t-1 and between it and row t.
+      const float h_ab = pair_weight(2.0f, Y.mid.a, Y.mid.b, inv_s2);
+      const float h_br = pair_weight(2.0f, Y.mid.b, yr_mid, inv_s2);
+      const float h_la = __shfl_up_sync(kAllLanes, h_br, 1);
+      const float v_a = pair_weight(2.0f, Y.mid.a, Y.dn.a, inv_s2);
+      const float v_b = pair_weight(2.0f, Y.mid.b, Y.dn.b, inv_s2);
+      const float d_ab = pair_weight(1.0f, Y.mid.a, Y.dn.b, inv_s2);
+      const float d_ba = pair_weight(1.0f, Y.mid.b, Y.dn.a, inv_s2);
+      const float d_al = pair_weight(1.0f, Y.mid.a, yl_dn, inv_s2);
+      const float d_br = pair_weight(1.0f, Y.mid.b, yr_dn, inv_s2);
+      const float ta[8] = {yl_up, Y.up.a, Y.up.b, yl_mid,
+                           Y.mid.b, yl_dn, Y.dn.a, Y.dn.b};
+      const float wa[8] = {p_ul_a, pv_a, pd_ba, h_la, h_ab, d_al, v_a, d_ab};
+      const float tb[8] = {Y.up.a, Y.up.b, yr_up, Y.mid.a,
+                           yr_mid, Y.dn.a, Y.dn.b, yr_dn};
+      const float wb[8] = {pd_ab, pv_b, p_ur_b, h_ab, h_br, d_ba, v_b, d_br};
+      const float ry = (static_cast<float>(row) - am.cy) * am.icy;
+      const float ry2 = ry * ry;
+      Pair yv{curve_vignette(am, bilateral(Y.mid.a, ta, wa, s), ry2, rxa2),
+              curve_vignette(am, bilateral(Y.mid.b, tb, wb, s), ry2, rxb2)};
+      // The lower row's view of the pairs that cross lanes: this lane's
+      // b to the a below on the right is that a's up-left pair; this
+      // lane's a to the b below on the left is that b's up-right pair.
+      p_ul_a = __shfl_up_sync(kAllLanes, d_br, 1);
+      p_ur_b = __shfl_down_sync(kAllLanes, d_al, 1);
+      pv_a = v_a;
+      pv_b = v_b;
+      pd_ab = d_ab;
+      pd_ba = d_ba;
+      clamp_columns(ln, yv);
+      YV.template push<ROWS>(yv, row, h);
+      Pair tr = tent3(CR);
+      Pair tb1 = tent3(CB);
+      clamp_columns(ln, tr);
+      clamp_columns(ln, tb1);
+      TR.template push<ROWS>(tr, row, h);
+      TB.template push<ROWS>(tb1, row, h);
+    }
+
+    // 2. Row t-2: tent 2 and the chroma blend, the unsharp mask, the
+    //    rebuild; the quad is stored with its second row. (tent3
+    //    shuffles, so every lane of the warp takes this branch together.)
+    const int row = t - kHalo;
+    if (row >= y0) {
+      const Pair t2r = tent3(TR);
+      const Pair t2b = tent3(TB);
+      const Pair blur = tent3(YV);
+      finish_pixel(CR.up.a + (t2r.a - CR.up.a) * s,
+                   CB.up.a + (t2b.a - CB.up.a) * s,
+                   YV.mid.a + (YV.mid.a - blur.a) * am.a, q[1][0]);
+      finish_pixel(CR.up.b + (t2r.b - CR.up.b) * s,
+                   CB.up.b + (t2b.b - CB.up.b) * s,
+                   YV.mid.b + (YV.mid.b - blur.b) * am.a, q[1][1]);
+      if (row & 1) {  // y0 is even: the quad's second row
+        if (stores)
+          store_quad<YCBCR>(q, img, h, w, row - 1, ln.x0, rgba, yplane, cbcr);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          q[0][0][c] = q[1][0][c];
+          q[0][1][c] = q[1][1][c];
+        }
+      }
+    }
+  }
+}
+
+// One warp per strip and band: EDGE when the strip reads a column outside
+// the (h, w) image, ROWS when the band's stages reach row 0 or row h-1
+// (both warp-uniform; most of a large frame is neither).
+template <bool MIXER, bool GRADING, bool YCBCR>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    extras_bands(const uint32_t* __restrict__ words,
+                 const float* __restrict__ table, int h, int w, float cy,
+                 float cx, float icy, float icx,
+                 uint32_t* __restrict__ rgba, uint8_t* __restrict__ yplane,
+                 uint8_t* __restrict__ cbcr) {
+  __shared__ Amounts am;
+  const size_t img = blockIdx.z;
+  if (threadIdx.x == 0) {
+    load_amounts(table + img * kExtras, am);
+    am.cy = cy;
+    am.cx = cx;
+    am.icy = icy;
+    am.icx = icx;
+  }
+  __syncthreads();  // the only one: from here on warps share nothing
+
+  const int sx = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kStripW;
+  if (sx >= w) return;  // the whole warp
+  const int y0 = blockIdx.y * kBandH;
+  const uint32_t* src = words + img * static_cast<size_t>(h) * w;
+  const bool edge = sx - kHalo < 0 || sx + kStripW + kHalo > w;
+  const bool ends = y0 == 0 || y0 + kBandH + kHalo >= h;
+  if (edge || ends) {
+    // One checked form for both kinds of border: they are few.
+    if (edge)
+      march_band<MIXER, GRADING, YCBCR, true, true>(am, src, img, h, w, y0,
+                                                    sx, rgba, yplane, cbcr);
+    else
+      march_band<MIXER, GRADING, YCBCR, false, true>(am, src, img, h, w, y0,
+                                                     sx, rgba, yplane, cbcr);
+  } else {
+    march_band<MIXER, GRADING, YCBCR, false, false>(am, src, img, h, w, y0,
+                                                    sx, rgba, yplane, cbcr);
+  }
+}
+
+// The pointwise form (no stencils): the heads per pixel, one thread per
+// quad, no clamp after them (the mixer and grading clamp, as extras_core
+// returns their planes).
+template <bool MIXER, bool GRADING, bool YCBCR>
+__global__ void __launch_bounds__(kThreads)
+    extras_quads(const uint32_t* __restrict__ words,
+                 const float* __restrict__ table, int h, int w,
+                 uint32_t* __restrict__ rgba, uint8_t* __restrict__ yplane,
+                 uint8_t* __restrict__ cbcr) {
+  __shared__ Amounts am;
+  const size_t img = blockIdx.z;
+  if (threadIdx.x == 0) load_amounts(table + img * kExtras, am);
   __syncthreads();
-
-  auto row_pass = [&](const float* x, int i, int gy, int gx) {
-    return ((x[f.at(i, gy, gx, 0, -1)] + x[f.at(i, gy, gx, 0, 0)] * 2.0f) +
-            x[f.at(i, gy, gx, 0, 1)]) *
-           0.0625f;
-  };
-  auto column_pass = [&](const float* x, int i, int gy, int gx) {
-    return (x[f.at(i, gy, gx, -1, 0)] + x[f.at(i, gy, gx, 0, 0)] * 2.0f) +
-           x[f.at(i, gy, gx, 1, 0)];
-  };
-
-  // Tent 1's row pass over the tile + 1; the sharpen tent's column pass
-  // (into Y, whose last reader was the bilateral).
-  over_region(f.oy, f.ox, 1, 1, [&](int gy, int gx, int i) {
-    TR[i] = row_pass(XR, i, gy, gx);
-    TB[i] = row_pass(XB, i, gy, gx);
-  });
-  over_region(f.oy, f.ox, 0, 1, [&](int gy, int gx, int i) {
-    Y[i] = column_pass(YV, i, gy, gx);
-  });
-  __syncthreads();
-
-  // Tent 2's column pass over tent 1.
-  over_region(f.oy, f.ox, 0, 1, [&](int gy, int gx, int i) {
-    XR[i] = column_pass(TR, i, gy, gx);
-    XB[i] = column_pass(TB, i, gy, gx);
-  });
-  __syncthreads();
-
-  const int qx = threadIdx.x % (kTileW / 2);
-  const int qy = threadIdx.x / (kTileW / 2);
-  const int y0 = ty0 + 2 * qy;
-  const int x0 = tx0 + 2 * qx;
+  const uint32_t* src = words + img * static_cast<size_t>(h) * w;
+  const int y0 = blockIdx.y * kTileH + 2 * (threadIdx.x / (kTileW / 2));
+  const int x0 = blockIdx.x * kTileW + 2 * (threadIdx.x % (kTileW / 2));
   if (y0 >= h || x0 >= w) return;
   int q[2][2][3];
 #pragma unroll
   for (int iy = 0; iy < 2; ++iy) {
 #pragma unroll
     for (int ix = 0; ix < 2; ++ix) {
-      const int gy = y0 + iy;
-      const int gx = x0 + ix;
-      const int i = (gy - f.oy) * kPitch + (gx - f.ox);
-      const int kc = f.at(i, gy, gx, 0, 0);
-      float cr = CR[kc];
-      float cb = CB[kc];
-      cr = cr + (row_pass(XR, i, gy, gx) - cr) * am.s;
-      cb = cb + (row_pass(XB, i, gy, gx) - cb) * am.s;
-      const float yv = YV[kc];
-      const float y = yv + (yv - row_pass(Y, i, gy, gx)) * am.a;
-      const float r = y + cr;
-      const float b = y + cb;
-      const float g = (y - kLumaR * r - kLumaB * b) * kInvLumaG;
-      q[iy][ix][0] = quantize01(clip01(r));
-      q[iy][ix][1] = quantize01(clip01(g));
-      q[iy][ix][2] = quantize01(clip01(b));
+      const int y = min(y0 + iy, h - 1);
+      const int x = min(x0 + ix, w - 1);
+      float r, g, b;
+      unpack_heads<MIXER, GRADING>(
+          __ldg(src + static_cast<size_t>(y) * w + x), am, r, g, b);
+      q[iy][ix][0] = quantize01(r);
+      q[iy][ix][1] = quantize01(g);
+      q[iy][ix][2] = quantize01(b);
     }
   }
   store_quad<YCBCR>(q, img, h, w, y0, x0, rgba, yplane, cbcr);
 }
 
 template <bool MIXER, bool GRADING, bool STENCILS, bool YCBCR>
-__global__ void __launch_bounds__(kThreads)
-    extras_tiles(const uint32_t* __restrict__ words,
-                 const float* __restrict__ table, int h, int w, float cy,
-                 float cx, float icy, float icx,
-                 uint32_t* __restrict__ rgba, uint8_t* __restrict__ yplane,
-                 uint8_t* __restrict__ cbcr) {
-  const size_t img = blockIdx.z;
-  Amounts am;
-  load_amounts(table + img * kExtras, am);
-  am.cy = cy;
-  am.cx = cx;
-  am.icy = icy;
-  am.icx = icx;
-  const uint32_t* src = words + img * static_cast<size_t>(h) * w;
-  const int ty0 = blockIdx.y * kTileH;
-  const int tx0 = blockIdx.x * kTileW;
+void launch_output(int n, cudaStream_t st, const uint32_t* words,
+                   const float* table, int h, int w, float cy, float cx,
+                   float icy, float icx, uint32_t* rgba, uint8_t* yplane,
+                   uint8_t* cbcr) {
   if constexpr (STENCILS) {
-    __shared__ float buf[8][kCells];
-    const Stages st{buf[0], buf[1], buf[2], buf[3],
-                    buf[4], buf[5], buf[6], buf[7]};
-    // Block-uniform: most tiles of a large frame read no pixel outside it.
-    if (ty0 >= kHalo && tx0 >= kHalo && ty0 + kTileH + kHalo <= h &&
-        tx0 + kTileW + kHalo <= w)
-      stencil_tile<MIXER, GRADING, YCBCR, true>(st, am, src, img, h, w, ty0,
-                                                tx0, rgba, yplane, cbcr);
-    else
-      stencil_tile<MIXER, GRADING, YCBCR, false>(st, am, src, img, h, w, ty0,
-                                                 tx0, rgba, yplane, cbcr);
+    const int strips = (w + kStripW - 1) / kStripW;
+    const dim3 grid((strips + kWarps - 1) / kWarps, (h + kBandH - 1) / kBandH,
+                    n);
+    extras_bands<MIXER, GRADING, YCBCR><<<grid, kThreads, 0, st>>>(
+        words, table, h, w, cy, cx, icy, icx, rgba, yplane, cbcr);
   } else {
-    // Pointwise only: the heads per pixel, no clamp after them (the
-    // mixer and grading clamp, as extras_core returns their planes).
-    const int y0 = ty0 + 2 * (threadIdx.x / (kTileW / 2));
-    const int x0 = tx0 + 2 * (threadIdx.x % (kTileW / 2));
-    if (y0 >= h || x0 >= w) return;
-    int q[2][2][3];
-#pragma unroll
-    for (int iy = 0; iy < 2; ++iy) {
-#pragma unroll
-      for (int ix = 0; ix < 2; ++ix) {
-        const int y = min(y0 + iy, h - 1);
-        const int x = min(x0 + ix, w - 1);
-        float r, g, b;
-        unpack_heads<MIXER, GRADING>(
-            __ldg(src + static_cast<size_t>(y) * w + x), am, r, g, b);
-        q[iy][ix][0] = quantize01(r);
-        q[iy][ix][1] = quantize01(g);
-        q[iy][ix][2] = quantize01(b);
-      }
-    }
-    store_quad<YCBCR>(q, img, h, w, y0, x0, rgba, yplane, cbcr);
+    const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
+    extras_quads<MIXER, GRADING, YCBCR><<<grid, kThreads, 0, st>>>(
+        words, table, h, w, rgba, yplane, cbcr);
   }
 }
 
 template <bool MIXER, bool GRADING, bool STENCILS>
-void launch(bool ycbcr, dim3 grid, cudaStream_t st, const uint32_t* words,
+void launch(bool ycbcr, int n, cudaStream_t st, const uint32_t* words,
             const float* table, int h, int w, float cy, float cx, float icy,
             float icx, void* out0, void* out1) {
   if (ycbcr)
-    extras_tiles<MIXER, GRADING, STENCILS, true><<<grid, kThreads, 0, st>>>(
-        words, table, h, w, cy, cx, icy, icx, nullptr,
+    launch_output<MIXER, GRADING, STENCILS, true>(
+        n, st, words, table, h, w, cy, cx, icy, icx, nullptr,
         static_cast<uint8_t*>(out0), static_cast<uint8_t*>(out1));
   else
-    extras_tiles<MIXER, GRADING, STENCILS, false><<<grid, kThreads, 0, st>>>(
-        words, table, h, w, cy, cx, icy, icx, static_cast<uint32_t*>(out0),
-        nullptr, nullptr);
+    launch_output<MIXER, GRADING, STENCILS, false>(
+        n, st, words, table, h, w, cy, cx, icy, icx,
+        static_cast<uint32_t*>(out0), nullptr, nullptr);
 }
 
 }  // namespace
@@ -513,21 +647,23 @@ extern "C" int rtt_extras_launch(const void* words, const void* table,
   if (const int bad = check_args(n, h, w, 0, 0, output)) return bad;
   if ((mixer_on | grading_on | stencils) & ~1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, n);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // Grid rows: bands for the stencil form, tiles for the pointwise one.
+  const int grid_rows = stencils ? (h + kBandH - 1) / kBandH
+                                 : (h + kTileH - 1) / kTileH;
+  if (grid_rows > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto* wd = static_cast<const uint32_t*>(words);
   const auto* tb = static_cast<const float*>(table);
   const auto st = static_cast<cudaStream_t>(stream);
   const bool ycbcr = output == 1;
   switch (mixer_on * 4 + grading_on * 2 + stencils) {
-    case 0: launch<false, false, false>(ycbcr, grid, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
-    case 1: launch<false, false, true>(ycbcr, grid, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
-    case 2: launch<false, true, false>(ycbcr, grid, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
-    case 3: launch<false, true, true>(ycbcr, grid, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
-    case 4: launch<true, false, false>(ycbcr, grid, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
-    case 5: launch<true, false, true>(ycbcr, grid, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
-    case 6: launch<true, true, false>(ycbcr, grid, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
-    default: launch<true, true, true>(ycbcr, grid, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
+    case 0: launch<false, false, false>(ycbcr, n, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
+    case 1: launch<false, false, true>(ycbcr, n, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
+    case 2: launch<false, true, false>(ycbcr, n, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
+    case 3: launch<false, true, true>(ycbcr, n, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
+    case 4: launch<true, false, false>(ycbcr, n, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
+    case 5: launch<true, false, true>(ycbcr, n, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
+    case 6: launch<true, true, false>(ycbcr, n, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
+    default: launch<true, true, true>(ycbcr, n, st, wd, tb, h, w, cy, cx, icy, icx, out0, out1); break;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,26 +42,19 @@
 // then _finish_block).
 //
 // Clamp-to-edge: every stage reads the stage below at coordinates
-// clamped to the image. Rows: a stage's row -1 is its row 0 and its row
-// h is its row h-1, so the first in-image row fills the whole window and
-// past the last one the newest row is pushed again (warp-uniform
-// branches, and only in bands that reach the top or bottom edge: ROWS).
-// Columns: a lane whose column lies outside the image holds,
-// at EVERY stage, the value of the nearest in-image column of that
-// stage (clamp_columns, four shuffles per value); only strips that touch
-// the left or right image edge pay for it (EDGE), the others take the
-// same code without it. A site's channel is always that of the
-// unclamped position, which is what the generic-CFA rule needs (value
-// clamped, mask periodic).
+// clamped to the image; band_march.cuh, which holds the march's lanes,
+// windows and shuffles, says how for rows and for columns. A site's
+// channel is always that of the unclamped position, which is what the
+// generic-CFA rule needs (value clamped, mask periodic).
 
 #pragma once
 
+#include "band_march.cuh"
 #include "develop_common.cuh"
 
 namespace {
 
 constexpr int kHalo = 4;
-constexpr int kWarpCols = 64;                     // two per lane
 constexpr int kStripW = kWarpCols - 2 * kHalo;    // 56 output columns
 constexpr int kBandH = 64;                        // output rows per warp
 constexpr int kWarps = 4;                         // strips per block
@@ -70,103 +63,7 @@ constexpr int kThreads = 32 * kWarps;
 // march is bound by instruction throughput and its chains are long, so warps
 // in flight buy more than the few registers cost.
 constexpr int kMinBlocks = 5;
-constexpr unsigned kAllLanes = 0xffffffffu;
 constexpr float kEps = 1e-4f;
-
-// One value for each of the lane's two columns: a at the even column
-// x0, b at x0 + 1.
-struct Pair {
-  float a, b;
-};
-
-__device__ __forceinline__ Pair operator-(const Pair& x, const Pair& y) {
-  return {x.a - y.a, x.b - y.b};
-}
-
-// The value left of column a (the lane below's b) and right of column b
-// (the lane above's a).
-__device__ __forceinline__ float left_of_a(const Pair& v) {
-  return __shfl_up_sync(kAllLanes, v.b, 1);
-}
-__device__ __forceinline__ float right_of_b(const Pair& v) {
-  return __shfl_down_sync(kAllLanes, v.a, 1);
-}
-
-// Where a lane's columns sit, and for a strip at the left or right image
-// edge the lane and half (0 = a, 1 = b) that hold the nearest in-image
-// column of each.
-template <bool EDGE>
-struct Lane {
-  int x0;
-  int src_a, src_b;
-  bool half_a, half_b;
-};
-
-// The even column x0 of the calling lane in the strip whose first output
-// column is sx.
-__device__ __forceinline__ int lane_column(int sx) {
-  return sx - kHalo + 2 * static_cast<int>(threadIdx.x & 31);
-}
-
-template <bool EDGE>
-__device__ __forceinline__ Lane<EDGE> make_lane(int sx, int w) {
-  Lane<EDGE> ln{};
-  const int first = sx - kHalo;
-  ln.x0 = lane_column(sx);
-  if constexpr (EDGE) {
-    const int ca = min(max(ln.x0, 0), w - 1) - first;
-    const int cb = min(max(ln.x0 + 1, 0), w - 1) - first;
-    ln.src_a = ca >> 1;
-    ln.half_a = ca & 1;
-    ln.src_b = cb >> 1;
-    ln.half_b = cb & 1;
-  }
-  return ln;
-}
-
-// Columns outside the image take the stage's value at the nearest
-// in-image column; in-image columns read themselves.
-template <bool EDGE>
-__device__ __forceinline__ void clamp_columns(const Lane<EDGE>& ln, Pair& v) {
-  if constexpr (EDGE) {
-    const float aa = __shfl_sync(kAllLanes, v.a, ln.src_a);
-    const float ab = __shfl_sync(kAllLanes, v.b, ln.src_a);
-    const float ba = __shfl_sync(kAllLanes, v.a, ln.src_b);
-    const float bb = __shfl_sync(kAllLanes, v.b, ln.src_b);
-    v.a = ln.half_a ? ab : aa;
-    v.b = ln.half_b ? bb : ba;
-  }
-}
-
-// The last three rows of one stage: rows r-1, r, r+1 of the row r that
-// the stage above computes next.
-struct Win3 {
-  Pair up, mid, dn;
-  // Pushes row `row` of an image of h rows. In a band that touches the
-  // top or bottom image edge (ROWS) row 0 also stands for row -1 (`v` of
-  // an earlier row is never read) and rows past h-1 repeat row h-1.
-  template <bool ROWS>
-  __device__ __forceinline__ void push(Pair v, int row, int h) {
-    if constexpr (ROWS) {
-      if (row >= h) v = dn;
-      if (row <= 0) up = mid = dn = v;
-    }
-    up = mid;
-    mid = dn;
-    dn = v;
-  }
-};
-
-// The 3x3 tent (1 2 1)x(1 2 1)/16 over a window: the column pass on the
-// lane's own columns, then the row pass over the neighbours' sums.
-__device__ __forceinline__ Pair tent3(const Win3& x) {
-  const Pair s{(x.up.a + x.mid.a * 2.0f) + x.dn.a,
-               (x.up.b + x.mid.b * 2.0f) + x.dn.b};
-  const float l = left_of_a(s);
-  const float r = right_of_b(s);
-  return {((l + s.a * 2.0f) + s.b) * 0.0625f,
-          ((s.a + s.b * 2.0f) + r) * 0.0625f};
-}
 
 // One pixel of a chroma refinement: the channels rebuilt from the sensor
 // value c of channel ch (0 R, 1 G, 2 B) and the smoothed differences.
@@ -175,26 +72,6 @@ __device__ __forceinline__ void rebuild(int ch, float c, float cb, float cr,
   g = ch == 1 ? c : (ch == 0 ? c - cb : c - cr);
   r = ch == 0 ? c : g + cb;
   b = ch == 2 ? c : g + cr;
-}
-
-// One mosaic row of the lane's two columns as u16 pairs (low half: a),
-// from the row clamped to the image; the columns clamped too for EDGE.
-template <bool EDGE>
-__device__ __forceinline__ uint32_t load_pair(const uint16_t* __restrict__ m,
-                                              const Lane<EDGE>& ln, int row,
-                                              int h, int w, bool aligned) {
-  const uint16_t* p =
-      m + static_cast<size_t>(min(max(row, 0), h - 1)) * w;
-  if constexpr (EDGE) {
-    const uint32_t lo = __ldg(p + min(max(ln.x0, 0), w - 1));
-    const uint32_t hi = __ldg(p + min(max(ln.x0 + 1, 0), w - 1));
-    return lo | (hi << 16);
-  } else {
-    if (aligned) return __ldg(reinterpret_cast<const uint32_t*>(p + ln.x0));
-    const uint32_t lo = __ldg(p + ln.x0);
-    const uint32_t hi = __ldg(p + ln.x0 + 1);
-    return lo | (hi << 16);
-  }
 }
 
 // Marches one warp down the band of output rows [y0, y0 + kBandH) of the
@@ -213,7 +90,7 @@ __device__ __forceinline__ void march_band(
     Site site, const uint16_t* __restrict__ m, const float* __restrict__ sc,
     size_t img, int h, int w, int y0, int sx, uint32_t* __restrict__ rgba,
     uint8_t* __restrict__ yplane, uint8_t* __restrict__ cbcr) {
-  const Lane<EDGE> ln = make_lane<EDGE>(sx, w);
+  const Lane<EDGE> ln = make_lane<EDGE>(sx - kHalo, w);
   const int lane = threadIdx.x & 31;
   const bool aligned =
       ((w & 1) == 0) && ((reinterpret_cast<uintptr_t>(m) & 3) == 0);

@@ -97,36 +97,45 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
+def _signatures():
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tables = ctypes.c_char_p  # the packed CfaTables bytes on the host
+    return {
+        # (mosaics, scal, out0, out1, n, h, w, py, px, gamma, output,
+        #  [demosaic,] stream)
+        "rtt_develop_launch": [ptr] * 4 + [i32] * 8 + [ptr],
+        "rtt_develop_grad_launch": [ptr] * 4 + [i32] * 7 + [ptr],
+        # The generic-CFA kernels: (mosaics, scal, out0, out1, n, h, w,
+        #  gamma, output, [demosaic,] packed tables, stream)
+        "rtt_develop_cfa_launch": [ptr] * 4 + [i32] * 6 + [tables, ptr],
+        "rtt_develop_grad_cfa_launch": [ptr] * 4 + [i32] * 5 + [tables, ptr],
+        # (words, table, out0, out1, n, h, w, mixer_on, grading_on,
+        #  stencils, output, cy, cx, icy, icx, stream)
+        "rtt_extras_launch": [ptr] * 4 + [i32] * 7 + [f32] * 4 + [ptr],
+    }
+
+
+#: The launchers' C argument types; each returns a CUDA error code.
+SIGNATURES = _signatures()
+
+
+def declare(lib, names=SIGNATURES):
+    """Declares the C signatures of the launchers ``names`` on ``lib``."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load():
     """The loaded kernel library (built first if needed), with the C
     signatures declared."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            # (mosaics, scal, out0, out1, n, h, w, py, px, gamma, output,
-            #  [demosaic,] stream)
-            lib.rtt_develop_launch.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
-            lib.rtt_develop_launch.restype = i32
-            lib.rtt_develop_grad_launch.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-            lib.rtt_develop_grad_launch.restype = i32
-            # The generic-CFA kernels: (mosaics, scal, out0, out1, n, h, w,
-            #  gamma, output, [demosaic,] packed tables (host bytes), stream)
-            tables = ctypes.c_char_p
-            lib.rtt_develop_cfa_launch.argtypes = ([ptr] * 4 + [i32] * 6
-                                                   + [tables, ptr])
-            lib.rtt_develop_cfa_launch.restype = i32
-            lib.rtt_develop_grad_cfa_launch.argtypes = ([ptr] * 4 + [i32] * 5
-                                                        + [tables, ptr])
-            lib.rtt_develop_grad_cfa_launch.restype = i32
-            # (words, table, out0, out1, n, h, w, mixer_on, grading_on,
-            #  stencils, output, cy, cx, icy, icx, stream)
-            f32 = ctypes.c_float
-            lib.rtt_extras_launch.argtypes = ([ptr] * 4 + [i32] * 7
-                                              + [f32] * 4 + [ptr])
-            lib.rtt_extras_launch.restype = i32
-            lib.rtt_error_string.argtypes = [i32]
+            lib = declare(ctypes.CDLL(str(build())))
+            lib.rtt_error_string.argtypes = [ctypes.c_int]
             lib.rtt_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib

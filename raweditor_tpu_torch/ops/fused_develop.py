@@ -10,16 +10,19 @@ Bayer mosaic (``pattern=None``, ``cfa_phase``):
 - ``"nearest"`` (the parity stencil), ``"bilinear"`` and ``"malvar"``
   run ``csrc/develop.cu`` (one thread per 2x2 quad; the TPU kernel's
   ``_develop_block`` and ``_demosaic_smooth_taps``);
-- ``"grad"`` runs ``csrc/develop_grad.cu`` (one block per tile, the
-  stages staged in shared memory; ``_demosaic_grad_window``).
+- ``"grad"`` runs ``csrc/develop_grad.cu`` (a warp marches down a
+  64-column strip with every stage in registers, ``csrc/grad_tile.cuh``;
+  ``_demosaic_grad_window``).
 
 On a square repeating CFA (``pattern=`` a string of side*side letters,
 the 6x6 X-Trans grid; ``cfa_phase`` is not read):
 
 - ``"nearest"`` (one of five taps per pixel and channel, chosen by the
   pattern cell) and ``"smooth"`` (radius-1 normalised convolution) run
-  the generic-CFA kernel of ``csrc/develop.cu``
-  (``_develop_block``'s site table, ``_demosaic_smooth_generic``);
+  the generic-CFA kernels of ``csrc/develop.cu``: nearest one thread per
+  2x2 quad, smooth the warp march of ``csrc/band_march.cuh`` with a halo
+  of one column (``_develop_block``'s site table,
+  ``_demosaic_smooth_generic``);
 - ``"grad"`` runs ``csrc/develop_grad_generic.cu``
   (``_demosaic_grad_generic_window``).
 

@@ -9,8 +9,10 @@ any develop lane, on the words the develop wrote: the engine's
 full-resolution develop, JPEG planes and export, and the batch route
 ``fused_batch_develop_rgba(..., output="rgba")`` then
 ``fused_finish_extras_rgba(..., output="ycbcr420")``. The kernel is CUDA
-C++ for sm_90a (``csrc/extras.cu``, built by ``ops/_build.py``). Beside
-it:
+C++ for sm_90a (``csrc/extras.cu``, built by ``ops/_build.py``): with
+``stencils`` a warp marches down a strip of 60 output columns in bands of
+64 rows with every stage in registers (``csrc/band_march.cuh``), without
+them a thread per 2x2 quad runs the pointwise heads. Beside it:
 
 - ``pack_extras``: the (N, 38) f32 per-image table (``EXTRAS_COLUMNS``)
   and the three static flags of a list of edits, as the JAX engine's

@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
-"""Time variants of the two grad develop kernels against each other on
-the card, in turns inside one process.
+"""Time variants of the hand-written develop and extras kernels against
+each other on the card, in turns inside one process.
 
     python3 -m raweditor_tpu_torch.tools.kernel_ab \
         --variant parent=build/parent/raweditor_tpu_torch/csrc \
         --variant new=raweditor_tpu_torch/csrc [--variant NAME=DIR,-DX=1 ...] \
-        [--sass NAME ...] [--rounds 4] [--reps 5] [--out DIR]
+        [--cases B8,B5,B6] [--sass NAME ...] [--rounds 4] [--reps 5] [--out DIR]
 
-Each ``--variant`` names a directory that holds ``develop_grad.cu``,
-``develop_grad_generic.cu`` and their headers (for an earlier commit:
+Each ``--variant`` names a directory that holds the kernel sources and
+their headers (for an earlier commit:
 ``git archive <commit> raweditor_tpu_torch/csrc | tar -x -C build/parent``),
-optionally followed by ``nvcc`` defines. Every variant is built with the
-package's flags plus ``-Xptxas -v`` into a library of its own under
+optionally followed by ``nvcc`` defines. ``--cases`` picks the cases of
+``CASES`` whose names start with one of the given prefixes (default: all).
+For every variant only the sources those cases launch are built, with the
+package's flags plus ``-Xptxas -v``, into a library of its own under
 ``build/kernel_ab/`` (all ``nvcc`` processes started together), loaded with
 ``ctypes`` and launched through the kernels' C interface on the shapes
-``chip_smoke.py`` times: B4 (Bayer grad) on a 4016x6016 frame and B7 (the
-generic-CFA grad on the X-Trans grid) on 4000x6000, one frame to RGBA words
-and four frames to YCbCr 4:2:0 planes, sRGB transfer, seeded 12-bit data.
+``chip_smoke.py`` times:
+
+- B4 (Bayer grad) on a 4016x6016 frame and B7, B5, B6 (the generic-CFA
+  grad, nearest and smooth kernels on the X-Trans grid) on 4000x6000: one
+  frame to RGBA words and four frames to YCbCr 4:2:0 planes, sRGB transfer,
+  seeded 12-bit data;
+- B8 (finish extras) on seeded 24-bit words with alpha 255 at 4016x6016:
+  one frame to RGBA words with all three flags on, with the stencils only,
+  with the mixer only and in its pointwise form (mixer and grading, no
+  stencils), and four frames with per-image amounts to planes.
 
 Device times move by up to 13% between runs, so variants are only compared
 inside one run: each round times every variant (CUDA events, ``--reps``
@@ -24,10 +33,11 @@ launches after a warm-up), the order reversed every other round. Printed
 per case: each variant's median (a ``*`` where its output differs from the
 first variant's), then one JSON line with median, min and max, beside the
 card's name and power limit. For each variant also the registers, shared
-memory and spills ``ptxas`` reports for the sRGB instantiations, and for
-``--sass`` variants the ``cuobjdump -sass`` instruction count per class
-(the full listing goes to ``sass_NAME.txt`` under ``--out``, the JSON
-record to ``kernel_ab_TAG.json`` there; default ``build/kernel_ab``).
+memory and spills ``ptxas`` reports for the instantiations the RGBA cases
+launch, and for ``--sass`` variants the ``cuobjdump -sass`` instruction
+count per class (the full listing goes to ``sass_NAME.txt`` under
+``--out``, the JSON record to ``kernel_ab_TAG.json`` there; default
+``build/kernel_ab``).
 """
 import argparse
 import ctypes
@@ -47,9 +57,75 @@ OUT = os.path.join(ROOT, "build", "kernel_ab")
 H, W = 4016, 6016
 XH, XW = 4000, 6000
 
+# The source that defines each launcher of the C interface.
+SOURCES = {"rtt_develop_grad_launch": "develop_grad.cu",
+           "rtt_develop_grad_cfa_launch": "develop_grad_generic.cu",
+           "rtt_develop_cfa_launch": "develop.cu",
+           "rtt_extras_launch": "extras.cu"}
+# Mangled template arguments of the instantiations the RGBA cases launch,
+# per source: the sRGB transfer to words; for the extras every flag set.
+INSTANCES = {"develop_grad.cu": ("Li2ELb0E",),
+             "develop_grad_generic.cu": ("Li2ELb0E",),
+             "develop.cu": ("cfaILi2ELb0E",),
+             "extras.cu": ("ILb1ELb1ELb1ELb0E", "bandsILb1ELb1ELb0E")}
+# name: launcher, frames, output (0 words, 1 planes), then per kind the
+# demosaic (generic-CFA quad kernel: 0 nearest, 1 smooth) or the extras
+# flags (mixer, grading, stencils).
+CASES = {
+    "B4_rgba": dict(launcher="rtt_develop_grad_launch", frames=1, output=0),
+    "B4_planes": dict(launcher="rtt_develop_grad_launch", frames=4, output=1),
+    "B7_rgba": dict(launcher="rtt_develop_grad_cfa_launch", frames=1,
+                    output=0),
+    "B7_planes": dict(launcher="rtt_develop_grad_cfa_launch", frames=4,
+                      output=1),
+    "B5_rgba": dict(launcher="rtt_develop_cfa_launch", frames=1, output=0,
+                    demosaic=0),
+    "B5_planes": dict(launcher="rtt_develop_cfa_launch", frames=4, output=1,
+                      demosaic=0),
+    "B6_rgba": dict(launcher="rtt_develop_cfa_launch", frames=1, output=0,
+                    demosaic=1),
+    "B6_planes": dict(launcher="rtt_develop_cfa_launch", frames=4, output=1,
+                      demosaic=1),
+    "B8_rgba": dict(launcher="rtt_extras_launch", frames=1, output=0,
+                    flags=(1, 1, 1)),
+    "B8_rgba_stencils": dict(launcher="rtt_extras_launch", frames=1,
+                             output=0, flags=(0, 0, 1)),
+    "B8_rgba_mixer": dict(launcher="rtt_extras_launch", frames=1, output=0,
+                          flags=(1, 0, 0)),
+    "B8_rgba_pointwise": dict(launcher="rtt_extras_launch", frames=1,
+                              output=0, flags=(1, 1, 0)),
+    "B8_planes": dict(launcher="rtt_extras_launch", frames=4, output=1,
+                      flags=(1, 1, 1)),
+}
+# The extras cases' edit (every band-local extra, six mixer sliders, two
+# grading wheels) and the other three images of the planes batch.
+XEDIT = dict(sharpen=60.0, denoise=40.0, curve_shadows=30.0,
+             curve_darks=-20.0, curve_lights=15.0, curve_highlights=-40.0,
+             vignette=-30.0, hue_red=25.0, hue_orange=-15.0, sat_yellow=30.0,
+             sat_blue=-40.0, lum_green=35.0, lum_magenta=-25.0,
+             grade_shadow_hue=210.0, grade_shadow_sat=40.0,
+             grade_high_hue=45.0, grade_high_sat=30.0)
+MIXER_ONLY = dict(hue_red=25.0, hue_orange=-15.0, sat_yellow=30.0,
+                  sat_blue=-40.0, lum_green=35.0, lum_magenta=-25.0)
 
-def build_all(variants):
-    """Compile both sources of every variant (all nvcc processes at once)
+
+def pick_cases(prefixes):
+    """The cases whose names start with one of ``prefixes`` (all of them
+    for none), in the table's order."""
+    names = [c for c in CASES
+             if not prefixes or any(c.startswith(p) for p in prefixes)]
+    if not names:
+        raise SystemExit(f"no case matches {prefixes}; known: {list(CASES)}")
+    return names
+
+
+def sources_for(case_names):
+    """The sources that define the launchers of ``case_names``, sorted."""
+    return sorted({SOURCES[CASES[c]["launcher"]] for c in case_names})
+
+
+def build_all(variants, sources):
+    """Compile ``sources`` of every variant (all nvcc processes at once)
     and link one library per variant; keeps ptxas' report per source."""
     from raweditor_tpu_torch.ops import _build
 
@@ -58,7 +134,7 @@ def build_all(variants):
     procs = []
     for v in variants:
         d = os.path.join(ROOT, v["dir"])
-        for src in ("develop_grad.cu", "develop_grad_generic.cu"):
+        for src in sources:
             o = os.path.join(OUT, f"{v['name']}.{src}.o")
             cmd = [nvcc, *flags, "-Xptxas", "-v", *v.get("defs", []), "-c",
                    os.path.join(d, src), "-o", o]
@@ -72,19 +148,19 @@ def build_all(variants):
             raise SystemExit(f"nvcc failed for {v['name']} {src}")
         v.setdefault("ptxas", {})[src] = out
     for v in variants:
-        objs = [os.path.join(OUT, f"{v['name']}.{s}.o")
-                for s in ("develop_grad.cu", "develop_grad_generic.cu")]
+        objs = [os.path.join(OUT, f"{v['name']}.{s}.o") for s in sources]
         so = os.path.join(OUT, f"{v['name']}.so")
         subprocess.run([nvcc, *flags, "-shared", *objs, "-o", so], check=True)
         v["so"] = so
 
 
-def ptxas_summary(text):
-    """Lines 'registers/smem/spill' for the srgb instantiations."""
+def ptxas_summary(text, picks=("Li2E",)):
+    """Lines 'registers/smem/spill' of ptxas' report ``text`` for the entry
+    functions whose mangled name holds one of ``picks``."""
     lines = text.splitlines()
     res = []
     for i, ln in enumerate(lines):
-        if "Compiling entry function" in ln and "Li2E" in ln:
+        if "Compiling entry function" in ln and any(p in ln for p in picks):
             name = ln.split("'")[1]
             blob = " ".join(lines[i + 1:i + 4])
             res.append(f"    {name}: {blob.strip()}")
@@ -156,17 +232,6 @@ def classify(b):
     return "other:" + b
 
 
-def declare(lib):
-    """The two grad launchers' C signatures (``ops/_build.load``)."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.rtt_develop_grad_launch.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
-    lib.rtt_develop_grad_launch.restype = i32
-    lib.rtt_develop_grad_cfa_launch.argtypes = ([ptr] * 4 + [i32] * 5
-                                                + [ctypes.c_char_p, ptr])
-    lib.rtt_develop_grad_cfa_launch.restype = i32
-    return lib
-
-
 def cuda_ms(fn, reps):
     """Per-run milliseconds (CUDA events) of ``fn`` after one warm-up."""
     fn()
@@ -188,12 +253,15 @@ def parse_args(argv):
     ap.add_argument("--variant", action="append", required=True,
                     metavar="NAME=DIR[,-DX=1...]")
     ap.add_argument("--sass", action="append", default=[], metavar="NAME")
+    ap.add_argument("--cases", default="", metavar="PREFIX[,PREFIX...]",
+                    help="case name prefixes, e.g. B8,B5 (default: all)")
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--tag", default="run", help="names the JSON record")
     ap.add_argument("--out", default=OUT,
                     help="directory of the record and the SASS listings")
     args = ap.parse_args(argv)
+    args.cases = pick_cases([p for p in args.cases.split(",") if p])
     variants = []
     for spec in args.variant:
         name, _, rest = spec.partition("=")
@@ -202,100 +270,135 @@ def parse_args(argv):
     return args, variants
 
 
+def make_inputs(case_names):
+    """The device inputs the cases need, by launcher: seeded, the same for
+    every variant."""
+    from raweditor_tpu_torch import EditParams
+    from raweditor_tpu_torch.color import cam_to_srgb_matrix
+    from raweditor_tpu_torch.ops import fused_develop as fused
+    from raweditor_tpu_torch.ops import fused_extras as fx
+    from raweditor_tpu_torch.parallel.batch import pack_params
+
+    launchers = {CASES[c]["launcher"] for c in case_names}
+    inputs = {}
+    edit = EditParams(exposure=0.4, contrast=6.0, highlights=-0.3,
+                      shadows=0.25, whites=1.05, blacks=0.03,
+                      saturation=20.0, vibrance=0.4, temperature=0.1,
+                      tint=-0.05)
+    if launchers - {"rtt_extras_launch"}:
+        D3300 = np.array([[6988, -1384, -714], [-5631, 13410, 2447],
+                          [-1485, 2204, 7318]], np.float32) / 10000.0
+        rng = np.random.default_rng(20261016)
+        batch = torch.from_numpy(
+            rng.integers(0, 4096, size=(4, H, W), dtype=np.uint16)).cuda()
+        params = [edit, EditParams(),
+                  EditParams(exposure=-1.2, saturation=-40.0),
+                  EditParams(exposure=1.1, contrast=-5.0, vibrance=-0.5,
+                             temperature=-0.3)]
+        wb = np.array([[2.0, 1.0, 1.5], [1.8, 1.0, 1.4], [2.2, 1.0, 1.3],
+                       [1.0, 1.0, 1.0]], np.float32)
+        cm = np.tile(cam_to_srgb_matrix(D3300, "accurate"), (4, 1, 1))
+        scal = pack_params(params, wb, cm, matrix_transpose=False,
+                           white_levels=[4095.0, 4095.0, 4000.0, 16383.0],
+                           black_levels=[150.0, 150.0, 64.0, 512.0]).cuda()
+        inputs["rtt_develop_grad_launch"] = (batch, scal)
+        xt = batch[:, :XH, :XW].contiguous()
+        for name in SOURCES:
+            if "cfa" in name:
+                inputs[name] = (xt, scal)
+        inputs["tables"] = fused.cfa_tables(
+            fused.cfa_generic.XTRANS_PATTERN).packed
+    if "rtt_extras_launch" in launchers:
+        gen = torch.Generator(device="cuda").manual_seed(20261016)
+        words = (torch.randint(0, 2 ** 24, (4, H, W), generator=gen,
+                               device="cuda", dtype=torch.int32)
+                 | torch.tensor(-(2 ** 24), dtype=torch.int32, device="cuda")
+                 ).view(torch.uint32)
+        xedit = edit.replace(**XEDIT)
+        table = fx.pack_extras([
+            xedit, EditParams(), edit.replace(**MIXER_ONLY),
+            EditParams(sharpen=100.0, vignette=50.0, grade_mid_hue=120.0,
+                       grade_mid_sat=-40.0)])[0].cuda()
+        inputs["rtt_extras_launch"] = (words, table)
+    return inputs
+
+
+def runner(lib, case, inputs, stream):
+    """(launch closure, outputs) of one case on one variant's library."""
+    from raweditor_tpu_torch.ops.extras import radial_consts
+
+    data, side = inputs[case["launcher"]]
+    n, output = case["frames"], case["output"]
+    data, side = data[:n].contiguous(), side[:n].contiguous()
+    _, h, w = data.shape
+    if output == 0:
+        out0 = torch.empty((n, h, w), dtype=torch.uint32, device="cuda")
+        out1 = None
+    else:
+        out0 = torch.empty((n, h, w), dtype=torch.uint8, device="cuda")
+        out1 = torch.empty((n, h // 2, w), dtype=torch.uint8, device="cuda")
+    name = case["launcher"]
+    if name == "rtt_develop_grad_launch":
+        tail = (0, 0, 2, output, stream)
+    elif name == "rtt_develop_grad_cfa_launch":
+        tail = (2, output, inputs["tables"], stream)
+    elif name == "rtt_develop_cfa_launch":
+        tail = (2, output, case["demosaic"], inputs["tables"], stream)
+    else:
+        consts = [float(v) for v in radial_consts(h, w)]
+        tail = (*case["flags"], output, *consts, stream)
+    fn = getattr(lib, name)
+
+    def go():
+        code = fn(data.data_ptr(), side.data_ptr(), out0.data_ptr(),
+                  None if out1 is None else out1.data_ptr(), n, h, w, *tail)
+        if code:
+            raise RuntimeError(f"{name}: CUDA error {code}")
+    return go, (out0, out1)
+
+
 def main(argv=None):
     if not torch.cuda.is_available():
         print("kernel_ab: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     args, variants = parse_args(argv)
     sass_names = set(args.sass)
-    from raweditor_tpu_torch import EditParams
-    from raweditor_tpu_torch.color import cam_to_srgb_matrix
-    from raweditor_tpu_torch.ops import fused_develop as fused
-    from raweditor_tpu_torch.parallel.batch import pack_params
+    from raweditor_tpu_torch.ops import _build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print("card:", smi, flush=True)
+    sources = sources_for(args.cases)
+    launchers = sorted({CASES[c]["launcher"] for c in args.cases})
     t0 = time.perf_counter()
-    build_all(variants)
+    build_all(variants, sources)
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     os.makedirs(args.out, exist_ok=True)
     for v in variants:
-        print(f"== ptxas {v['name']} (srgb instantiations)")
+        print(f"== ptxas {v['name']} (the RGBA cases' instantiations)")
         for src, txt in v["ptxas"].items():
             print(f"  {src}:")
-            print(ptxas_summary(txt))
+            print(ptxas_summary(txt, INSTANCES[src]))
         if v["name"] in sass_names:
             counts = sass_counts(v["so"], os.path.join(
                 args.out, f"sass_{v['name']}.txt"))
             for fn, c in counts.items():
-                if "Li2ELb0" in fn:
+                if any(p in fn for src in sources for p in INSTANCES[src]):
                     print(f"  SASS {v['name']} {fn}: "
                           f"{json.dumps(dict(sorted(c.items())))}")
         sys.stdout.flush()
     for v in variants:
-        v["lib"] = declare(ctypes.CDLL(v["so"]))
+        v["lib"] = _build.declare(ctypes.CDLL(v["so"]), launchers)
 
-    D3300 = np.array([[6988, -1384, -714], [-5631, 13410, 2447],
-                      [-1485, 2204, 7318]], np.float32) / 10000.0
-    rng = np.random.default_rng(20261016)
-    batch_np = rng.integers(0, 4096, size=(4, H, W), dtype=np.uint16)
-    batch = torch.from_numpy(batch_np).cuda()
-    edit = EditParams(exposure=0.4, contrast=6.0, highlights=-0.3,
-                      shadows=0.25, whites=1.05, blacks=0.03,
-                      saturation=20.0, vibrance=0.4, temperature=0.1,
-                      tint=-0.05)
-    params = [edit, EditParams(), EditParams(exposure=-1.2, saturation=-40.0),
-              EditParams(exposure=1.1, contrast=-5.0, vibrance=-0.5,
-                         temperature=-0.3)]
-    wb = np.array([[2.0, 1.0, 1.5], [1.8, 1.0, 1.4], [2.2, 1.0, 1.3],
-                   [1.0, 1.0, 1.0]], np.float32)
-    cm = np.tile(cam_to_srgb_matrix(D3300, "accurate"), (4, 1, 1))
-    scal4 = pack_params(params, wb, cm, matrix_transpose=False,
-                        white_levels=[4095.0, 4095.0, 4000.0, 16383.0],
-                        black_levels=[150.0, 150.0, 64.0, 512.0]).cuda()
-    one = batch[:1].contiguous()
-    scal1 = scal4[:1].contiguous()
-    xt_batch = batch[:, :XH, :XW].contiguous()
-    xt_one = xt_batch[:1].contiguous()
-    packed = fused.cfa_tables(fused.cfa_generic.XTRANS_PATTERN).packed
+    inputs = make_inputs(args.cases)
     stream = torch.cuda.current_stream().cuda_stream
-
-    cases = {
-        "B4_rgba": (one, scal1, 0, False), "B4_planes": (batch, scal4, 1, False),
-        "B7_rgba": (xt_one, scal1, 0, True), "B7_planes": (xt_batch, scal4, 1, True),
-    }
-
-    def runner(v, mos, sc, output, cfa):
-        n, h, w = mos.shape
-        if output == 0:
-            out0 = torch.empty((n, h, w), dtype=torch.uint32, device="cuda")
-            out1 = None
-        else:
-            out0 = torch.empty((n, h, w), dtype=torch.uint8, device="cuda")
-            out1 = torch.empty((n, h // 2, w), dtype=torch.uint8, device="cuda")
-        p1 = None if out1 is None else out1.data_ptr()
-        lib = v["lib"]
-
-        def go():
-            if cfa:
-                code = lib.rtt_develop_grad_cfa_launch(
-                    mos.data_ptr(), sc.data_ptr(), out0.data_ptr(), p1, n, h,
-                    w, 2, output, packed, stream)
-            else:
-                code = lib.rtt_develop_grad_launch(
-                    mos.data_ptr(), sc.data_ptr(), out0.data_ptr(), p1, n, h,
-                    w, 0, 0, 2, output, stream)
-            if code:
-                raise RuntimeError(f"{v['name']}: CUDA error {code}")
-        return go, (out0, out1)
-
     rounds, reps = args.rounds, args.reps
     table = {}
-    for cname, (mos, sc, output, cfa) in cases.items():
-        runs = {v["name"]: runner(v, mos, sc, output, cfa) for v in variants}
+    for cname in args.cases:
+        runs = {v["name"]: runner(v["lib"], CASES[cname], inputs, stream)
+                for v in variants}
         ms = {v["name"]: [] for v in variants}
         order = [v["name"] for v in variants]
         for r in range(rounds):

@@ -491,11 +491,14 @@ def test_every_source_is_built():
     for src in names:
         assert '#include "develop_common.cuh"' in (_build.CSRC / src).read_text()
     # The generic-CFA kernels share their tables, the grad kernels their
-    # tile machinery.
+    # stages, and every band kernel the warp march.
     for src, shared in (("develop.cu", "cfa_tables.cuh"),
                         ("develop_grad_generic.cu", "cfa_tables.cuh"),
                         ("develop_grad.cu", "grad_tile.cuh"),
-                        ("develop_grad_generic.cu", "grad_tile.cuh")):
+                        ("develop_grad_generic.cu", "grad_tile.cuh"),
+                        ("grad_tile.cuh", "band_march.cuh"),
+                        ("develop.cu", "band_march.cuh"),
+                        ("extras.cu", "band_march.cuh")):
         assert (_build.CSRC / shared).exists()
         assert f'#include "{shared}"' in (_build.CSRC / src).read_text()
 
