@@ -35,14 +35,20 @@ Then it holds every kernel against its plain PyTorch version (at the four
 Bayer phases and on an odd 4015x6013 frame; the extras kernel for every
 flag set, on the odd frame, a 33x17 batch and at 24 MP; the generic-CFA
 kernels at 24 MP, on the odd frame and on small frames around the tile
-and period edges; the two grad kernels on 64 frames around their strip
-and band edges, at the four Bayer phases and for periods 2, 3 and 6; the
-extras kernel and the generic-CFA nearest and smooth kernels on 49 RGBA
-and 6 planes frames each around theirs) and against the plain lane; the
-grad, extras and generic-CFA kernels must equal their plain versions
-exactly, the others within 1 LSB. It compares small frames on
-the card with the CPU, times each kernel beside its plain version with
-CUDA events, and prints:
+and period edges; the Bayer quad kernel (nearest, bilinear, Malvar) on 117
+RGBA and 11 planes frames around its 128x16 tile and 64-row block and at each
+width modulo its four columns a thread; the two grad kernels on 64 frames around their
+strip and band edges, at the four Bayer phases and for periods 2, 3 and
+6; the extras kernel and the generic-CFA nearest and smooth kernels on 49
+RGBA and 6 planes frames each around theirs) and against the plain lane:
+every develop kernel and the extras kernel must equal its plain version
+exactly (0 LSB), the kernel route and the plain lane within 1 LSB. The
+develop kernels quantise through an exact table derived from the plain
+quantiser on the card: it is swept against that quantiser over every
+f32 value in [0, 1] for each of the four transfers (1,065,353,217
+values), values above 1, +inf, -0.0, negatives and denormals, and no
+value may differ. It compares small frames on the card with the CPU,
+times each kernel beside its plain version with CUDA events, and prints:
 
 - a line ``{"kernels": [...]}`` with each kernel's launches on its path,
   its largest difference from the plain version, both times, and its
@@ -92,6 +98,12 @@ GRAD_PATTERNS = ("GRBG", "RGBGBRBRG")  # beside the 6x6 X-Trans grid
 # kCfaStripW, kCfaBandH; a test holds these four against the sources).
 EXTRAS_STRIP, EXTRAS_BAND = 60, 64
 CFA_STRIP, CFA_BAND = 62, 24
+# The Bayer quad kernel (B1-B3): a block of threads covers tiles of 128
+# columns and 16 rows, four tiles down (64 rows), a thread four columns
+# (two quads) of two rows (csrc/develop.cu kBayerTileW, kBayerTileH,
+# kBayerBlockH, kThreadCols; a test holds them against it).
+BAYER_TILE_W, BAYER_TILE_H, BAYER_BLOCK_H = 128, 16, 64
+BAYER_THREAD_COLS = 4
 
 
 def around(unit):
@@ -111,6 +123,15 @@ EXTRAS_EDGE_W, EXTRAS_EDGE_H = around(EXTRAS_STRIP), around(EXTRAS_BAND)
 EXTRAS_EDGE_EVEN = around_even(EXTRAS_BAND, EXTRAS_STRIP)
 CFA_EDGE_W, CFA_EDGE_H = around(CFA_STRIP), around(CFA_BAND)
 CFA_EDGE_EVEN = around_even(CFA_BAND, CFA_STRIP)
+# Widths around the tile and two more that are 2 modulo the thread's four
+# columns (a thread whose second quad lies past the edge).
+BAYER_EDGE_W = around(BAYER_TILE_W) + (BAYER_TILE_W - 2, BAYER_TILE_W + 2)
+BAYER_EDGE_H = around(BAYER_TILE_H) + around(BAYER_BLOCK_H)[1:]
+BAYER_EDGE_EVEN = (around_even(BAYER_TILE_H, BAYER_TILE_W)
+                   + around_even(BAYER_BLOCK_H, BAYER_TILE_W)[1:])
+# The sweep of the table quantiser: chunks of f32 bit patterns, and f32 1.0.
+SWEEP_CHUNK = 1 << 26
+ONE_BITS = 0x3F800000
 # The quad stencils' tiers and the patterns each takes beside the X-Trans
 # grid (a Bayer grid's nearest B of an R site lies on a diagonal, which is
 # not one of the nearest kernel's five taps).
@@ -988,6 +1009,44 @@ def main():
         f"edges, four phases and periods 6, 2, 3 ({n_edge} comparisons): "
         f"worst LSB {grad_worst}")
 
+    # The Bayer quad kernel around its 128x16 tile and its block of four
+    # tiles down: every frame with each
+    # demosaic at one of the four phases in turn (nearest with the power
+    # transfer, the others with sRGB); the frames of the diagonal and the
+    # planes at every phase with every transfer.
+    quad_worst = {}
+    n_edge = 0
+    rgba_shapes = [(h, w) for h in BAYER_EDGE_H for w in BAYER_EDGE_W]
+    diagonal = set(zip(BAYER_EDGE_H, BAYER_EDGE_W))
+    for out, shapes in (("rgba", rgba_shapes),
+                        ("ycbcr420", BAYER_EDGE_EVEN)):
+        for i, (h, w) in enumerate(shapes):
+            small_b = batch[:2, 3: 3 + h, 9: 9 + w].contiguous()
+            every = out == "ycbcr420" or (h, w) in diagonal
+            for m in ("nearest", "bilinear", "malvar"):
+                own = ("pow" if m == "nearest" else "srgb",)
+                for ph in PHASES if every else (PHASES[i % 4],):
+                    for gamma in fused.GAMMAS if every else own:
+                        kw = dict(cfa_phase=ph, gamma=gamma, output=out,
+                                  demosaic=m)
+                        got = fused.fused_batch_develop_rgba(small_b, edge_sc,
+                                                             **kw)
+                        want = fused.develop_rgba_folded_plain(
+                            small_b, edge_sc, **kw)
+                        mx = (lsb_diff(got, want)[0] if out == "rgba"
+                              else planes_diff(got, want))
+                        key = fused.launch_key(out, m)
+                        check(mx == 0, f"{key} {h}x{w} phase {ph} {gamma}: "
+                              f"{mx} LSB from plain")
+                        note(key, mx, f"{key} {h}x{w}")
+                        quad_worst[key] = max(quad_worst.get(key, 0), mx)
+                        n_edge += 1
+    log(f"Bayer quad kernel on {len(rgba_shapes)} RGBA and "
+        f"{len(BAYER_EDGE_EVEN)} planes frames around its tile "
+        f"({BAYER_TILE_W}x{BAYER_TILE_H}) and block ({BAYER_BLOCK_H} rows), "
+        f"four phases ({n_edge} "
+        f"comparisons): worst LSB {quad_worst}")
+
     # The extras kernel marches like the grad kernels (strips of 60 output
     # columns, bands of 64 rows): two images with their own amounts on
     # every frame, the all-on flag set everywhere and all eight on the
@@ -1059,6 +1118,42 @@ def main():
         f"and {len(CFA_EDGE_EVEN)} planes frames around the strip "
         f"({CFA_STRIP}) and band ({CFA_BAND}) edges, periods 6, 2 and 3 "
         f"({n_edge} comparisons): worst LSB {cfa_edge_worst}")
+
+    # The develop kernels' table quantiser (fused_quantize: the same
+    # table and lookup as their tail) against the plain quantiser on the
+    # card: every f32 in [0, 1] in chunks, then the first 2**20 values
+    # above 1.0 and every 4096th pattern from there to +inf, -0.0 and the
+    # first 2**20 negative patterns (denormals) and every 4096th to -inf.
+    i32 = torch.int32
+    extra = torch.cat([
+        torch.arange(ONE_BITS + 1, ONE_BITS + (1 << 20), dtype=i32),
+        torch.arange(ONE_BITS + (1 << 20), 0x7F800001, 4096, dtype=i32),
+        torch.tensor([0x7F800000], dtype=i32),  # +inf
+        torch.arange(-2**31, -2**31 + (1 << 20), dtype=i32),  # -0.0, ...
+        torch.arange(-2**31 + (1 << 20), -0x00800000 + 1, 4096, dtype=i32),
+        torch.tensor([-0x00800000], dtype=i32),  # -inf
+    ]).cuda().view(torch.float32)
+    t0 = time.perf_counter()
+    sweep = {}
+    for gamma in fused.GAMMAS:
+        swept = bad = 0
+        for start in range(0, ONE_BITS + 1, SWEEP_CHUNK):
+            c = torch.arange(start, min(start + SWEEP_CHUNK, ONE_BITS + 1),
+                             dtype=i32, device="cuda").view(torch.float32)
+            bad += int((fused.fused_quantize(c, gamma) != fused._quantize(
+                c, gamma).to(torch.uint8)).sum())
+            swept += c.numel()
+        bad_x = int((fused.fused_quantize(extra, gamma) != fused._quantize(
+            extra, gamma).to(torch.uint8)).sum())
+        sweep[gamma] = dict(unit=swept, mismatches=bad, beyond=extra.numel(),
+                            beyond_mismatches=bad_x)
+        check(swept == ONE_BITS + 1 and bad == 0 and bad_x == 0,
+              f"table quantiser {gamma}: {sweep[gamma]}")
+    torch.cuda.synchronize()
+    del c, extra
+    torch.cuda.empty_cache()
+    log(f"table quantiser vs plain on the card ({time.perf_counter() - t0:.2f}"
+        f" s): {json.dumps(sweep)}")
 
     # Small inputs: the card against the same code on the CPU (which the
     # CPU tests hold against the JAX package), parity and accurate with
@@ -1253,10 +1348,11 @@ def main():
     log(f"end to end (host clock, median): {json.dumps(e2e)} [{smi}]")
     tmp.cleanup()
 
-    # The grad kernels, the extras kernel and the generic-CFA nearest and
-    # smooth kernels keep their plain versions' arithmetic bit for bit: no
-    # differing pixel in any comparison above, at 24 MP or on the edges.
-    for key in (*grad_worst, *x_edge_worst, *cfa_edge_worst):
+    # Every develop kernel (B1-B7) and the extras kernel keep their plain
+    # versions' arithmetic bit for bit: no differing pixel in any
+    # comparison above, at 24 MP, on the odd frame, at the four phases, in
+    # the batch planes or on the edges.
+    for key in (*quad_worst, *grad_worst, *x_edge_worst, *cfa_edge_worst):
         check(errs[key] == 0, f"{key}: {errs[key]} LSB from its plain version")
 
     kernels = []

@@ -10,8 +10,9 @@
 // horizontal neighbours come by __shfl_sync, which moves bits and rounds
 // nothing. The outermost columns of a strip are halo, as many as the
 // kernel's stages are deep: they are computed and not stored. Warps share
-// nothing, so there is no shared stage buffer and no block barrier, and
-// lane = column pair, loop = row leaves no division or modulo per item.
+// no stage, so there is no shared stage buffer and no block barrier
+// between stages (only tables are copied to shared memory at the start),
+// and lane = column pair, loop = row leaves no division or modulo per item.
 //
 // Clamp-to-edge: every stage reads the stage below at coordinates
 // clamped to the image. Rows: a stage's row -1 is its row 0 and its row

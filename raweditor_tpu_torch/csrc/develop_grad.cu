@@ -26,13 +26,14 @@
 // operations per pixel with the sRGB transfer (52 of them in the demosaic
 // stages, two divisions among them): 0.05 ms at the card's 67 TFLOP/s.
 // No -fmad=false kernel can reach that rate (a multiply and an add are
-// two instructions), and powf, sqrtf and an IEEE division cost tens of
-// instructions each: the finish tail alone measures about 0.25 ms per
-// frame. What a design can move is everything around the arithmetic, so
-// this one keeps every stage in registers: a warp marches down a 64-column
-// strip, each stage holds its last three rows per lane, horizontal
-// neighbours come by warp shuffles, and there is no shared memory, no
-// block barrier and no per-item index arithmetic (grad_tile.cuh). The
+// two instructions), an IEEE division costs tens of instructions, and the
+// transfer's table lookup (develop_common.cuh) two dependent shared loads
+// per channel. What a design can move is everything around the
+// arithmetic, so this one keeps every stage in registers: a warp marches
+// down a 64-column strip, each stage holds its last three rows per lane,
+// horizontal neighbours come by warp shuffles, and there is no shared
+// memory beyond the tail's tables, one block barrier at the start and no
+// per-item index arithmetic (grad_tile.cuh). The
 // Bayer site classes are warp-uniform per row (a lane's even column is
 // the R/B site of a row or its G site), so stage 1 interpolates one G
 // per lane and row with one shuffle, and stage 2 needs two shuffles: the
@@ -132,35 +133,24 @@ struct BayerSite {
   }
 };
 
-template <int GAMMA, bool YCBCR>
+template <bool YCBCR>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     develop_grad_bands(const uint16_t* __restrict__ mosaics,
-                       const float* __restrict__ scal, int h, int w, int py,
-                       int px, uint32_t* __restrict__ rgba,
+                       const float* __restrict__ scal,
+                       const QuantTable* __restrict__ quant, int h, int w,
+                       int py, int px, uint32_t* __restrict__ rgba,
                        uint8_t* __restrict__ yplane,
                        uint8_t* __restrict__ cbcr) {
-  const int sx = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kStripW;
-  if (sx >= w) return;  // the whole warp; warps share nothing
-  const int y0 = blockIdx.y * kBandH;
   const size_t img = blockIdx.z;
-  const float* sc = scal + img * kScalars;
+  __shared__ Tail tail;
+  load_tail(&tail, quant, scal + img * kScalars, threadIdx.x, kThreads);
+  __syncthreads();  // the only one: from here on warps share nothing
+  const int sx = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kStripW;
+  if (sx >= w) return;  // the whole warp
+  const int y0 = blockIdx.y * kBandH;
   const uint16_t* m = mosaics + img * static_cast<size_t>(h) * w;
   const BayerSite site(py, px, y0 - kHalo);
-  march<GAMMA, YCBCR>(site, m, sc, img, h, w, y0, sx, rgba, yplane, cbcr);
-}
-
-template <int GAMMA>
-void launch(bool ycbcr, dim3 grid, cudaStream_t st, const uint16_t* mos,
-            const float* scal, int h, int w, int py, int px, void* out0,
-            void* out1) {
-  if (ycbcr)
-    develop_grad_bands<GAMMA, true><<<grid, kThreads, 0, st>>>(
-        mos, scal, h, w, py, px, nullptr, static_cast<uint8_t*>(out0),
-        static_cast<uint8_t*>(out1));
-  else
-    develop_grad_bands<GAMMA, false><<<grid, kThreads, 0, st>>>(
-        mos, scal, h, w, py, px, static_cast<uint32_t*>(out0), nullptr,
-        nullptr);
+  march<YCBCR>(site, m, tail, img, h, w, y0, sx, rgba, yplane, cbcr);
 }
 
 }  // namespace
@@ -168,25 +158,28 @@ void launch(bool ycbcr, dim3 grid, cudaStream_t st, const uint16_t* mos,
 // mosaics (n, h, w) u16, scal (n, 24) f32, contiguous on the device.
 // output 0: out0 = (n, h, w) u32 RGBA words. output 1: out0 = (n, h, w)
 // u8 Y, out1 = (n, h/2, w) u8 interleaved CbCr; h and w must be even.
-// gamma: 0 pow, 1 poly, 2 srgb, 3 srgb_poly. Launches on ``stream``,
-// does not synchronise, and returns the cudaGetLastError() code.
+// quant: the transfer's QuantTable on the device (develop_common.cuh).
+// Launches on ``stream``, does not synchronise, and returns the
+// cudaGetLastError() code.
 extern "C" int rtt_develop_grad_launch(const void* mosaics, const void* scal,
                                        void* out0, void* out1, int n, int h,
-                                       int w, int py, int px, int gamma,
-                                       int output, void* stream) {
-  if (const int bad = check_args(n, h, w, py, px, output)) return bad;
+                                       int w, int py, int px, int output,
+                                       const void* quant, void* stream) {
+  if (const int bad = check_develop_args(n, h, w, py, px, output, quant))
+    return bad;
   const dim3 grid = band_grid(n, h, w);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto* mos = static_cast<const uint16_t*>(mosaics);
   const auto* sc = static_cast<const float*>(scal);
+  const auto* qt = static_cast<const QuantTable*>(quant);
   const auto st = static_cast<cudaStream_t>(stream);
-  const bool ycbcr = output == 1;
-  switch (gamma) {
-    case kPow: launch<kPow>(ycbcr, grid, st, mos, sc, h, w, py, px, out0, out1); break;
-    case kPoly: launch<kPoly>(ycbcr, grid, st, mos, sc, h, w, py, px, out0, out1); break;
-    case kSrgb: launch<kSrgb>(ycbcr, grid, st, mos, sc, h, w, py, px, out0, out1); break;
-    case kSrgbPoly: launch<kSrgbPoly>(ycbcr, grid, st, mos, sc, h, w, py, px, out0, out1); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (output == 1)
+    develop_grad_bands<true><<<grid, kThreads, 0, st>>>(
+        mos, sc, qt, h, w, py, px, nullptr, static_cast<uint8_t*>(out0),
+        static_cast<uint8_t*>(out1));
+  else
+    develop_grad_bands<false><<<grid, kThreads, 0, st>>>(
+        mos, sc, qt, h, w, py, px, static_cast<uint32_t*>(out0), nullptr,
+        nullptr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -215,40 +215,28 @@ struct CfaSite {
   }
 };
 
-template <int GAMMA, bool YCBCR>
+template <bool YCBCR>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     develop_grad_cfa_bands(const uint16_t* __restrict__ mosaics,
-                           const float* __restrict__ scal, int h, int w,
+                           const float* __restrict__ scal,
+                           const QuantTable* __restrict__ quant, int h, int w,
                            const __grid_constant__ CfaTables tables,
                            uint32_t* __restrict__ rgba,
                            uint8_t* __restrict__ yplane,
                            uint8_t* __restrict__ cbcr) {
+  const size_t img = blockIdx.z;
   __shared__ CfaTables t;
+  __shared__ Tail tail;
   copy_tables(tables, &t, threadIdx.x, kThreads);
+  load_tail(&tail, quant, scal + img * kScalars, threadIdx.x, kThreads);
   __syncthreads();  // the only one: from here on warps share nothing
 
   const int sx = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * kStripW;
   if (sx >= w) return;  // the whole warp
   const int y0 = blockIdx.y * kBandH;
-  const size_t img = blockIdx.z;
-  const float* sc = scal + img * kScalars;
   const uint16_t* m = mosaics + img * static_cast<size_t>(h) * w;
   const CfaSite site(&t, lane_column(sx - kHalo), y0 - kHalo);
-  march<GAMMA, YCBCR>(site, m, sc, img, h, w, y0, sx, rgba, yplane, cbcr);
-}
-
-template <int GAMMA>
-void launch(bool ycbcr, dim3 grid, cudaStream_t st, const uint16_t* mos,
-            const float* scal, int h, int w, const CfaTables& tables,
-            void* out0, void* out1) {
-  if (ycbcr)
-    develop_grad_cfa_bands<GAMMA, true><<<grid, kThreads, 0, st>>>(
-        mos, scal, h, w, tables, nullptr, static_cast<uint8_t*>(out0),
-        static_cast<uint8_t*>(out1));
-  else
-    develop_grad_cfa_bands<GAMMA, false><<<grid, kThreads, 0, st>>>(
-        mos, scal, h, w, tables, static_cast<uint32_t*>(out0), nullptr,
-        nullptr);
+  march<YCBCR>(site, m, tail, img, h, w, y0, sx, rgba, yplane, cbcr);
 }
 
 }  // namespace
@@ -256,29 +244,32 @@ void launch(bool ycbcr, dim3 grid, cudaStream_t st, const uint16_t* mos,
 // mosaics (n, h, w) u16, scal (n, 24) f32, contiguous on the device;
 // tables: the packed CfaTables bytes on the host. output 0: out0 =
 // (n, h, w) u32 RGBA words. output 1: out0 = (n, h, w) u8 Y, out1 =
-// (n, h/2, w) u8 interleaved CbCr; h and w must be even. gamma: 0 pow,
-// 1 poly, 2 srgb, 3 srgb_poly. Launches on ``stream``, does not
-// synchronise, and returns the cudaGetLastError() code.
+// (n, h/2, w) u8 interleaved CbCr; h and w must be even. quant: the
+// transfer's QuantTable on the device (develop_common.cuh). Launches on
+// ``stream``, does not synchronise, and returns the cudaGetLastError()
+// code.
 extern "C" int rtt_develop_grad_cfa_launch(const void* mosaics,
                                            const void* scal, void* out0,
                                            void* out1, int n, int h, int w,
-                                           int gamma, int output,
-                                           const void* tables, void* stream) {
-  if (const int bad = check_args(n, h, w, 0, 0, output)) return bad;
+                                           int output, const void* tables,
+                                           const void* quant, void* stream) {
+  if (const int bad = check_develop_args(n, h, w, 0, 0, output, quant))
+    return bad;
   CfaTables t;
   if (!unpack_tables(tables, &t)) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid = band_grid(n, h, w);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto* mos = static_cast<const uint16_t*>(mosaics);
   const auto* sc = static_cast<const float*>(scal);
+  const auto* qt = static_cast<const QuantTable*>(quant);
   const auto st = static_cast<cudaStream_t>(stream);
-  const bool ycbcr = output == 1;
-  switch (gamma) {
-    case kPow: launch<kPow>(ycbcr, grid, st, mos, sc, h, w, t, out0, out1); break;
-    case kPoly: launch<kPoly>(ycbcr, grid, st, mos, sc, h, w, t, out0, out1); break;
-    case kSrgb: launch<kSrgb>(ycbcr, grid, st, mos, sc, h, w, t, out0, out1); break;
-    case kSrgbPoly: launch<kSrgbPoly>(ycbcr, grid, st, mos, sc, h, w, t, out0, out1); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (output == 1)
+    develop_grad_cfa_bands<true><<<grid, kThreads, 0, st>>>(
+        mos, sc, qt, h, w, t, nullptr, static_cast<uint8_t*>(out0),
+        static_cast<uint8_t*>(out1));
+  else
+    develop_grad_cfa_bands<false><<<grid, kThreads, 0, st>>>(
+        mos, sc, qt, h, w, t, static_cast<uint32_t*>(out0), nullptr,
+        nullptr);
   return static_cast<int>(cudaGetLastError());
 }

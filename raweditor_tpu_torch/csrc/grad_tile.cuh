@@ -3,11 +3,11 @@
 // develop_grad_generic.cu on a repeating-CFA pattern).
 //
 // What bounds these kernels on an H100 is instruction throughput, not bytes
-// (0.043 ms per 24 MP frame) and not the f32 rate (0.05 ms): with
-// -fmad=false, IEEE divisions and powf the finish tail alone measures
-// about 0.25 ms per frame. A design that stages every step of a 32x16
-// tile in shared memory behind block barriers spent another 0.45 ms
-// (Bayer) to 0.7 ms (X-Trans) around the arithmetic: 80 to 120 shared
+// (0.043 ms per 24 MP frame) and not the f32 rate (0.05 ms): -fmad=false
+// arithmetic, IEEE divisions and the finish tail (develop_common.cuh).
+// A design that stages every step of a 32x16 tile in shared memory
+// behind block barriers spent another 0.45 ms (Bayer) to 0.7 ms
+// (X-Trans) around the arithmetic: 80 to 120 shared
 // accesses, a division and a modulo of index arithmetic and the
 // recompute of a 4-pixel halo ring per output pixel; loading the tile
 // and storing a trivial result already took 0.15 to 0.24 ms. So the
@@ -23,7 +23,8 @@
 // - Horizontal neighbours come by __shfl_sync: 12 to 14 shuffles per
 //   lane and row where the tile design made 170 to 230 shared accesses
 //   for the same two pixels. A shuffle moves bits, so nothing rounds
-//   differently. Warps share nothing: there is no block barrier.
+//   differently. Warps share only the tail's tables, read after the one
+//   block barrier at the start.
 // - lane = column pair, loop = row: no division, no modulo per item.
 // - Stage 2 and refinement 1 hand on the colour differences R-G and B-G
 //   (the one subtraction the tents' column pass would do on each of its
@@ -85,16 +86,16 @@ __device__ __forceinline__ void rebuild(int ch, float c, float cb, float cr,
 // R and B of row t-2 from that row's raw*scale and G and the window of
 // raw*scale - G; chan(lag, half): the channel of the lane's column at
 // row t-lag.
-template <int GAMMA, bool YCBCR, bool EDGE, bool ROWS, typename Site>
+template <bool YCBCR, bool EDGE, bool ROWS, typename Site>
 __device__ __forceinline__ void march_band(
-    Site site, const uint16_t* __restrict__ m, const float* __restrict__ sc,
-    size_t img, int h, int w, int y0, int sx, uint32_t* __restrict__ rgba,
+    Site site, const uint16_t* __restrict__ m, const Tail& tail, size_t img,
+    int h, int w, int y0, int sx, uint32_t* __restrict__ rgba,
     uint8_t* __restrict__ yplane, uint8_t* __restrict__ cbcr) {
   const Lane<EDGE> ln = make_lane<EDGE>(sx - kHalo, w);
   const int lane = threadIdx.x & 31;
   const bool aligned =
       ((w & 1) == 0) && ((reinterpret_cast<uintptr_t>(m) & 3) == 0);
-  const float s = sc[12];
+  const float s = tail.sc[12];
   const int rows = min(kBandH, h - y0);
   const int y_end = y0 + rows + (rows & 1);  // whole quads
   const bool stores = lane >= kHalo / 2 && lane < 32 - kHalo / 2 && ln.x0 < w;
@@ -174,9 +175,9 @@ __device__ __forceinline__ void march_band(
       const Pair cr = tent3(bg2);
       float r, g, b;
       rebuild(site.chan(4, 0), v0.a, cb.a, cr.a, r, g, b);
-      finish<GAMMA>(sc, r, g, b, q[1][0]);
+      finish(tail, r, g, b, q[1][0]);
       rebuild(site.chan(4, 1), v0.b, cb.b, cr.b, r, g, b);
-      finish<GAMMA>(sc, r, g, b, q[1][1]);
+      finish(tail, r, g, b, q[1][1]);
       if (row & 1) {  // y0 is even: the quad's second row
         if (stores)
           store_quad<YCBCR>(q, img, h, w, row - 1, ln.x0, rgba, yplane, cbcr);
@@ -194,10 +195,10 @@ __device__ __forceinline__ void march_band(
 // Picks the march for a warp's strip and band: EDGE when the strip reads
 // a column outside the (h, w) image, ROWS when the band's stages reach
 // row 0 or row h-1 (both warp-uniform; most of a large frame is neither).
-template <int GAMMA, bool YCBCR, typename Site>
+template <bool YCBCR, typename Site>
 __device__ __forceinline__ void march(
-    const Site& site, const uint16_t* __restrict__ m,
-    const float* __restrict__ sc, size_t img, int h, int w, int y0, int sx,
+    const Site& site, const uint16_t* __restrict__ m, const Tail& tail,
+    size_t img, int h, int w, int y0, int sx,
     uint32_t* __restrict__ rgba, uint8_t* __restrict__ yplane,
     uint8_t* __restrict__ cbcr) {
   const bool edge = sx - kHalo < 0 || sx + kStripW + kHalo > w;
@@ -205,14 +206,14 @@ __device__ __forceinline__ void march(
   if (edge || ends) {
     // One checked form for both kinds of border: they are few.
     if (edge)
-      march_band<GAMMA, YCBCR, true, true>(site, m, sc, img, h, w, y0, sx,
-                                           rgba, yplane, cbcr);
+      march_band<YCBCR, true, true>(site, m, tail, img, h, w, y0, sx, rgba,
+                                    yplane, cbcr);
     else
-      march_band<GAMMA, YCBCR, false, true>(site, m, sc, img, h, w, y0, sx,
-                                            rgba, yplane, cbcr);
+      march_band<YCBCR, false, true>(site, m, tail, img, h, w, y0, sx, rgba,
+                                     yplane, cbcr);
   } else {
-    march_band<GAMMA, YCBCR, false, false>(site, m, sc, img, h, w, y0, sx,
-                                           rgba, yplane, cbcr);
+    march_band<YCBCR, false, false>(site, m, tail, img, h, w, y0, sx, rgba,
+                                    yplane, cbcr);
   }
 }
 

@@ -101,14 +101,17 @@ def _signatures():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tables = ctypes.c_char_p  # the packed CfaTables bytes on the host
     return {
-        # (mosaics, scal, out0, out1, n, h, w, py, px, gamma, output,
-        #  [demosaic,] stream)
-        "rtt_develop_launch": [ptr] * 4 + [i32] * 8 + [ptr],
-        "rtt_develop_grad_launch": [ptr] * 4 + [i32] * 7 + [ptr],
+        # (mosaics, scal, out0, out1, n, h, w, py, px, output, [demosaic,]
+        #  quant, stream); quant: the transfer's QuantTable on the device
+        "rtt_develop_launch": [ptr] * 4 + [i32] * 7 + [ptr, ptr],
+        "rtt_develop_grad_launch": [ptr] * 4 + [i32] * 6 + [ptr, ptr],
         # The generic-CFA kernels: (mosaics, scal, out0, out1, n, h, w,
-        #  gamma, output, [demosaic,] packed tables, stream)
-        "rtt_develop_cfa_launch": [ptr] * 4 + [i32] * 6 + [tables, ptr],
-        "rtt_develop_grad_cfa_launch": [ptr] * 4 + [i32] * 5 + [tables, ptr],
+        #  output, [demosaic,] packed tables, quant, stream)
+        "rtt_develop_cfa_launch": [ptr] * 4 + [i32] * 5 + [tables, ptr, ptr],
+        "rtt_develop_grad_cfa_launch": [ptr] * 4 + [i32] * 4 + [tables, ptr,
+                                                                 ptr],
+        # (quant, values, out, n, stream): the table quantiser's check
+        "rtt_quant_sweep_launch": [ptr, ptr, ptr, i32, ptr],
         # (words, table, out0, out1, n, h, w, mixer_on, grading_on,
         #  stencils, output, cy, cx, icy, icx, stream)
         "rtt_extras_launch": [ptr] * 4 + [i32] * 7 + [f32] * 4 + [ptr],

@@ -8,8 +8,8 @@ picks the stencil, as the TPU kernel's argument of that name does. On a
 Bayer mosaic (``pattern=None``, ``cfa_phase``):
 
 - ``"nearest"`` (the parity stencil), ``"bilinear"`` and ``"malvar"``
-  run ``csrc/develop.cu`` (one thread per 2x2 quad; the TPU kernel's
-  ``_develop_block`` and ``_demosaic_smooth_taps``);
+  run ``csrc/develop.cu`` (one thread per two 2x2 quads side by side;
+  the TPU kernel's ``_develop_block`` and ``_demosaic_smooth_taps``);
 - ``"grad"`` runs ``csrc/develop_grad.cu`` (a warp marches down a
   64-column strip with every stage in registers, ``csrc/grad_tile.cuh``;
   ``_demosaic_grad_window``).
@@ -39,6 +39,12 @@ All are CUDA C++ for sm_90a, built by ``ops/_build.py``. Beside them:
   and levels into one affine. Folding reassociates the float math, so
   this lane differs from the parity chain (``ops/develop.py``) by up to
   1 LSB;
+- ``quant_table``: the transfer-and-quantise map of one transfer
+  (``_quantize``) as the exact table the kernels look codes up in,
+  derived by ``_quantize`` itself on the kernels' device at first use
+  (``quant_thresholds``, ``quant_exceptions``, ``QuantTable``);
+  ``fused_quantize`` runs the kernels' lookup over any f32 values, the
+  check that it equals ``_quantize``;
 - ``develop_rgba_folded_plain``: the kernels' math in plain PyTorch ops.
   It demosaics ``raw * scale`` before the black offset is added, in the
   kernels' factored sums, so it rounds differently from the XLA-lane
@@ -219,7 +225,8 @@ def _tile(table: np.ndarray, like: torch.Tensor, dy: int = 0, dx: int = 0):
 
 def _poly255(coeffs):
     """The polynomial scaled by 255 with the quantiser's +0.5 folded into
-    the constant term, as f32 (the kernel holds the same literals)."""
+    the constant term, as f32 (``pallas_develop._GAMMA_POLY255`` and
+    ``_SRGB_POLY255``)."""
     scaled = [float(c) * 255.0 for c in coeffs[:-1]]
     scaled.append(float(coeffs[-1]) * 255.0 + 0.5)
     return tuple(np.float32(k) for k in scaled)
@@ -303,6 +310,150 @@ def _quantize(c, gamma: str):
     else:
         v = torch.pow(c, INV_22) * 255.0 + 0.5
     return torch.floor(torch.clamp_max(v, 255.5))
+
+
+# The kernels' exact quantiser (csrc/develop_common.cuh, struct
+# QuantTable): buckets keyed by the f32 bits >> QUANT_SHIFT, at most
+# QUANT_COMPARES thresholds in a bucket, up to QUANT_BUCKETS buckets;
+# exceptions looked for within QUANT_WINDOW ulps of every threshold.
+QUANT_SHIFT = 17
+QUANT_BUCKETS = 1344
+QUANT_COMPARES = 2
+QUANT_WINDOW = 64
+_ONE_BITS = 0x3F800000  # f32 1.0
+_INT_MAX = 2**31 - 1
+_QUANT_DTYPE = np.dtype([("lo", "<i4"), ("n", "<i4"), ("pad", "<i4", 2),
+                         ("next", "<i4", (256, 4)),
+                         ("base", "u1", QUANT_BUCKETS)])
+
+
+def quant_thresholds(gamma: str, device="cpu") -> torch.Tensor:
+    """The 255 thresholds of ``_quantize`` for ``gamma``, found by the plain
+    version itself on ``device``, as int32 bit patterns (INT_MAX where
+    ``_quantize(1.0) < k``): t_k (k = 1..255) is where ``_quantize`` steps
+    to k. A bisection over the bit patterns of [0, 1] (30 steps of 255
+    lanes) finds a value with code >= k after one below k; then t_k moves,
+    within QUANT_WINDOW ulps, to the step that leaves the fewest values
+    whose code is on the wrong side of k. Where ``_quantize`` never
+    decreases, t_k is the smallest f32 with code >= k."""
+    dev = torch.device(device)
+    k = torch.arange(1, 256, dtype=torch.float32, device=dev)
+    lo = torch.zeros(255, dtype=torch.int32, device=dev)  # q(lo) < k
+    hi = torch.full((255,), _ONE_BITS, dtype=torch.int32, device=dev)
+    for _ in range(30):  # 2**30 > _ONE_BITS: then hi - lo <= 1
+        mid = lo + (hi - lo) // 2
+        ge = _quantize(mid.view(torch.float32), gamma) >= k
+        hi = torch.where(ge, mid, hi)
+        lo = torch.where(ge, lo, mid)
+    near = torch.clamp(hi[:, None] + torch.arange(
+        -QUANT_WINDOW, QUANT_WINDOW + 1, dtype=torch.int32, device=dev),
+        0, _ONE_BITS)
+    up = _quantize(near.view(torch.float32), gamma) >= k[:, None]
+    # Values on the wrong side of a step at column i: those up before it
+    # and those not up from it on.
+    wrong = (torch.cumsum(up, 1) - up.long()
+             + torch.flip(torch.cumsum(torch.flip(~up, (1,)), 1), (1,)))
+    best = torch.gather(near, 1, torch.argmin(wrong, 1)[:, None])[:, 0]
+    top = _quantize(torch.ones(1, device=dev), gamma)
+    return torch.where(k <= top, best, _INT_MAX)
+
+
+def quant_exceptions(gamma: str, thresholds: torch.Tensor):
+    """Where ``_quantize`` (on the thresholds' device) leaves the staircase
+    of ``thresholds``: the f32 values within QUANT_WINDOW ulps of a
+    threshold whose code is not #{k : c >= t_k}, as (int64 bit patterns,
+    their codes), on the CPU. Empty where ``_quantize`` never decreases
+    there; a transfer built on a ``pow`` that is not monotone steps down
+    and up again at a single value (chip_smoke.py sweeps the rest)."""
+    t = thresholds.to(torch.int64)
+    t = t[t < _INT_MAX]
+    near = (t[:, None] + torch.arange(-QUANT_WINDOW, QUANT_WINDOW + 1,
+                                      device=t.device)).reshape(-1).unique()
+    near = near[(near >= 0) & (near <= _ONE_BITS)]
+    q = _quantize(near.to(torch.int32).view(torch.float32),
+                  gamma).to(torch.int64)
+    off = q != torch.searchsorted(t, near, right=True)
+    return near[off].cpu(), q[off].cpu()
+
+
+class QuantTable:
+    """One transfer's transfer-and-quantise map as the kernels' exact
+    lookup, from its thresholds (``quant_thresholds``) and the values
+    where the map leaves their staircase (``quant_exceptions``). Off the
+    exceptions q(c) = #{k : c >= t_k}: the bucket of c's bits gives the
+    code at the bucket's first value (``base``), and at most
+    QUANT_COMPARES compares against the next thresholds finish it.
+    ``lo`` is the bucket just below t_1, ``n`` the buckets up to that of
+    1.0;
+    ``next[k]`` = (t_{k+1}, t_{k+2}, e, q(e)), thresholds INT_MAX past
+    t_255, e the bits of the exception among the values whose bucket has
+    the code k (INT_MAX, a NaN, for none). ``packed`` is the bytes of the
+    kernels' ``QuantTable``. Raises ValueError where the thresholds or the
+    exceptions do not fit that table."""
+
+    def __init__(self, thresholds, exceptions=((), ())):
+        t = np.asarray(torch.as_tensor(thresholds).cpu(), np.int64)
+        if t.shape != (255,) or np.any(np.diff(t) < 0) or t[0] <= 0:
+            raise ValueError("the thresholds are not those of a "
+                             "non-decreasing quantiser")
+        finite = t[t < _INT_MAX]
+        # the bucket of the f32 below t_1: its first value's code is 0, the
+        # code of every value below it (-0.0 and negatives clamp to it)
+        self.lo = (int(finite[0]) - 1) >> QUANT_SHIFT
+        self.n = (_ONE_BITS >> QUANT_SHIFT) - self.lo + 1
+        if self.n > QUANT_BUCKETS or finite[-1] > _ONE_BITS:
+            raise ValueError(f"thresholds span {self.n} buckets; the "
+                             f"kernels' table holds {QUANT_BUCKETS} below 1.0")
+        per = np.bincount((finite >> QUANT_SHIFT) - self.lo,
+                          minlength=self.n)
+        if per.max() > QUANT_COMPARES:
+            raise ValueError(f"a bucket holds {per.max()} thresholds; the "
+                             f"kernels compare {QUANT_COMPARES}")
+        starts = (self.lo + np.arange(self.n, dtype=np.int64)) << QUANT_SHIFT
+        self.base = np.searchsorted(finite, starts, side="right").astype(
+            np.uint8)
+        padded = np.concatenate([t, [_INT_MAX, _INT_MAX]])
+        self.next = np.full((256, 4), _INT_MAX, np.int64)
+        self.next[:, 0], self.next[:, 1] = padded[:256], padded[1:257]
+        for e, code in zip(*(np.asarray(a, np.int64) for a in exceptions)):
+            k = self._bucket_code(e)
+            if self.next[k, 2] != _INT_MAX:
+                raise ValueError(f"two exceptions share the code {k}")
+            self.next[k, 2:] = e, code
+        rec = np.zeros((), _QUANT_DTYPE)
+        rec["lo"], rec["n"] = self.lo, self.n
+        rec["next"] = self.next
+        rec["base"][:self.n] = self.base
+        self.packed = rec.tobytes()
+
+    def _bucket_code(self, bits):
+        j = np.clip((np.asarray(bits, np.int64) >> QUANT_SHIFT) - self.lo, 0,
+                    self.n - 1)
+        return self.base[j].astype(np.int64)
+
+    def lookup(self, c: torch.Tensor) -> torch.Tensor:
+        """The kernels' lookup (``quantize`` in csrc/develop_common.cuh) in
+        plain ops, on the CPU: the codes of f32 ``c`` as int64."""
+        bits = c.to(torch.float32).contiguous().view(torch.int32).to(
+            torch.int64)
+        j = torch.clamp((bits >> QUANT_SHIFT) - self.lo, 0, self.n - 1)
+        k = torch.from_numpy(self.base.astype(np.int64))[j]
+        nxt = torch.from_numpy(self.next)[k]
+        code = k + (bits >= nxt[..., 0]) + (bits >= nxt[..., 1])
+        return torch.where(bits == nxt[..., 2], nxt[..., 3], code)
+
+
+@functools.lru_cache(maxsize=None)
+def quant_table(gamma: str, device: torch.device):
+    """(QuantTable, its packed bytes as a uint8 tensor on ``device``) of
+    ``gamma``, derived by the plain quantiser on ``device`` at first use
+    and cached per transfer and device."""
+    if gamma not in GAMMAS:
+        raise ValueError(f"unknown gamma {gamma!r}")
+    thresholds = quant_thresholds(gamma, device)
+    table = QuantTable(thresholds, quant_exceptions(gamma, thresholds))
+    data = torch.frombuffer(bytearray(table.packed), dtype=torch.uint8)
+    return table, data.to(device)
 
 
 def _shift(a: torch.Tensor, dim: int, d: int) -> torch.Tensor:
@@ -598,6 +749,7 @@ def fused_batch_develop_rgba(mosaics: torch.Tensor, scal: torch.Tensor,
     lib = _build.load()
     n, h, w = mosaics.shape
     with torch.cuda.device(dev):
+        quant = quant_table(gamma, dev)[1].data_ptr()
         if output == "rgba":
             out0 = torch.empty((n, h, w), dtype=torch.uint32, device=dev)
             out1 = None
@@ -607,21 +759,23 @@ def fused_batch_develop_rgba(mosaics: torch.Tensor, scal: torch.Tensor,
         args = (mosaics.data_ptr(), scal.data_ptr(), out0.data_ptr(),
                 None if out1 is None else out1.data_ptr(), n, h, w)
         phase = (int(cfa_phase[0]), int(cfa_phase[1]))
-        modes = (GAMMAS[gamma], OUTPUTS[output])
+        out_code = OUTPUTS[output]
         stream = torch.cuda.current_stream(dev).cuda_stream
         if pattern is not None:
             packed = cfa_tables(pattern).packed
             if demosaic == "grad":
-                code = lib.rtt_develop_grad_cfa_launch(*args, *modes, packed,
-                                                       stream)
+                code = lib.rtt_develop_grad_cfa_launch(
+                    *args, out_code, packed, quant, stream)
             else:
                 code = lib.rtt_develop_cfa_launch(
-                    *args, *modes, CFA_DEMOSAICS[demosaic], packed, stream)
+                    *args, out_code, CFA_DEMOSAICS[demosaic], packed, quant,
+                    stream)
         elif demosaic == "grad":
-            code = lib.rtt_develop_grad_launch(*args, *phase, *modes, stream)
+            code = lib.rtt_develop_grad_launch(*args, *phase, out_code, quant,
+                                               stream)
         else:
-            code = lib.rtt_develop_launch(*args, *phase, *modes,
-                                          DEMOSAICS[demosaic], stream)
+            code = lib.rtt_develop_launch(*args, *phase, out_code,
+                                          DEMOSAICS[demosaic], quant, stream)
     what = "develop kernel" if pattern is None else "generic-CFA develop kernel"
     _build.check(lib, code, f"{what} ({output}, {gamma}, {demosaic})")
     LAUNCHES[launch_key(output, demosaic, pattern)] += 1
@@ -638,3 +792,34 @@ def fused_develop_rgba(mosaic: torch.Tensor, scal: torch.Tensor,
     return fused_batch_develop_rgba(mosaic[None], scal.reshape(1, N_SCALARS),
                                     cfa_phase, gamma, demosaic=demosaic,
                                     pattern=pattern)[0]
+
+
+def fused_quantize(c: torch.Tensor, gamma: str = "pow") -> torch.Tensor:
+    """The u8 codes of f32 ``c`` (any shape, contiguous) under the transfer
+    ``gamma``: on the card the kernels' table quantiser over every value (a
+    check of the table, not a kernel of the develop path), on the CPU its
+    plain version ``_quantize``. Returns uint8 of ``c``'s shape."""
+    if not isinstance(c, torch.Tensor) or c.dtype != torch.float32:
+        raise TypeError("values must be a torch.float32 tensor")
+    if not c.is_contiguous():
+        raise ValueError("values must be contiguous")
+    if gamma not in GAMMAS:
+        raise ValueError(f"unknown gamma {gamma!r}")
+    dev = c.device
+    if dev.type == "cpu":
+        return _quantize(c, gamma).to(torch.uint8)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if c.numel() >= 2**31:
+        raise ValueError("at most 2**31 - 1 values per call")
+    from raweditor_tpu_torch.ops import _build
+
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        quant = quant_table(gamma, dev)[1]
+        out = torch.empty(c.shape, dtype=torch.uint8, device=dev)
+        code = lib.rtt_quant_sweep_launch(
+            quant.data_ptr(), c.data_ptr(), out.data_ptr(), c.numel(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, code, f"quantiser sweep ({gamma})")
+    return out

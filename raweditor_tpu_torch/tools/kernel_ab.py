@@ -10,7 +10,11 @@ each other on the card, in turns inside one process.
 Each ``--variant`` names a directory that holds the kernel sources and
 their headers (for an earlier commit:
 ``git archive <commit> raweditor_tpu_torch/csrc | tar -x -C build/parent``),
-optionally followed by ``nvcc`` defines. ``--cases`` picks the cases of
+optionally followed by ``nvcc`` defines. The develop launchers of a
+variant take the transfer's quantiser table on the device (the current
+interface, ``_build.SIGNATURES``; the table is derived once per transfer)
+or, in sources from before that interface, the transfer's code
+(``CODE_SIGNATURES``); ``takes_table`` reads which from ``develop.cu``. ``--cases`` picks the cases of
 ``CASES`` whose names start with one of the given prefixes (default: all).
 For every variant only the sources those cases launch are built, with the
 package's flags plus ``-Xptxas -v``, into a library of its own under
@@ -18,10 +22,12 @@ package's flags plus ``-Xptxas -v``, into a library of its own under
 ``ctypes`` and launched through the kernels' C interface on the shapes
 ``chip_smoke.py`` times:
 
-- B4 (Bayer grad) on a 4016x6016 frame and B7, B5, B6 (the generic-CFA
-  grad, nearest and smooth kernels on the X-Trans grid) on 4000x6000: one
-  frame to RGBA words and four frames to YCbCr 4:2:0 planes, sRGB transfer,
-  seeded 12-bit data;
+- B1/B2 (Bayer nearest, the 1/2.2 power transfer), B3 (bilinear and
+  Malvar) and B4 (Bayer grad) on a 4016x6016 frame and B7, B5, B6 (the
+  generic-CFA grad, nearest and smooth kernels on the X-Trans grid) on
+  4000x6000: one frame to RGBA words and four frames to YCbCr 4:2:0
+  planes, the sRGB transfer unless the case names another, seeded 12-bit
+  data;
 - B8 (finish extras) on seeded 24-bit words with alpha 255 at 4016x6016:
   one frame to RGBA words with all three flags on, with the stencils only,
   with the mixer only and in its pointwise form (mixer and grading, no
@@ -58,20 +64,39 @@ H, W = 4016, 6016
 XH, XW = 4000, 6000
 
 # The source that defines each launcher of the C interface.
-SOURCES = {"rtt_develop_grad_launch": "develop_grad.cu",
+SOURCES = {"rtt_develop_launch": "develop.cu",
+           "rtt_develop_grad_launch": "develop_grad.cu",
            "rtt_develop_grad_cfa_launch": "develop_grad_generic.cu",
            "rtt_develop_cfa_launch": "develop.cu",
            "rtt_extras_launch": "extras.cu"}
 # Mangled template arguments of the instantiations the RGBA cases launch,
-# per source: the sRGB transfer to words; for the extras every flag set.
-INSTANCES = {"develop_grad.cu": ("Li2ELb0E",),
-             "develop_grad_generic.cu": ("Li2ELb0E",),
-             "develop.cu": ("cfaILi2ELb0E",),
+# per source: output to words, and before the quantiser table the
+# transfer too (sRGB; the Bayer quad kernel's nearest: the power
+# transfer); for the extras every flag set.
+INSTANCES = {"develop_grad.cu": ("bandsILb0E", "Li2ELb0E"),
+             "develop_grad_generic.cu": ("bandsILb0E", "Li2ELb0E"),
+             "develop.cu": ("cfaILb0E", "quadsILb0ELi", "cfaILi2ELb0E",
+                            "quadsILi0ELb0ELi0E", "quadsILi2ELb0ELi1E",
+                            "quadsILi2ELb0ELi2E"),
              "extras.cu": ("ILb1ELb1ELb1ELb0E", "bandsILb1ELb1ELb0E")}
 # name: launcher, frames, output (0 words, 1 planes), then per kind the
-# demosaic (generic-CFA quad kernel: 0 nearest, 1 smooth) or the extras
-# flags (mixer, grading, stencils).
+# transfer (``gamma``, the C interface's code; default 2, sRGB), the
+# demosaic (Bayer quad kernel: 0 nearest, 1 bilinear, 2 Malvar;
+# generic-CFA quad kernel: 0 nearest, 1 smooth) or the extras flags
+# (mixer, grading, stencils).
 CASES = {
+    "B1_rgba": dict(launcher="rtt_develop_launch", frames=1, output=0,
+                    gamma=0, demosaic=0),
+    "B2_planes": dict(launcher="rtt_develop_launch", frames=4, output=1,
+                      gamma=0, demosaic=0),
+    "B3_bilinear_rgba": dict(launcher="rtt_develop_launch", frames=1,
+                             output=0, demosaic=1),
+    "B3_bilinear_planes": dict(launcher="rtt_develop_launch", frames=4,
+                               output=1, demosaic=1),
+    "B3_malvar_rgba": dict(launcher="rtt_develop_launch", frames=1, output=0,
+                           demosaic=2),
+    "B3_malvar_planes": dict(launcher="rtt_develop_launch", frames=4,
+                             output=1, demosaic=2),
     "B4_rgba": dict(launcher="rtt_develop_grad_launch", frames=1, output=0),
     "B4_planes": dict(launcher="rtt_develop_grad_launch", frames=4, output=1),
     "B7_rgba": dict(launcher="rtt_develop_grad_cfa_launch", frames=1,
@@ -97,6 +122,21 @@ CASES = {
     "B8_planes": dict(launcher="rtt_extras_launch", frames=4, output=1,
                       flags=(1, 1, 1)),
 }
+# The develop launchers' C signatures before they took the quantiser
+# table (the transfer's code in its place: 0 pow, 1 poly, 2 srgb,
+# 3 srgb_poly), for a variant built from an earlier commit.
+CODE_SIGNATURES = {
+    "rtt_develop_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
+    "rtt_develop_grad_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
+    "rtt_develop_cfa_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    + [ctypes.c_char_p, ctypes.c_void_p],
+    "rtt_develop_grad_cfa_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    + [ctypes.c_char_p, ctypes.c_void_p],
+}
+GAMMA_NAMES = ("pow", "poly", "srgb", "srgb_poly")
+
 # The extras cases' edit (every band-local extra, six mixer sliders, two
 # grading wheels) and the other three images of the planes batch.
 XEDIT = dict(sharpen=60.0, denoise=40.0, curve_shadows=30.0,
@@ -152,6 +192,26 @@ def build_all(variants, sources):
         so = os.path.join(OUT, f"{v['name']}.so")
         subprocess.run([nvcc, *flags, "-shared", *objs, "-o", so], check=True)
         v["so"] = so
+
+
+def takes_table(src_dir):
+    """Whether the develop launchers in ``src_dir`` take the quantiser
+    table (else the transfer's code, as before that interface)."""
+    text = open(os.path.join(src_dir, "develop.cu")).read()
+    head = text[text.index('extern "C" int rtt_develop_launch('):]
+    return "quant" in head[:head.index(")")]
+
+
+def declare(lib, launchers, table):
+    """``lib`` with the C signatures of ``launchers`` declared, those of
+    the code interface where the variant does not take the table."""
+    from raweditor_tpu_torch.ops import _build
+
+    _build.declare(lib, launchers)
+    if not table:
+        for name in set(launchers) & set(CODE_SIGNATURES):
+            getattr(lib, name).argtypes = CODE_SIGNATURES[name]
+    return lib
 
 
 def ptxas_summary(text, picks=("Li2E",)):
@@ -301,6 +361,7 @@ def make_inputs(case_names):
         scal = pack_params(params, wb, cm, matrix_transpose=False,
                            white_levels=[4095.0, 4095.0, 4000.0, 16383.0],
                            black_levels=[150.0, 150.0, 64.0, 512.0]).cuda()
+        inputs["rtt_develop_launch"] = (batch, scal)
         inputs["rtt_develop_grad_launch"] = (batch, scal)
         xt = batch[:, :XH, :XW].contiguous()
         for name in SOURCES:
@@ -323,27 +384,40 @@ def make_inputs(case_names):
     return inputs
 
 
-def runner(lib, case, inputs, stream):
-    """(launch closure, outputs) of one case on one variant's library."""
+def runner(lib, case, inputs, stream, table=True):
+    """(launch closure, outputs) of one case on one variant's library;
+    ``table``: the variant's develop launchers take the quantiser table."""
+    from raweditor_tpu_torch.ops import fused_develop as fused
     from raweditor_tpu_torch.ops.extras import radial_consts
 
     data, side = inputs[case["launcher"]]
     n, output = case["frames"], case["output"]
     data, side = data[:n].contiguous(), side[:n].contiguous()
     _, h, w = data.shape
+    dev = data.device
     if output == 0:
-        out0 = torch.empty((n, h, w), dtype=torch.uint32, device="cuda")
+        out0 = torch.empty((n, h, w), dtype=torch.uint32, device=dev)
         out1 = None
     else:
-        out0 = torch.empty((n, h, w), dtype=torch.uint8, device="cuda")
-        out1 = torch.empty((n, h // 2, w), dtype=torch.uint8, device="cuda")
+        out0 = torch.empty((n, h, w), dtype=torch.uint8, device=dev)
+        out1 = torch.empty((n, h // 2, w), dtype=torch.uint8, device=dev)
     name = case["launcher"]
-    if name == "rtt_develop_grad_launch":
-        tail = (0, 0, 2, output, stream)
+    gamma = case.get("gamma", 2)
+    if name != "rtt_extras_launch":
+        quant = fused.quant_table(GAMMA_NAMES[gamma], dev)[1].data_ptr()
+    if name == "rtt_develop_launch":
+        tail = ((0, 0, output, case["demosaic"], quant, stream) if table
+                else (0, 0, gamma, output, case["demosaic"], stream))
+    elif name == "rtt_develop_grad_launch":
+        tail = ((0, 0, output, quant, stream) if table
+                else (0, 0, gamma, output, stream))
     elif name == "rtt_develop_grad_cfa_launch":
-        tail = (2, output, inputs["tables"], stream)
+        tail = ((output, inputs["tables"], quant, stream) if table
+                else (gamma, output, inputs["tables"], stream))
     elif name == "rtt_develop_cfa_launch":
-        tail = (2, output, case["demosaic"], inputs["tables"], stream)
+        tail = ((output, case["demosaic"], inputs["tables"], quant, stream)
+                if table else (gamma, output, case["demosaic"],
+                               inputs["tables"], stream))
     else:
         consts = [float(v) for v in radial_consts(h, w)]
         tail = (*case["flags"], output, *consts, stream)
@@ -363,8 +437,6 @@ def main(argv=None):
         return 2
     args, variants = parse_args(argv)
     sass_names = set(args.sass)
-    from raweditor_tpu_torch.ops import _build
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -390,15 +462,16 @@ def main(argv=None):
                           f"{json.dumps(dict(sorted(c.items())))}")
         sys.stdout.flush()
     for v in variants:
-        v["lib"] = _build.declare(ctypes.CDLL(v["so"]), launchers)
+        v["table"] = takes_table(os.path.join(ROOT, v["dir"]))
+        v["lib"] = declare(ctypes.CDLL(v["so"]), launchers, v["table"])
 
     inputs = make_inputs(args.cases)
     stream = torch.cuda.current_stream().cuda_stream
     rounds, reps = args.rounds, args.reps
     table = {}
     for cname in args.cases:
-        runs = {v["name"]: runner(v["lib"], CASES[cname], inputs, stream)
-                for v in variants}
+        runs = {v["name"]: runner(v["lib"], CASES[cname], inputs, stream,
+                                  v["table"]) for v in variants}
         ms = {v["name"]: [] for v in variants}
         order = [v["name"] for v in variants]
         for r in range(rounds):

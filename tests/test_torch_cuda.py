@@ -68,8 +68,8 @@ def test_rgba_kernel_matches_plain(cuda, gamma, shape, rng):
         want = fd.develop_rgba_folded_plain(mos, scal, phase, gamma)
         torch.cuda.synchronize()
         assert got.dtype == torch.uint32 and got.shape == mos.shape
-        assert _words_diff(got, want) <= 1
-        # and against the plain version on the CPU
+        assert _words_diff(got, want) == 0
+        # and against the plain version on the CPU (an ulp apart: 1 LSB)
         cpu = fd.fused_batch_develop_rgba(mos.cpu(), scal.cpu(), phase, gamma)
         assert _words_diff(got, cpu) <= 1
 
@@ -85,8 +85,7 @@ def test_ycbcr420_kernel_matches_plain(cuda, gamma, rng):
                                           output="ycbcr420")
     torch.cuda.synchronize()
     assert y.shape == (3, 48, 70) and cbcr.shape == (3, 24, 70)
-    for g, w in ((y, wy), (cbcr, wc)):
-        assert int((g.int() - w.int()).abs().max()) <= 1
+    assert torch.equal(y, wy) and torch.equal(cbcr, wc)
 
 
 def test_kernel_rejects_bad_inputs(cuda, rng):
@@ -144,7 +143,7 @@ def test_accurate_rgba_kernel_matches_plain(cuda, demosaic, gamma, shape,
                                             demosaic=demosaic)
         torch.cuda.synchronize()
         assert got.dtype == torch.uint32 and got.shape == mos.shape
-        assert _words_diff(got, want) <= 1
+        assert _words_diff(got, want) == 0
         cpu = fd.fused_batch_develop_rgba(mos.cpu(), scal.cpu(), phase, gamma,
                                           demosaic=demosaic)
         assert _words_diff(got, cpu) <= 1
@@ -166,8 +165,7 @@ def test_accurate_ycbcr420_kernel_matches_plain(cuda, demosaic, gamma, rng):
                                               demosaic=demosaic)
         torch.cuda.synchronize()
         assert y.shape == (3, 48, 70) and cbcr.shape == (3, 24, 70)
-        for g, w in ((y, wy), (cbcr, wc)):
-            assert int((g.int() - w.int()).abs().max()) <= 1
+        assert torch.equal(y, wy) and torch.equal(cbcr, wc), phase
 
 
 def test_malvar_floor_on_card(cuda, rng):
@@ -670,3 +668,100 @@ def test_cfa_quads_planes_equal_plain_at_strip_and_band_edges(cuda, demosaic,
         h, w = shape
         assert y.shape == (3, h, w) and cbcr.shape == (3, h // 2, w)
         assert torch.equal(y, wy) and torch.equal(cbcr, wc), pattern
+
+
+# -- the Bayer quad kernel's tile (B1-B3) ----------------------------------------
+
+# A block of the Bayer quad kernel covers tiles of 128 columns and 16 rows,
+# four tiles down (64 rows); a thread four columns (two quads) of two
+# rows. Sizes one below, at and one above each edge and their doubles,
+# widths that are 2 modulo four (a thread whose second quad lies past the
+# edge), frames narrower or shorter than one tile; always a batch of three
+# with per-image scalars.
+BAYER_EDGE_RGBA = [(15, 127), (16, 128), (17, 129), (31, 255), (32, 256),
+                   (33, 257), (5, 3), (16, 257), (33, 128), (17, 1), (1, 129),
+                   (32, 126), (15, 130), (3, 6), (63, 128), (64, 129),
+                   (65, 127), (127, 130), (128, 6), (129, 257)]
+BAYER_EDGE_PLANES = [(2, 2), (14, 126), (16, 128), (18, 130), (32, 256),
+                     (34, 258), (62, 126), (64, 128), (66, 130), (128, 256)]
+BAYER_QUADS = ("nearest", "bilinear", "malvar")
+
+
+@pytest.mark.parametrize("demosaic", BAYER_QUADS)
+@pytest.mark.parametrize("gamma", sorted(fd.GAMMAS))
+@pytest.mark.parametrize("shape", BAYER_EDGE_RGBA,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_bayer_quads_rgba_equal_plain_at_tile_edges(cuda, demosaic, gamma,
+                                                    shape, rng):
+    """0 LSB at the four phases: the fast and the clamped window loads,
+    the word stores and the masked ones, the ragged quads."""
+    mos, scal = _inputs(rng, 3, *shape, cuda)
+    key = fd.launch_key("rgba", demosaic)
+    for phase in PHASES:
+        kw = dict(cfa_phase=phase, gamma=gamma, demosaic=demosaic)
+        before = fd.LAUNCHES[key]
+        got = fd.fused_batch_develop_rgba(mos, scal, **kw)
+        assert fd.LAUNCHES[key] == before + 1
+        want = fd.develop_rgba_folded_plain(mos, scal, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == mos.shape
+        mx, share = _share(got, want)
+        assert mx == 0, f"{phase}: max {mx} LSB, differing {share:.2e}"
+
+
+@pytest.mark.parametrize("demosaic", BAYER_QUADS)
+@pytest.mark.parametrize("gamma", sorted(fd.GAMMAS))
+@pytest.mark.parametrize("shape", BAYER_EDGE_PLANES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_bayer_quads_planes_equal_plain_at_tile_edges(cuda, demosaic, gamma,
+                                                      shape, rng):
+    mos, scal = _inputs(rng, 3, *shape, cuda)
+    key = fd.launch_key("ycbcr420", demosaic)
+    for phase in PHASES:
+        kw = dict(cfa_phase=phase, gamma=gamma, output="ycbcr420",
+                  demosaic=demosaic)
+        before = fd.LAUNCHES[key]
+        y, cbcr = fd.fused_batch_develop_rgba(mos, scal, **kw)
+        assert fd.LAUNCHES[key] == before + 1
+        wy, wc = fd.develop_rgba_folded_plain(mos, scal, **kw)
+        torch.cuda.synchronize()
+        h, w = shape
+        assert y.shape == (3, h, w) and cbcr.shape == (3, h // 2, w)
+        assert torch.equal(y, wy) and torch.equal(cbcr, wc), phase
+
+
+# -- the develop kernels' table quantiser ------------------------------------------
+
+ONE_BITS = 0x3F800000  # f32 1.0
+
+
+@pytest.mark.parametrize("gamma", sorted(fd.GAMMAS))
+def test_quant_table_equals_plain_on_the_card(cuda, gamma):
+    """The table derived on the card against the plain quantiser there:
+    its thresholds are where the plain version steps; the lookup equals it
+    on a seeded tenth of the f32 values in [0, 1], within 4 ulp of every
+    threshold, and at -0.0, negatives, denormals, values above 1 and
+    +-inf (chip_smoke.py sweeps every value of [0, 1])."""
+    table, _ = fd.quant_table(gamma, cuda)
+    t = torch.from_numpy(table.next[:255, 0].astype(np.int32)).to(cuda)
+    finite = t[t < 2**31 - 1]
+    k = torch.arange(1, finite.numel() + 1, device=cuda)
+    q = fd._quantize(finite.view(torch.float32), gamma)
+    q_below = fd._quantize((finite - 1).view(torch.float32), gamma)
+    assert bool((q >= k).all()) and bool((q_below < k).all())
+    gen = torch.Generator(device=cuda).manual_seed(20261016)
+    tenth = torch.randint(0, ONE_BITS + 1, (ONE_BITS // 10,), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    near = (finite[:, None] + torch.arange(-4, 5, device=cuda,
+                                           dtype=torch.int32)).reshape(-1)
+    special = torch.tensor(
+        [-0.0, -1.0, -1e-30, -1e-42, -float("inf"), 1e-45, 1e-40,
+         1.1754942e-38, 1.0, 1.0000001, 1.5, 255.0, 3.4e38, float("inf")],
+        device=cuda).view(torch.int32)
+    for bits in (tenth, near, special):
+        c = bits.view(torch.float32)
+        got = fd.fused_quantize(c, gamma)
+        want = fd._quantize(c, gamma).to(torch.uint8)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        assert bad == 0, f"{bad} of {c.numel()} values differ"

@@ -22,7 +22,6 @@ from raweditor_tpu.ops.pallas_develop import (
 )
 from raweditor_tpu.params import EditParams as JaxParams
 from raweditor_tpu.parallel.batch import pack_params as jax_pack_params
-from raweditor_tpu_torch.color import INV_22, INV_24
 from raweditor_tpu_torch.ops import _build
 from raweditor_tpu_torch.ops import fused_develop as fd
 from raweditor_tpu_torch.ops.develop import rgba_view
@@ -207,21 +206,21 @@ def test_cpu_tensors_never_launch(rng, monkeypatch):
 
 
 def test_kernel_constants_match_python():
-    """The hex-float literals of the kernels' shared tail
-    (csrc/develop_common.cuh) are the f32 polynomial and exponent
-    constants of the plain version."""
+    """The constants of the kernels' shared tail (csrc/develop_common.cuh)
+    are those of the table the plain side packs: the bucket shift, the
+    bucket count and the size of ``struct QuantTable``."""
     src = (Path(_build.CSRC) / "develop_common.cuh").read_text()
 
-    def table(name):
-        body = re.search(name + r"\[7\] = \{([^}]*)\}", src).group(1)
-        return [float.fromhex(t.strip().rstrip("f")) for t in body.split(",")]
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    assert table("GAMMA_POLY255") == [float(k) for k in fd.GAMMA_POLY255]
-    assert table("SRGB_POLY255") == [float(k) for k in fd.SRGB_POLY255]
-    for name, value in (("INV_22", INV_22), ("INV_24", INV_24),
-                        ("SRGB_LIN255", fd.SRGB_LIN255)):
-        lit = re.search(rf"{name} = ([^;]*);", src).group(1)
-        assert float.fromhex(lit.rstrip("f")) == value, name
+    assert const("kQuantShift") == fd.QUANT_SHIFT
+    assert const("kQuantBuckets") == fd.QUANT_BUCKETS
+    size = int(re.search(r"sizeof\(QuantTable\) == (\d+)", src).group(1))
+    assert size == fd._QUANT_DTYPE.itemsize
+    # the lookup compares against next[k].x and next[k].y: two thresholds
+    assert "(bits >= nx.x) + (bits >= nx.y)" in src
+    assert fd.QUANT_COMPARES == 2
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -6,9 +6,12 @@ import importlib.util
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 from raweditor_tpu_torch.ops import _build
+from raweditor_tpu_torch.ops import fused_develop as fd
 from raweditor_tpu_torch.tools import kernel_ab
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -171,3 +174,103 @@ def test_edge_frames_follow_the_kernels_strip_and_band(kernel):
         assert {band - 2, band, band + 2, 2 * band} <= {h for h, _ in planes}
         assert {strip - 2, strip, strip + 2, 2 * strip} <= {
             w for _, w in planes}
+
+
+def test_edge_frames_follow_the_bayer_quad_tile():
+    """``chip_smoke.py`` and the card tests compare the Bayer quad kernel
+    with its plain version on frames around its tile, whose width and
+    height must follow the constants in ``develop.cu``, and at every width
+    modulo a thread's columns."""
+    env = _constants("band_march.cuh", "develop.cu")
+    tile_w, tile_h = env["kBayerTileW"], env["kBayerTileH"]
+    block_h, cols = env["kBayerBlockH"], env["kThreadCols"]
+    assert tile_w == env["kBlockX"] * cols and tile_h == env["kBlockY"] * 2
+    assert block_h == tile_h * env["kTileRows"]
+    smoke = _load("chip_smoke_for_quads", ROOT / "chip_smoke.py")
+    cards = _load("cuda_tests_for_quads", ROOT / "tests" / "test_torch_cuda.py")
+    assert (smoke.BAYER_TILE_W, smoke.BAYER_TILE_H, smoke.BAYER_BLOCK_H,
+            smoke.BAYER_THREAD_COLS) == (tile_w, tile_h, block_h, cols)
+    for widths, heights in (
+            (smoke.BAYER_EDGE_W, smoke.BAYER_EDGE_H),
+            ({w for _, w in cards.BAYER_EDGE_RGBA},
+             {h for h, _ in cards.BAYER_EDGE_RGBA})):
+        assert _edges(tile_w) <= set(widths)
+        assert _edges(tile_h) | _edges(block_h) <= set(heights)
+        assert {w % cols for w in widths} == set(range(cols))
+        assert 1 in widths and 1 in heights
+    for planes in (smoke.BAYER_EDGE_EVEN, cards.BAYER_EDGE_PLANES):
+        assert all(h % 2 == 0 and w % 2 == 0 for h, w in planes)
+        for unit in (tile_h, block_h):
+            assert {unit - 2, unit, unit + 2, 2 * unit} <= {
+                h for h, _ in planes}
+        assert {tile_w - 2, tile_w, tile_w + 2, 2 * tile_w} <= {
+            w for _, w in planes}
+
+
+# -- the launchers' two interfaces ----------------------------------------------
+
+class _Recorder:
+    """A stand-in library whose launchers record their arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def launch(*args):
+            self.calls.append((name, args))
+            return 0
+        return launch
+
+
+def _cpu_inputs(h=8, w=12):
+    rng = np.random.default_rng(5)
+    mos = torch.from_numpy(rng.integers(0, 4096, (4, h, w), dtype=np.uint16))
+    scal = torch.zeros(4, fd.N_SCALARS)
+    words = torch.zeros(4, h, w, dtype=torch.int32).view(torch.uint32)
+    inputs = {name: (mos, scal) for name in kernel_ab.SOURCES}
+    inputs["rtt_extras_launch"] = (words, torch.zeros(4, 64))
+    inputs["tables"] = fd.cfa_tables(fd.cfa_generic.XTRANS_PATTERN).packed
+    return inputs
+
+
+@pytest.mark.parametrize("table", [True, False], ids=["table", "code"])
+@pytest.mark.parametrize("case", sorted(kernel_ab.CASES))
+def test_every_case_passes_its_launchers_arguments(case, table):
+    """The arguments a case passes match the launcher's C signature: the
+    current one (``_build.SIGNATURES``, the quantiser table) or, for a
+    variant from before the table, the transfer's code instead."""
+    lib = _Recorder()
+    go, outs = kernel_ab.runner(lib, kernel_ab.CASES[case], _cpu_inputs(),
+                                0, table)
+    go()
+    (name, args), = lib.calls
+    spec = kernel_ab.CASES[case]
+    assert name == spec["launcher"]
+    sig = (_build.SIGNATURES[name] if table or name == "rtt_extras_launch"
+           else kernel_ab.CODE_SIGNATURES[name])
+    assert len(args) == len(sig)
+    assert args[4] == spec["frames"]
+    assert outs[0].shape[0] == spec["frames"]
+    if name != "rtt_extras_launch":
+        code = spec.get("gamma", 2)
+        if table:  # the table of the case's transfer, on the data's device
+            want = fd.quant_table(kernel_ab.GAMMA_NAMES[code],
+                                  outs[0].device)[1].data_ptr()
+            assert args[-2] == want
+        else:  # the code after (n, h, w) and, on a Bayer phase, (py, px)
+            assert args[9 if "cfa" not in name else 7] == code
+
+
+def test_takes_table_reads_the_launcher(tmp_path):
+    assert kernel_ab.takes_table(_build.CSRC)
+    (tmp_path / "develop.cu").write_text(
+        'extern "C" int rtt_develop_launch(const void* mosaics, int gamma,\n'
+        '    int output, void* stream) {\n  const void* quant;\n}\n')
+    assert not kernel_ab.takes_table(tmp_path)
+
+
+def test_code_signatures_differ_from_the_table_ones_by_one_swap():
+    """Before the table each develop launcher took an int transfer code
+    where it now takes the table pointer: the same arity."""
+    for name, old in kernel_ab.CODE_SIGNATURES.items():
+        assert len(old) == len(_build.SIGNATURES[name])
