@@ -29,7 +29,18 @@ before it and read just after:
   transfer and its polynomial form: slider ticks, the histogram,
   ``full_rgba_device``, ``jpeg_planes`` and ``export(".jpg")``, once
   more with the extras edit (the generic-CFA develop kernel, then the
-  extras kernel), and a batch of four frames to JPEG planes per tier.
+  extras kernel), and a batch of four frames to JPEG planes per tier;
+- the file path: the port's writers make a 4016x6016 lossless-JPEG DNG
+  and a 4000x6000 X-Trans RAF, ``Library.import_folder`` imports them,
+  ``DevelopEngine.open`` decodes each (native codec) for three demosaics
+  (DNG nearest, Malvar, grad; RAF nearest, smooth, grad), and
+  ``full_rgba_device`` develops it with the slider edit and the extras
+  edit: each call must launch its own kernel once and no other (B8 too
+  with extras), and every result must be bit-equal to an engine built
+  from the written fields in memory; the opened DNG is exported to JPEG
+  with its make and model in the EXIF, and the extras edit goes through
+  the catalog and back. It prints the write, decode, open, import and
+  first-develop times (host clock, medians of three).
 
 Then it holds every kernel against its plain PyTorch version (at the four
 Bayer phases and on an odd 4015x6013 frame; the extras kernel for every
@@ -50,8 +61,9 @@ values), values above 1, +inf, -0.0, negatives and denormals, and no
 value may differ. It compares small frames on the card with the CPU,
 times each kernel beside its plain version with CUDA events, and prints:
 
-- a line ``{"kernels": [...]}`` with each kernel's launches on its path,
-  its largest difference from the plain version, both times, and its
+- a line ``{"kernels": [...]}`` with each kernel's launches on its path
+  (and on the file path), its largest difference from the plain
+  version, both times, and its
   bound (the larger of bytes over 3.35 TB/s and f32 operations over
   67 TFLOP/s, the H100 SXM data-sheet rates);
 - the card's name and power limit as nvidia-smi reports them;
@@ -342,6 +354,210 @@ def reset(launches):
         launches[k] = 0
 
 
+def host_once(fn):
+    """(result, host-clock ms) of ``fn`` with a device sync before and
+    after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def exif_of(jpeg):
+    """The EXIF payload of a JPEG's first segment (APP1 right after SOI,
+    where the exporter splices it), or b"" when there is none."""
+    if jpeg[:4] != b"\xff\xd8\xff\xe1":
+        return b""
+    n = int.from_bytes(jpeg[4:6], "big")
+    body = jpeg[6: 4 + n]
+    return body if body.startswith(b"Exif\0\0") else b""
+
+
+def file_path(tmpdir, mosaic, edit, xedit, smi):
+    """The path from a file on disk: the port's writers make a 4016x6016
+    12-bit lossless-JPEG DNG (D3300 matrix, black 150, white 4095) and a
+    4000x6000 X-Trans RAF from the seeded mosaic; ``Library`` imports the
+    folder (a second import skips both); ``DevelopEngine.open`` each file
+    with the native codec for three demosaics; ``full_rgba_device`` with
+    the slider edit and the extras edit; ``export(".jpg")`` of the DNG
+    with its EXIF; the extras edit saved to and loaded from the catalog.
+
+    The launch counts are reset just before and read just after the path;
+    each develop must raise exactly its kernel's count by one (B8 too with
+    the extras edit). Then, outside the counted path: every output is held
+    bit-equal to an engine built from the written fields in memory. Returns
+    (the path's launch counts, its host times)."""
+    from raweditor_tpu_torch import (DevelopEngine, Library, RawImage,
+                                     decode_raw)
+    from raweditor_tpu_torch.native import get_rawkit
+    from raweditor_tpu_torch.ops import fused_develop as fused
+    from raweditor_tpu_torch.ops import fused_extras as fx
+    from raweditor_tpu_torch.raw import raf, synth
+
+    rk = get_rawkit()
+    check(rk is not None, "no native codec: the timed decode would be the "
+          "pure-Python one")
+    xtrans = fused.cfa_generic.XTRANS_PATTERN
+    files = os.path.join(tmpdir, "files")
+    os.makedirs(files)
+    gray = np.full((16, 16), 128, np.uint8)
+    chroma = np.full((8, 8), 128, np.uint8)
+    preview = rk.encode_jpeg_420(gray, chroma, chroma, 16, 16, 90, False, 0,
+                                 0)
+    # What is written, as the decoder must read it back: WB from the
+    # as-shot neutral (0.5, 1, 0.625) and the GRBG record (256, 512, 384,
+    # 256) are exact in both containers; the bare RAF has no levels or
+    # matrix, so its white is the mosaic's maximum.
+    xt_mosaic = np.ascontiguousarray(mosaic[:XH, :XW])
+    written = {
+        os.path.join(files, "DSC_0001.dng"): dict(
+            mosaic=mosaic, wb_multipliers=[2.0, 1.0, 1.6, 1.0],
+            xyz_to_cam=D3300_XYZ_TO_CAM, black_level=150.0,
+            white_level=4095.0, cfa_pattern="RGGB",
+            camera_make="NIKON CORPORATION", camera_model="NIKON D3300"),
+        os.path.join(files, "DSCF0001.RAF"): dict(
+            mosaic=xt_mosaic, wb_multipliers=[2.0, 1.0, 1.5, 1.0],
+            xyz_to_cam=np.eye(3, dtype=np.float32), black_level=0.0,
+            white_level=float(xt_mosaic.max()), cfa_pattern=xtrans,
+            camera_make="FUJIFILM", camera_model="X-T2"),
+    }
+    dng_path, raf_path = written
+    times = {}
+    _, times["write_dng_ms"] = host_once(lambda: synth.write_synthetic_raw(
+        dng_path, mosaic, bpp=12, compression="ljpeg",
+        wb_neutral=(0.5, 1.0, 0.625), xyz_to_cam=D3300_XYZ_TO_CAM,
+        black_level=150, white_level=4095, make="NIKON CORPORATION",
+        model="NIKON D3300", preview_jpeg=preview))
+    data, times["write_raf_ms"] = host_once(lambda: raf.write_raf(
+        xt_mosaic, model="X-T2", wb_grbg=(256, 512, 384, 256)))
+    with open(raf_path, "wb") as f:
+        f.write(data)
+    del data
+    sizes = {os.path.basename(p): os.path.getsize(p) for p in written}
+
+    def same_frame(raw, path):
+        want = written[path]
+        for name, value in want.items():
+            got = getattr(raw, name)
+            if isinstance(value, (np.ndarray, list)):
+                value = np.asarray(value, np.asarray(got).dtype)
+                check(np.array_equal(got, value), f"{path}: decoded {name} "
+                      "differs from the one written")
+            else:
+                check(got == value, f"{path}: decoded {name} {got!r}, "
+                      f"written {value!r}")
+
+    for path in written:
+        raws = [host_once(lambda: decode_raw(path)) for _ in range(3)]
+        same_frame(raws[0][0], path)
+        times[f"decode_{path[-3:].lower()}_ms"] = statistics.median(
+            ms for _, ms in raws)
+        del raws
+    def import_into(db):
+        with Library(os.path.join(tmpdir, db)) as timed:
+            return timed.import_folder(files)
+
+    imports = [host_once(lambda: import_into(f"catalog_t{i}.db"))
+               for i in range(3)]
+    check(all(r == {"imported": 2, "skipped": 0} for r, _ in imports),
+          f"timed imports {[r for r, _ in imports]}")
+    times["import_folder_ms"] = statistics.median(ms for _, ms in imports)
+
+    def launching(want, fn, *args):
+        """``fn(*args)``, which must add one launch to each key of
+        ``want`` and to no other key."""
+        before = {**fused.LAUNCHES, **fx.LAUNCHES}
+        out = fn(*args)
+        moved = {k: v - before[k] for k, v in {**fused.LAUNCHES,
+                                               **fx.LAUNCHES}.items()
+                 if v != before[k]}
+        check(moved == {k: 1 for k in want},
+              f"{fn.__name__} launched {moved}, expected one each of "
+              f"{want}")
+        return out
+
+    methods = {dng_path: ("nearest", "malvar", "grad"),
+               raf_path: ("nearest", "smooth", "grad")}
+    out = {}
+    # -- the counted path: counts reset just before, read just after ------
+    reset(fused.LAUNCHES)
+    reset(fx.LAUNCHES)
+    t0 = time.perf_counter()
+    lib = Library(os.path.join(tmpdir, "catalog.db"))
+    first = lib.import_folder(files)
+    second = lib.import_folder(files)
+    check(first == {"imported": 2, "skipped": 0}
+          and second == {"imported": 0, "skipped": 2},
+          f"imports {first}, then {second}")
+    open_ms, first_ms = {p: [] for p in written}, {p: [] for p in written}
+    for path, ms in methods.items():
+        pattern = xtrans if path == raf_path else None
+        for m in ms:
+            eng, t = host_once(lambda: DevelopEngine.open(
+                path, mode="accurate", use_kernel=True, demosaic_method=m))
+            open_ms[path].append(t)
+            same_frame(eng.raw, path)
+            check(eng.xtrans_pattern == pattern, f"{path}: routed as "
+                  f"{eng.xtrans_pattern!r}")
+            key = fused.launch_key("rgba", m, pattern)
+            words, t = host_once(lambda: launching(
+                [key], eng.full_rgba_device, edit))
+            first_ms[path].append(t)
+            x_words = launching([key, "extras_rgba"], eng.full_rgba_device,
+                                xedit)
+            out[path, m] = (words, x_words)
+            if (path, m) == (dng_path, "nearest"):
+                kept = eng
+            del eng
+    jpg = launching(["develop_ycbcr420"], kept.export,
+                    os.path.join(tmpdir, "opened.jpg"), edit)
+    with open(jpg, "rb") as f:
+        jpeg = f.read()
+    image_id = next(i.id for i in lib.get_all_images() if i.path == dng_path)
+    lib.save_edit_params(image_id, xedit)
+    lib.close()
+    with Library(os.path.join(tmpdir, "catalog.db")) as again:
+        loaded = again.load_edit_params(image_id)
+    loaded_words = launching(["develop_rgba", "extras_rgba"],
+                             kept.full_rgba_device, loaded)
+    torch.cuda.synchronize()
+    path_launches = {k: v for k, v in {**fused.LAUNCHES,
+                                       **fx.LAUNCHES}.items() if v}
+    log(f"file path: {time.perf_counter() - t0:.2f} s, launches "
+        f"{path_launches}; files {sizes} bytes")
+
+    # -- checks outside the counted path ----------------------------------
+    exif = exif_of(jpeg)
+    check(jpeg[-2:] == b"\xff\xd9" and len(jpeg) > mosaic.size // 4
+          and b"NIKON CORPORATION\0" in exif and b"NIKON D3300\0" in exif,
+          f"export of the opened DNG: {len(jpeg)} bytes, EXIF {exif[:64]!r}")
+    check(loaded == xedit, "the edit loaded from the catalog differs")
+    check(torch.equal(loaded_words, out[dng_path, "nearest"][1]),
+          "the loaded edit develops to other words")
+    for (path, m), (words, x_words) in out.items():
+        fields = {k: v for k, v in written[path].items()
+                  if not k.startswith("camera_")}
+        mem = DevelopEngine(RawImage.from_fields(fields), mode="accurate",
+                            use_kernel=True, demosaic_method=m)
+        check(torch.equal(words, mem.full_rgba_device(edit))
+              and torch.equal(x_words, mem.full_rgba_device(xedit)),
+              f"{os.path.basename(path)} {m}: opened frame develops unlike "
+              "the same fields in memory")
+        del mem
+    del out, loaded_words
+    torch.cuda.empty_cache()
+    for path in written:
+        ext = path[-3:].lower()
+        times[f"open_{ext}_ms"] = statistics.median(open_ms[path])
+        times[f"first_full_rgba_{ext}_ms"] = statistics.median(first_ms[path])
+    log("file path: six opens bit-equal to the same fields in memory, with "
+        "and without extras; export EXIF make/model present; edit "
+        f"round-tripped; times (host clock, median of 3, device synced): "
+        f"{json.dumps(times)} [{smi}]")
+    return path_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -630,6 +846,15 @@ def main():
     check(xt_fx_launches == {"extras_rgba": len(XT_TIERS),
                              "extras_ycbcr420": len(XT_TIERS)},
           f"X-Trans extras launches {xt_fx_launches}")
+
+    # -- the file path (counts reset and read inside) ---------------------
+    file_launches = file_path(tmpdir, mosaic, edit, xedit, smi)
+    file_keys = ([fused.launch_key("rgba", m) for m in ("nearest", "malvar",
+                                                       "grad")]
+                 + [fused.launch_key("rgba", t, xtrans) for t in XT_TIERS]
+                 + ["develop_ycbcr420", "extras_rgba"])
+    for k in file_keys:
+        check(file_launches.get(k, 0) > 0, f"file path: {k} never launched")
 
     # -- outputs ----------------------------------------------------------
     check(tuple(prev.shape) == (854, 1280, 3) and prev.dtype == torch.uint8,
@@ -1367,7 +1592,8 @@ def main():
             "plain_ms": times[key]["plain_ms"],
             "bound_ms": times[key]["bound_ms"],
             "bound_by": times[key]["bound_by"], "library_ms": None,
-            "frames": times[key]["frames"]})
+            "frames": times[key]["frames"],
+            "file_path_launches": file_launches.get(key, 0)})
     for key in x_timed:
         kernels.append({
             "name": key, "route": "cuda", "source": SRC["extras"],
@@ -1376,7 +1602,8 @@ def main():
             "ms": times[key]["ms"], "plain_ms": times[key]["plain_ms"],
             "bound_ms": times[key]["bound_ms"],
             "bound_by": times[key]["bound_by"], "library_ms": None,
-            "frames": times[key]["frames"]})
+            "frames": times[key]["frames"],
+            "file_path_launches": file_launches.get(key, 0)})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
         "build included")
     print(json.dumps({"kernels": kernels}))

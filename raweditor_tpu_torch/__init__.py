@@ -25,8 +25,17 @@ generic-CFA nearest and smooth ones, ``csrc/develop_grad.cu`` and
 X-Trans frame's pattern as ``pattern``). The CPU tests run the kernels'
 plain versions (a wrapper runs them for CPU tensors only); the kernels
 themselves run on the card (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
+
+From a file on disk: ``decode_raw`` (``raw/decode.py`` and the per-maker
+decoders under ``raw/``), ``DevelopEngine.open(path)`` on top of it, the
+SQLite catalog ``Library`` (``catalog/``) and XMP sidecars (``xmp.py``).
+These host-side modules, and the writers under ``raw/`` that make test
+files, are copies of the JAX package's jax-free modules with the package
+name rewritten (``tests/test_torch_source_guard.py`` holds each copy
+equal to its source).
 """
 
+from raweditor_tpu_torch.catalog import Library
 from raweditor_tpu_torch.color import cam_to_srgb_matrix
 from raweditor_tpu_torch.ops.demosaic import (
     DEMOSAIC_METHODS,
@@ -55,6 +64,7 @@ from raweditor_tpu_torch.ops.fused_develop import (
 )
 from raweditor_tpu_torch.params import EditParams
 from raweditor_tpu_torch.pipeline.engine import DevelopEngine
+from raweditor_tpu_torch.raw.decode import RawDecodeError, decode_raw
 from raweditor_tpu_torch.raw.types import RawImage
 from raweditor_tpu_torch.utils.device import resolve_device
 
@@ -63,8 +73,11 @@ __all__ = [
     "DevelopEngine",
     "EditParams",
     "LAUNCHES",
+    "Library",
+    "RawDecodeError",
     "RawImage",
     "cam_to_srgb_matrix",
+    "decode_raw",
     "demosaic",
     "demosaic_bilinear",
     "demosaic_malvar",

@@ -54,7 +54,12 @@ point, routed as the JAX engine routes them:
   ``use_kernel`` (the develop kernels never compute it, as in the JAX
   engine); the extras post-pass after it is still the kernel.
 
-Not ported yet: ``open(path)`` (RAW decode), LinearRaw frames, CFA
+``DevelopEngine.open(path, mode, **kwargs)`` decodes a RAW file
+(``raw/decode.decode_raw``) and builds the engine on it; ``device`` and
+the other keywords go to the constructor, so it runs on the card unless
+the caller asks for the CPU.
+
+Not ported yet: LinearRaw frames, CFA
 patterns other than the four Bayer phases and 36-letter grids, clarity, dehaze, grain, local adjustments, highlight recovery
 (each raises ``NotImplementedError`` naming it), wide-gamut output, the
 pipelined tick, tiers, TIFF16 and geometry in exports.
@@ -63,7 +68,6 @@ pipelined tick, tiers, TIFF16 and geometry in exports.
 from __future__ import annotations
 
 import os
-import threading
 from typing import Tuple
 
 import numpy as np
@@ -79,27 +83,12 @@ from raweditor_tpu_torch.ops.demosaic import (CFA_PHASES, DEMOSAIC_METHODS,
                                               phase_of)
 from raweditor_tpu_torch.ops.sampling import histogram_shape, preview_shape
 from raweditor_tpu_torch.params import EditParams
+from raweditor_tpu_torch.pipeline.export import _atomic_write
 from raweditor_tpu_torch.raw.types import RawImage
 from raweditor_tpu_torch.utils.device import resolve_device
 
 MAX_PREVIEW_WIDTH = 1280
 HISTOGRAM_WIDTH = 128
-
-
-def _atomic_write(path: str, data: bytes) -> None:
-    """Write through a temporary name and a rename, so an interrupted
-    export leaves no partial file. The name carries the process and the
-    thread, so two writers of one path do not collide; the parent
-    directory is made."""
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    try:
-        with open(tmp, "wb") as f:
-            f.write(data)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
 
 
 class DevelopEngine:
@@ -142,9 +131,12 @@ class DevelopEngine:
             raw.width, raw.height, histogram_width)
         # Per-CFA-site black levels are folded out here, so the develop
         # keeps one scalar black level.
-        mosaic = raw.fold_site_blacks() if mode == "accurate" else raw.mosaic
-        self.mosaic = torch.from_numpy(
-            np.ascontiguousarray(mosaic, dtype=np.uint16)).to(self.device)
+        mosaic = np.ascontiguousarray(
+            raw.fold_site_blacks() if mode == "accurate" else raw.mosaic,
+            dtype=np.uint16)
+        if not mosaic.flags.writeable:  # a decoder's view of file bytes
+            mosaic = mosaic.copy()
+        self.mosaic = torch.from_numpy(mosaic).to(self.device)
         self.wb = raw.wb_rgb()
         self.cam_matrix = cam_to_srgb_matrix(raw.xyz_to_cam, mode=mode)
         self.matrix_transpose = mode == "parity"
@@ -370,14 +362,14 @@ class DevelopEngine:
 
     @staticmethod
     def _encode_420(planes, w: int, h: int, quality: int) -> bytes:
-        from raweditor_tpu_torch.native import get_rawkit
+        from raweditor_tpu_torch.native import require_rawkit
 
         y, cb, cr = (np.ascontiguousarray(p.cpu().numpy()) for p in planes)
         # optimize=False, restart_rows=0, threads=0. Without restart
         # markers the stream is one segment, which the encoder codes on
         # one thread whatever ``threads`` says.
-        return get_rawkit().encode_jpeg_420(y, cb, cr, w, h, int(quality),
-                                            False, 0, 0)
+        return require_rawkit().encode_jpeg_420(y, cb, cr, w, h,
+                                                int(quality), False, 0, 0)
 
     @staticmethod
     def _pil_jpeg(rgb: np.ndarray, quality: int, exif: bytes = b"") -> bytes:
@@ -430,5 +422,21 @@ class DevelopEngine:
             else:
                 data = self._pil_jpeg(
                     np.ascontiguousarray(words[..., :3]), quality, exif)
-        _atomic_write(path, data)
+
+        def write(tmp_path):
+            with open(tmp_path, "wb") as f:
+                f.write(data)
+
+        _atomic_write(path, write)
         return path
+
+    # -- convenience -----------------------------------------------------
+    @classmethod
+    def open(cls, path: os.PathLike, mode: str = "parity",
+             **kwargs) -> "DevelopEngine":
+        """Decode the RAW file at ``path`` and build an engine on it;
+        ``kwargs`` (``device``, ``use_kernel``, ``demosaic_method``, ...)
+        go to the constructor."""
+        from raweditor_tpu_torch.raw.decode import decode_raw
+
+        return cls(decode_raw(path), mode=mode, **kwargs)

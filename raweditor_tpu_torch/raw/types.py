@@ -1,9 +1,10 @@
 """Decoded RAW frame container: the fields of the JAX package's
 ``RawImage``, in its order.
 
-The port does not decode RAW files yet; a caller hands the engine an
-already-decoded frame (a u16 Bayer mosaic plus its colour metadata), or
-carries a JAX frame across with ``RawImage.from_fields``.
+``raw/decode.decode_raw`` builds it from a file (by keyword, so it must
+accept every field the decoders pass); a caller may also hand the engine
+an already-decoded frame, or carry a JAX frame across with
+``RawImage.from_fields``.
 """
 
 from __future__ import annotations
@@ -87,3 +88,23 @@ class RawImage:
         """(3,) RGB white-balance gains as the develop chain consumes
         them."""
         return np.asarray(self.wb_multipliers[:3], dtype=np.float32)
+
+    @staticmethod
+    def normalize_wb(coeffs) -> np.ndarray:
+        """Green-normalise camera WB coefficients with the reference
+        editor's fallbacks: 3-coefficient cameras reuse G for G2; a
+        non-finite or non-positive G2 falls back to G; the green
+        reference is floored at 0.001."""
+        c = [float(x) for x in coeffs]
+        if len(c) >= 4:
+            r, g, b, g2 = c[0], c[1], c[2], c[3]
+        elif len(c) == 3:
+            r, g, b = c
+            g2 = g
+        else:
+            r = g = b = g2 = 1.0
+        g_ref = max(g, 0.001)
+        if not np.isfinite(g2) or g2 <= 0.0:
+            g2 = g
+        return np.array([r / g_ref, g / g_ref, b / g_ref, g2 / g_ref],
+                        dtype=np.float32)

@@ -207,6 +207,7 @@ def test_export_makes_directory_and_leaves_no_temporary(rng, tmp_path,
     """The atomic write makes the parent directory, names its temporary
     file by process and thread, and leaves only the export behind."""
     import os
+    import pathlib
     import threading
 
     from raweditor_tpu_torch.pipeline import engine as engine_mod
@@ -226,8 +227,9 @@ def test_export_makes_directory_and_leaves_no_temporary(rng, tmp_path,
 
     def write(i):
         gate.wait()
-        engine_mod._atomic_write(str(tmp_path / "same.bin"),
-                                 bytes([i]) * 1000)
+        engine_mod._atomic_write(
+            str(tmp_path / "same.bin"),
+            lambda tmp: pathlib.Path(tmp).write_bytes(bytes([i]) * 1000))
         gate.wait()
 
     monkeypatch.setattr(os, "replace", spy)

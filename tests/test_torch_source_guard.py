@@ -53,7 +53,21 @@ def test_guard_catches_violations(tmp_path):
 # Host-side modules of the JAX package that import no jax are kept in the
 # port as copies with the package name rewritten; the copies must not
 # drift from their sources.
-COPIES = ["raw/exif.py", "version.py"]
+COPIES = [
+    "version.py", "utils/logging.py", "xmp.py",
+    "catalog/__init__.py", "catalog/data.py", "catalog/library.py",
+    # containers and bit-level codecs
+    "raw/exif.py", "raw/tiff.py", "raw/bitpack.py", "raw/packing.py",
+    "raw/ljpeg.py", "raw/jpeg_scan.py",
+    "raw/decode.py",
+    # per-maker decoders
+    "raw/nikon.py", "raw/nikon_crypt.py", "raw/olympus.py", "raw/pentax.py",
+    "raw/panasonic.py", "raw/samsung.py", "raw/samsung3.py", "raw/arw2.py",
+    "raw/kodak.py", "raw/kodak_radc.py", "raw/raf.py", "raw/ciff.py",
+    "raw/bmff.py", "raw/crx.py",
+    # writers (test files and the card run's files)
+    "raw/synth.py", "raw/tiff_out.py", "raw/dng_out.py",
+]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -65,3 +79,31 @@ def test_copy_equals_its_source_after_the_rename(rel):
                                               "raweditor_tpu_torch.")
     assert "raweditor_tpu." not in copy.read_text().replace(
         "raweditor_tpu_torch.", "")
+
+
+def test_raw_image_fields_equal_the_jax_ones():
+    """``raw/types.py`` stays the port's own (it adds ``from_fields``),
+    so its fields are held to the JAX container's, names and order: the
+    copied decoders build it by keyword."""
+    import dataclasses
+
+    from raweditor_tpu.raw.types import RawImage as JaxRaw
+    from raweditor_tpu_torch.raw.types import RawImage
+
+    def names(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert names(RawImage) == names(JaxRaw)
+    for coeffs in ([2.0, 1.0, 1.5], [1.9, 0.0, 1.2, float("nan")], [],
+                   [512, 256, 384, -1]):
+        assert (RawImage.normalize_wb(coeffs).tobytes()
+                == JaxRaw.normalize_wb(coeffs).tobytes())
+
+
+def test_xtrans_pattern_equals_the_jax_constant():
+    """``raw/decode.py`` gives RAF frames the pattern of the port's
+    ``ops/cfa_generic``, so it must be the JAX package's."""
+    from raweditor_tpu.ops.cfa_generic import XTRANS_PATTERN as JAX_PATTERN
+    from raweditor_tpu_torch.ops.cfa_generic import XTRANS_PATTERN
+
+    assert XTRANS_PATTERN == JAX_PATTERN and len(XTRANS_PATTERN) == 36
