@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile-export]
 
 Builds the CUDA kernels from ``raweditor_tpu_torch/csrc`` (one nvcc per
 source, four sources started together), makes seeded 24 MP 12-bit frames
@@ -40,7 +40,25 @@ before it and read just after:
   from the written fields in memory; the opened DNG is exported to JPEG
   with its make and model in the EXIF, and the extras edit goes through
   the catalog and back. It prints the write, decode, open, import and
-  first-develop times (host clock, medians of three).
+  first-develop times (host clock, medians of three);
+- the batch export path (``batch_export()``): the port's writers make
+  five 12-bit and four 14-bit uncompressed 4016x6016 DNGs, three
+  4000x6000 X-Trans RAFs (a seeded scene of gradients, discs and 1%
+  noise) and one truncated file; ``Library.import_folder`` imports them,
+  slider edits go on the 12-bit files and the extras edit (one flag set,
+  amounts per file) on the 14-bit ones, and ``jobs_from_catalog`` feeds
+  ``run_batch_export`` three times with batches of four: accurate grad
+  (run A), parity nearest with restart markers and optimised tables (run
+  B), run A again with ``skip_existing`` (run C). Each run must give its
+  expected successes, skips and the one ``"decode: ..."`` failure and
+  launch exactly its kernels (A: B4 planes twice, B4 words and B8 planes
+  once each, B7 planes once; B: B2 planes three times, B1 words and B8
+  planes once each; C: nothing), and every JPEG must equal, byte for
+  byte, ``DevelopEngine.open(...).export(...)`` of the same file and edit
+  with the same flags. It prints each run's ``ExportReport``. With
+  ``--profile-export`` it repeats run A once under ``torch.profiler``
+  (outside the counted runs) and prints the device's busy time and idle
+  share of that profiled run.
 
 Then it holds every kernel against its plain PyTorch version (at the four
 Bayer phases and on an odd 4015x6013 frame; the extras kernel for every
@@ -62,10 +80,11 @@ value may differ. It compares small frames on the card with the CPU,
 times each kernel beside its plain version with CUDA events, and prints:
 
 - a line ``{"kernels": [...]}`` with each kernel's launches on its path
-  (and on the file path), its largest difference from the plain
-  version, both times, and its
+  (and on the file path and in each export run), its largest difference
+  from the plain version, both times, and its
   bound (the larger of bytes over 3.35 TB/s and f32 operations over
   67 TFLOP/s, the H100 SXM data-sheet rates);
+- the seconds of each phase, the build included;
 - the card's name and power limit as nvidia-smi reports them;
 - as the last line ``{"ok": true, "device": {...}}``.
 
@@ -172,6 +191,9 @@ MIXER_ONLY = dict(hue_red=25.0, hue_orange=-15.0, sat_yellow=30.0,
 POINT_CURVE = ((0.0, 0.02), (0.35, 0.3), (0.7, 0.8), (1.0, 0.97))
 FLAG_SETS = [(m, g, s) for m in (False, True) for g in (False, True)
              for s in (False, True)]
+# The batch export path: files of each kind, and the batch size.
+EXPORT_FILES = {"dng12": 5, "dng14": 4, "raf": 3}
+EXPORT_BATCH = 4
 # Nikon D3300 ColorMatrix (dcraw adobe_coeff, x10000) for the accurate frame.
 D3300_XYZ_TO_CAM = np.array([[6988, -1384, -714], [-5631, 13410, 2447],
                              [-1485, 2204, 7318]], np.float32) / 10000.0
@@ -558,11 +580,230 @@ def file_path(tmpdir, mosaic, edit, xedit, smi):
     return path_launches
 
 
+def scene(rng, h, w, top):
+    """A seeded picture rather than noise, as u16 samples in 0..top: smooth
+    gradients, discs of flat tone and about 1% noise."""
+    y = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    x = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    img = 0.1 + 0.45 * x + 0.3 * y * (1.0 - x)
+    for _ in range(6):
+        cy, cx = rng.uniform(0.1, 0.9, 2)
+        r = rng.uniform(0.04, 0.15)
+        disc = (y - np.float32(cy)) ** 2 + ((x - np.float32(cx)) * (w / h)) ** 2
+        img = np.where(disc < r * r, np.float32(rng.uniform(0.05, 0.95)), img)
+    img += rng.standard_normal((h, w), dtype=np.float32) * np.float32(0.01)
+    return np.clip(img * top, 0, top).astype(np.uint16)
+
+
+def profile_run_a(lib, tmpdir, kw, n_ok, timed_seconds, smi):
+    """Run A once more, outside the counted runs, under the profiler: the
+    device's busy time (the union of its kernels' and copies' intervals)
+    and idle share, both of this profiled run alone; the counted run's
+    wall clock beside it says how much the profiler slows the run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raweditor_tpu_torch.pipeline.export import (jobs_from_catalog,
+                                                     run_batch_export)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rep = run_batch_export(jobs_from_catalog(
+            lib, os.path.join(tmpdir, "export_profiled")),
+            batch_size=EXPORT_BATCH, use_kernel=True, quality=95, **kw)
+        torch.cuda.synchronize()
+    check(rep.succeeded == n_ok, f"profiled run A: {rep.as_dict()}")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda t: -t[1])[:10]
+    log("batch export run A under the profiler: "
+        + (f"device busy {busy_us / 1e3:.3f} ms in {len(spans)} device "
+           f"events over {rep.seconds * 1e3:.1f} ms, idle share "
+           f"{1.0 - busy_us / 1e6 / rep.seconds:.5f} of this profiled run; "
+           f"the counted run A took {timed_seconds * 1e3:.1f} ms unprofiled;"
+           f" device ms by name {json.dumps(by_name)}" if spans else
+           "the profiler saw no device event: device busy not measured")
+        + f" [{smi}]")
+
+
+def batch_export(tmpdir, edit, xedit, smi, profile=False):
+    """The batch exporter from a catalog: files written by the port's own
+    writers (``EXPORT_FILES`` of a seeded scene, rolled per file, and one
+    truncated DNG), imported into a ``Library`` with per-file edits, then
+    ``run_batch_export`` of ``jobs_from_catalog`` three times (runs A, B,
+    C; module docstring). Each run is counted alone (launch counts reset
+    just before it, read just after) and must launch exactly its kernels;
+    then, outside the counted runs, every JPEG is held byte-equal to the
+    engine's export of the same file and edit with the same flags. With
+    ``profile``, run A is repeated once under the profiler for the
+    device's busy time. Returns {run: launches}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raweditor_tpu_torch import DevelopEngine, Library
+    from raweditor_tpu_torch.native import get_rawkit
+    from raweditor_tpu_torch.ops import fused_develop as fused
+    from raweditor_tpu_torch.ops import fused_extras as fx
+    from raweditor_tpu_torch.pipeline.export import (jobs_from_catalog,
+                                                     run_batch_export)
+    from raweditor_tpu_torch.raw import raf, synth
+
+    xtrans = fused.cfa_generic.XTRANS_PATTERN
+    rk = get_rawkit()
+    gray = np.full((16, 16), 128, np.uint8)
+    chroma = np.full((8, 8), 128, np.uint8)
+    preview = rk.encode_jpeg_420(gray, chroma, chroma, 16, 16, 90, False, 0,
+                                 0)
+    folder = os.path.join(tmpdir, "export_files")
+    os.makedirs(folder)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 1)
+    bases = {"dng12": scene(rng, H, W, 4095), "dng14": scene(rng, H, W, 16383),
+             "raf": scene(rng, XH, XW, 4095)}
+
+    def write(kind, i):
+        m = np.roll(bases[kind], (97 * i, 211 * i), axis=(0, 1))
+        if kind == "raf":
+            path = os.path.join(folder, f"DSCF{i + 1:04d}.RAF")
+            with open(path, "wb") as f:
+                f.write(raf.write_raf(m, model="X-T2",
+                                      wb_grbg=(256, 512, 384, 256)))
+            return path
+        bits = 12 if kind == "dng12" else 14
+        path = os.path.join(folder, f"D{bits}_{i + 1:04d}.dng")
+        synth.write_synthetic_raw(
+            path, m, bpp=bits, xyz_to_cam=D3300_XYZ_TO_CAM,
+            black_level=150 if bits == 12 else 600,
+            white_level=(1 << bits) - 1, wb_neutral=(0.5, 1.0, 0.625),
+            make="NIKON CORPORATION", model="NIKON D3300",
+            preview_jpeg=preview)
+        return path
+
+    with ThreadPoolExecutor(4) as pool:
+        paths = list(pool.map(lambda a: write(*a), [
+            (k, i) for k, n in EXPORT_FILES.items() for i in range(n)]))
+    del bases
+    truncated = os.path.join(folder, "D12_9999.dng")
+    with open(paths[0], "rb") as f, open(truncated, "wb") as g:
+        g.write(f.read()[: os.path.getsize(paths[0]) // 2])
+    write_s = time.perf_counter() - t0
+    sizes = {os.path.basename(p): os.path.getsize(p) for p in paths[:1]
+             + paths[EXPORT_FILES["dng12"]:][:1] + paths[-1:]}
+
+    lib = Library(os.path.join(tmpdir, "export.db"))
+    imported = lib.import_folder(folder)
+    check(imported == {"imported": len(paths) + 1, "skipped": 0},
+          f"export catalog import {imported}")
+    for img in lib.get_all_images():
+        i = int(img.filename[4:8]) - 1
+        if img.filename.startswith("D12_") and img.path != truncated:
+            lib.save_edit_params(img.id, edit.replace(
+                exposure=-0.4 + 0.2 * i, saturation=10.0 * i,
+                temperature=0.05 * i))
+        elif img.filename.startswith("D14_"):
+            lib.save_edit_params(img.id, xedit.replace(**{
+                k: v * (0.5 + 0.25 * i) for k, v in XEDIT.items()}))
+    runs = {
+        "A": dict(mode="accurate", demosaic_method="grad"),
+        "B": dict(mode="parity", demosaic_method="nearest",
+                  jpeg_restart_rows=8, jpeg_optimize=True),
+        "C": dict(mode="accurate", demosaic_method="grad",
+                  skip_existing=True),
+    }
+    want = {
+        "A": {fused.launch_key("ycbcr420", "grad"): 2,
+              fused.launch_key("rgba", "grad"): 1, "extras_ycbcr420": 1,
+              fused.launch_key("ycbcr420", "grad", xtrans): 1},
+        "B": {"develop_ycbcr420": 3, "develop_rgba": 1,
+              "extras_ycbcr420": 1},
+        "C": {},
+    }
+    n_ok = len(paths)
+    launched, jobs_of = {}, {}
+    for name, kw in runs.items():
+        out = os.path.join(tmpdir, "export_" + ("A" if name == "C" else name))
+        jobs = jobs_from_catalog(lib, out)
+        check(len(jobs) == n_ok + 1, f"run {name}: {len(jobs)} jobs")
+        # -- the counted run: counts reset just before, read just after --
+        reset(fused.LAUNCHES)
+        reset(fx.LAUNCHES)
+        rep = run_batch_export(jobs, batch_size=EXPORT_BATCH, use_kernel=True,
+                               quality=95, **kw)
+        torch.cuda.synchronize()
+        launched[name] = {k: v for k, v in {**fused.LAUNCHES,
+                                            **fx.LAUNCHES}.items() if v}
+        log(f"batch export run {name} {json.dumps(kw)}: "
+            f"{json.dumps(rep.as_dict())}; develops_per_sec "
+            f"{rep.develops_per_sec!r}; launches {launched[name]}; host "
+            f"{os.cpu_count()} cores, torch threads {torch.get_num_threads()}"
+            f" [{smi}]")
+        skipped = n_ok if name == "C" else 0
+        check((rep.total, rep.succeeded, rep.skipped) == (
+            n_ok + 1, n_ok - skipped, skipped),
+            f"run {name}: total/succeeded/skipped {rep.total}, "
+            f"{rep.succeeded}, {rep.skipped}")
+        check(len(rep.failed) == 1 and rep.failed[0][0] == truncated
+              and rep.failed[0][1].startswith("decode: "),
+              f"run {name}: failures {rep.failed}")
+        check(launched[name] == want[name],
+              f"run {name} launched {launched[name]}, expected {want[name]}")
+        jobs_of[name] = jobs
+        if name == "A":
+            timed_seconds = rep.seconds
+    if profile:
+        profile_run_a(lib, tmpdir, runs["A"], n_ok, timed_seconds, smi)
+
+    # -- each JPEG against the engine's export of the same file ----------
+    def engine_bytes(name, job):
+        kw = runs[name]
+        eng = DevelopEngine.open(job.raw_path, kw["mode"], use_kernel=True,
+                                 demosaic_method=kw["demosaic_method"])
+        ref = eng.export(
+            os.path.join(tmpdir, f"engine_{name}_{job.image_id}.jpg"),
+            job.params, quality=95,
+            **{k: v for k, v in kw.items() if k.startswith("jpeg_")})
+        with open(ref, "rb") as f, open(job.out_path, "rb") as g:
+            return job.out_path, f.read() == g.read()
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        same = list(pool.map(lambda a: engine_bytes(*a), [
+            (name, job) for name in ("A", "B") for job in jobs_of[name]
+            if job.raw_path != truncated]))
+    for path, equal in same:
+        check(equal, f"{path} differs from the engine's export")
+    lib.close()
+    torch.cuda.empty_cache()
+    log(f"batch export: {len(same)} JPEGs byte-equal to the engine's export "
+        f"({time.perf_counter() - t0:.2f} s, four threads); files written "
+        f"in {write_s:.2f} s, sizes {sizes} bytes")
+    return launched
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile-export", action="store_true",
+                    help="repeat export run A under torch.profiler")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    phase_s, lap_at = {}, [t_start]
+
+    def lap(name):
+        """Seconds since the previous phase ended, under ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - lap_at[0], 2)
+        lap_at[0] = now
     from raweditor_tpu_torch import DevelopEngine, EditParams, RawImage
     from raweditor_tpu_torch.color import cam_to_srgb_matrix, kernel_gamma_for
     from raweditor_tpu_torch.native import get_rawkit
@@ -587,6 +828,7 @@ def main():
     _build.build(verbose=True)
     _build.load()
     log(f"build: {time.perf_counter() - t0:.2f} s")
+    lap("build")
 
     # -- inputs -----------------------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -848,6 +1090,7 @@ def main():
           f"X-Trans extras launches {xt_fx_launches}")
 
     # -- the file path (counts reset and read inside) ---------------------
+    lap("inputs and the four paths")
     file_launches = file_path(tmpdir, mosaic, edit, xedit, smi)
     file_keys = ([fused.launch_key("rgba", m) for m in ("nearest", "malvar",
                                                        "grad")]
@@ -855,6 +1098,12 @@ def main():
                  + ["develop_ycbcr420", "extras_rgba"])
     for k in file_keys:
         check(file_launches.get(k, 0) > 0, f"file path: {k} never launched")
+
+    # -- the batch export path (each run counted alone inside) ------------
+    lap("file path")
+    export_launches = batch_export(tmpdir, edit, xedit, smi,
+                                   args.profile_export)
+    lap("batch export")
 
     # -- outputs ----------------------------------------------------------
     check(tuple(prev.shape) == (854, 1280, 3) and prev.dtype == torch.uint8,
@@ -1344,6 +1593,7 @@ def main():
         f"({CFA_STRIP}) and band ({CFA_BAND}) edges, periods 6, 2 and 3 "
         f"({n_edge} comparisons): worst LSB {cfa_edge_worst}")
 
+    lap("24 MP and edge frames against the plain versions")
     # The develop kernels' table quantiser (fused_quantize: the same
     # table and lookup as their tail) against the plain quantiser on the
     # card: every f32 in [0, 1] in chunks, then the first 2**20 values
@@ -1380,6 +1630,7 @@ def main():
     log(f"table quantiser vs plain on the card ({time.perf_counter() - t0:.2f}"
         f" s): {json.dumps(sweep)}")
 
+    lap("quantiser sweep")
     # Small inputs: the card against the same code on the CPU (which the
     # CPU tests hold against the JAX package), parity and accurate with
     # per-site black levels.
@@ -1443,6 +1694,7 @@ def main():
         log(f"small X-Trans {tier} frame card vs CPU: preview max {pv}, "
             f"full max {mx}, planes max {mxp}")
 
+    lap("small frames, card against CPU")
     # -- times at 24 MP, kernel and plain in turns ------------------------
     scal = eng.scalars(edit)[None]
     timed = {  # key: (mosaics, scalars, gamma, output, demosaic, pattern)
@@ -1530,6 +1782,7 @@ def main():
             for g in fused.GAMMAS}
     log(f"time rgba kernel by demosaic and gamma (ms): {json.dumps(by_gamma)}")
 
+    lap("kernel and plain times")
     e2e = {
         "preview_tick_ms": host_ms(
             lambda: eng.preview_tick(edit, 1.5, (0.01, 0.0)), 20),
@@ -1572,6 +1825,7 @@ def main():
     e2e["xtrans_histogram_ms"] = host_ms(lambda: e.histogram(edit), 10)
     log(f"end to end (host clock, median): {json.dumps(e2e)} [{smi}]")
     tmp.cleanup()
+    lap("end to end")
 
     # Every develop kernel (B1-B7) and the extras kernel keep their plain
     # versions' arithmetic bit for bit: no differing pixel in any
@@ -1593,7 +1847,9 @@ def main():
             "bound_ms": times[key]["bound_ms"],
             "bound_by": times[key]["bound_by"], "library_ms": None,
             "frames": times[key]["frames"],
-            "file_path_launches": file_launches.get(key, 0)})
+            "file_path_launches": file_launches.get(key, 0),
+            "export_launches": {run: n.get(key, 0)
+                                for run, n in export_launches.items()}})
     for key in x_timed:
         kernels.append({
             "name": key, "route": "cuda", "source": SRC["extras"],
@@ -1603,9 +1859,11 @@ def main():
             "bound_ms": times[key]["bound_ms"],
             "bound_by": times[key]["bound_by"], "library_ms": None,
             "frames": times[key]["frames"],
-            "file_path_launches": file_launches.get(key, 0)})
+            "file_path_launches": file_launches.get(key, 0),
+            "export_launches": {run: n.get(key, 0)
+                                for run, n in export_launches.items()}})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
-        "build included")
+        f"build included; seconds by phase {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@ The kernel route of a batch with extras is
 exporter's ``_extras_post_batch`` runs it. ``batch_develop_rgba`` is the
 plain lane over a batch (per-image extras in the chain, per-image point
 curves), with ``_maybe_ycbcr`` turning its words into JPEG planes;
-``batch_develop_xtrans_rgba`` is the same over X-Trans (generic-CFA)
+``batch_develop`` is the same lane to (N, H, W, 3) u8;
+``batch_develop_xtrans_rgba`` is the RGBA lane over X-Trans (generic-CFA)
 mosaics.
 """
 
@@ -19,12 +20,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raweditor_tpu_torch.ops.develop import develop_rgba, develop_xtrans
+from raweditor_tpu_torch.ops.develop import (develop, develop_rgba,
+                                             develop_xtrans)
 from raweditor_tpu_torch.ops.fused_develop import fold_scalars
 from raweditor_tpu_torch.ops.fused_extras import pack_extras
 
-__all__ = ["batch_develop_rgba", "batch_develop_xtrans_rgba", "pack_extras",
-           "pack_params"]
+__all__ = ["batch_develop", "batch_develop_rgba", "batch_develop_xtrans_rgba",
+           "pack_extras", "pack_params"]
 
 
 def _levels(n: int, white_levels, black_levels):
@@ -64,6 +66,34 @@ def _maybe_ycbcr(words: torch.Tensor, output: str):
     raise ValueError(f"unknown output {output!r}")
 
 
+def _per_image(fn, mosaics, params_list, wbs, cam_matrices, white_levels,
+               black_levels, **kw):
+    """``fn`` over each image of the batch with its own edit, WB,
+    matrix and levels, stacked."""
+    n = mosaics.shape[0]
+    wbs = np.asarray(wbs, np.float32).reshape(n, 3)
+    cms = np.asarray(cam_matrices, np.float32).reshape(n, 3, 3)
+    whites, blacks = _levels(n, white_levels, black_levels)
+    return torch.stack([
+        fn(mosaics[i], p, wbs[i], cms[i], white_level=float(whites[i]),
+           black_level=float(blacks[i]), **kw)
+        for i, p in enumerate(params_list)])
+
+
+def batch_develop(mosaics: torch.Tensor, params_list, wbs, cam_matrices,
+                  white_levels=None, black_levels=None,
+                  matrix_transpose: bool = True, cfa_phase=(0, 0),
+                  transfer: str = "gamma22",
+                  demosaic_method: str = "nearest", extras=False):
+    """The plain lane over a batch to u8: (N, H, W) u16 to
+    (N, H, W, 3) u8; the arguments as in ``batch_develop_rgba``."""
+    return _per_image(develop, mosaics, params_list, wbs, cam_matrices,
+                      white_levels, black_levels,
+                      demosaic_method=demosaic_method,
+                      matrix_transpose=matrix_transpose, transfer=transfer,
+                      cfa_phase=cfa_phase, extras=extras)
+
+
 def batch_develop_rgba(mosaics: torch.Tensor, params_list, wbs,
                        cam_matrices, white_levels=None, black_levels=None,
                        matrix_transpose: bool = True, cfa_phase=(0, 0),
@@ -75,18 +105,11 @@ def batch_develop_rgba(mosaics: torch.Tensor, params_list, wbs,
     finish-extras mode (the JAX ``extras`` argument): every image runs
     the same stages with its own amounts; each image's point curve
     applies."""
-    n = mosaics.shape[0]
-    wbs = np.asarray(wbs, np.float32).reshape(n, 3)
-    cms = np.asarray(cam_matrices, np.float32).reshape(n, 3, 3)
-    whites, blacks = _levels(n, white_levels, black_levels)
-    words = torch.stack([
-        develop_rgba(mosaics[i], p, wbs[i], cms[i],
-                     white_level=float(whites[i]),
-                     black_level=float(blacks[i]),
-                     demosaic_method=demosaic_method,
-                     matrix_transpose=matrix_transpose, transfer=transfer,
-                     cfa_phase=cfa_phase, extras=extras)
-        for i, p in enumerate(params_list)])
+    words = _per_image(develop_rgba, mosaics, params_list, wbs, cam_matrices,
+                       white_levels, black_levels,
+                       demosaic_method=demosaic_method,
+                       matrix_transpose=matrix_transpose, transfer=transfer,
+                       cfa_phase=cfa_phase, extras=extras)
     return _maybe_ycbcr(words, output)
 
 
@@ -100,15 +123,9 @@ def batch_develop_xtrans_rgba(mosaics: torch.Tensor, params_list, wbs,
     """The plain lane over a batch of X-Trans (generic-CFA) mosaics:
     (N, H, W) u16 to (N, H, W) u32, or JPEG planes; ``output`` and
     ``extras`` as in ``batch_develop_rgba``."""
-    n = mosaics.shape[0]
-    wbs = np.asarray(wbs, np.float32).reshape(n, 3)
-    cms = np.asarray(cam_matrices, np.float32).reshape(n, 3, 3)
-    whites, blacks = _levels(n, white_levels, black_levels)
-    words = torch.stack([
-        develop_xtrans(mosaics[i], p, wbs[i], cms[i], float(whites[i]),
-                       float(blacks[i]), pattern=pattern,
-                       matrix_transpose=matrix_transpose, transfer=transfer,
-                       rgba=True, demosaic_method=demosaic_method,
-                       extras=extras)
-        for i, p in enumerate(params_list)])
+    words = _per_image(develop_xtrans, mosaics, params_list, wbs,
+                       cam_matrices, white_levels, black_levels,
+                       pattern=pattern, matrix_transpose=matrix_transpose,
+                       transfer=transfer, rgba=True,
+                       demosaic_method=demosaic_method, extras=extras)
     return _maybe_ycbcr(words, output)

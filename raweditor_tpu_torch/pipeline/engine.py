@@ -83,7 +83,8 @@ from raweditor_tpu_torch.ops.demosaic import (CFA_PHASES, DEMOSAIC_METHODS,
                                               phase_of)
 from raweditor_tpu_torch.ops.sampling import histogram_shape, preview_shape
 from raweditor_tpu_torch.params import EditParams
-from raweditor_tpu_torch.pipeline.export import _atomic_write
+from raweditor_tpu_torch.pipeline.export import (_atomic_write,
+                                                 _refuse_geometry)
 from raweditor_tpu_torch.raw.types import RawImage
 from raweditor_tpu_torch.utils.device import resolve_device
 
@@ -220,7 +221,7 @@ class DevelopEngine:
         if h % 2 or w % 2:
             return self._pil_jpeg(dev.cpu().numpy(), quality), w, h
         planes = _jpeg.rgb_u8_to_ycbcr420(dev)
-        return self._encode_420(planes, w, h, quality), w, h
+        return self._encode_planes(planes, w, h, quality), w, h
 
     # -- full resolution -------------------------------------------------
     def scalars(self, params: EditParams) -> torch.Tensor:
@@ -361,35 +362,64 @@ class DevelopEngine:
                           orientation)
 
     @staticmethod
-    def _encode_420(planes, w: int, h: int, quality: int) -> bytes:
+    def _encode_planes(planes, w: int, h: int, quality: int,
+                       optimize: bool = False, chroma: str = "420",
+                       restart_rows: int = 0) -> bytes:
+        """JFIF bytes of (Y, Cb, Cr) u8 planes through ``_rawkit``:
+        4:2:0 planes, or full-size chroma for ``chroma="444"``."""
         from raweditor_tpu_torch.native import require_rawkit
 
+        rk = require_rawkit()
+        encode = rk.encode_jpeg_444 if chroma == "444" else rk.encode_jpeg_420
         y, cb, cr = (np.ascontiguousarray(p.cpu().numpy()) for p in planes)
-        # optimize=False, restart_rows=0, threads=0. Without restart
-        # markers the stream is one segment, which the encoder codes on
-        # one thread whatever ``threads`` says.
-        return require_rawkit().encode_jpeg_420(y, cb, cr, w, h,
-                                                int(quality), False, 0, 0)
+        # threads=0: the restart segments spread over every host core
+        # (byte-identical for any count); without restart markers the
+        # stream is one segment, coded on one thread.
+        return encode(y, cb, cr, w, h, int(quality), bool(optimize),
+                      max(0, int(restart_rows)), 0)
 
     @staticmethod
-    def _pil_jpeg(rgb: np.ndarray, quality: int, exif: bytes = b"") -> bytes:
+    def _pil_jpeg(rgb: np.ndarray, quality: int, exif: bytes = b"",
+                  optimize: bool = False, chroma: str = "420",
+                  restart_rows: int = 0) -> bytes:
+        """JFIF bytes of an (H, W, 3) u8 frame through PIL, with the
+        native encoder's flags: 4:4:4 (``subsampling=0``), restart
+        markers every ``restart_rows`` MCU rows, optimised tables."""
         import io
 
         from PIL import Image
 
+        kw = {"subsampling": 0} if chroma == "444" else {}
+        if restart_rows > 0:
+            kw["restart_marker_rows"] = int(restart_rows)
         buf = io.BytesIO()
         Image.fromarray(rgb).save(buf, format="JPEG", quality=int(quality),
-                                  exif=exif)
+                                  exif=exif, optimize=bool(optimize), **kw)
         return buf.getvalue()
 
     def export(self, path: os.PathLike, params: EditParams,
-               quality: int = 95) -> str:
-        """Full-resolution develop written as JPEG (``.jpg``/``.jpeg``,
-        4:2:0 planes and the native encoder; odd frames and frames that
-        ``auto_orient`` rotates through PIL) or RGBA PNG (``.png``, PIL).
-        Every file carries the EXIF block of ``_exif_bytes``. Written
-        atomically; returns the path."""
+               quality: int = 95, long_edge: int = None,
+               jpeg_optimize: bool = False, chroma: str = "420",
+               jpeg_restart_rows: int = 0, rotate: float = 0.0, crop=None,
+               lens=None, perspective=None) -> str:
+        """Full-resolution develop written as JPEG (``.jpg``/``.jpeg``) or
+        RGBA PNG (``.png``, PIL), atomically; returns the path. Every file
+        carries the EXIF block of ``_exif_bytes``.
+
+        A JPEG goes through device YCbCr planes and the native encoder:
+        4:2:0 planes of even frames (``jpeg_planes``), or with
+        ``chroma="444"`` full-size chroma of any frame
+        (``rgba_words_to_ycbcr444`` over ``full_rgba_device``). Odd 4:2:0
+        frames and frames that ``auto_orient`` rotates go through PIL with
+        the same flags. ``jpeg_restart_rows`` > 0 writes DRI/RSTn restart
+        markers every that many MCU rows; ``jpeg_optimize`` writes
+        optimised Huffman tables. ``long_edge``, ``rotate``, ``crop``,
+        ``lens``, ``perspective`` and 16-bit TIFF are not ported yet and
+        raise ``NotImplementedError`` naming themselves."""
         path = os.fspath(path)
+        if chroma not in ("420", "444"):
+            raise ValueError(f"chroma must be '420' or '444', got {chroma!r}")
+        _refuse_geometry(long_edge, rotate, crop, lens, perspective)
         ext = os.path.splitext(path)[1].lower()
         if ext in (".tif", ".tiff"):
             raise NotImplementedError("not ported yet: 16-bit TIFF export")
@@ -398,13 +428,17 @@ class DevelopEngine:
                 f"unsupported export extension {ext!r} (use .jpg/.jpeg/.png)")
         rotates = self.auto_orient and self.raw.orientation != 1
         exif = self._exif_bytes()
-        if (ext != ".png" and not rotates and self.height % 2 == 0
-                and self.width % 2 == 0):
+        flags = dict(optimize=jpeg_optimize, chroma=chroma,
+                     restart_rows=jpeg_restart_rows)
+        even = self.height % 2 == 0 and self.width % 2 == 0
+        if ext != ".png" and not rotates and (chroma == "444" or even):
             from raweditor_tpu_torch.raw.exif import splice_exif
 
-            data = splice_exif(
-                self._encode_420(self.jpeg_planes(params), self.width,
-                                 self.height, quality), exif)
+            planes = (_jpeg.rgba_words_to_ycbcr444(
+                self.full_rgba_device(params)) if chroma == "444"
+                else self.jpeg_planes(params))
+            data = splice_exif(self._encode_planes(
+                planes, self.width, self.height, quality, **flags), exif)
         else:
             words = np.ascontiguousarray(_develop.rgba_view(
                 self.full_rgba_device(params)))
@@ -421,7 +455,8 @@ class DevelopEngine:
                 data = buf.getvalue()
             else:
                 data = self._pil_jpeg(
-                    np.ascontiguousarray(words[..., :3]), quality, exif)
+                    np.ascontiguousarray(words[..., :3]), quality, exif,
+                    **flags)
 
         def write(tmp_path):
             with open(tmp_path, "wb") as f:

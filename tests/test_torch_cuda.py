@@ -765,3 +765,39 @@ def test_quant_table_equals_plain_on_the_card(cuda, gamma):
         torch.cuda.synchronize()
         bad = int((got != want).sum())
         assert bad == 0, f"{bad} of {c.numel()} values differ"
+
+
+@pytest.mark.parametrize("chroma", ["420", "444"])
+def test_batch_export_equals_engine_export(cuda, chroma, rng, tmp_path):
+    """Two 12-bit DNGs through ``run_batch_export`` with ``use_kernel``:
+    one grad develop launch for the bucket (planes for 4:2:0, words
+    converted on the card for 4:4:4) and JPEGs byte-equal to the
+    engine's ``export`` of the same file with the same flags."""
+    from raweditor_tpu_torch.pipeline.export import (ExportJob,
+                                                     run_batch_export)
+    from raweditor_tpu_torch.raw import synth
+
+    edits = [FULL, FULL.replace(exposure=-0.8, saturation=-20.0)]
+    jobs = []
+    for i, p in enumerate(edits):
+        path = tmp_path / f"f{i}.dng"
+        synth.write_synthetic_raw(
+            path, rng.integers(0, 4096, size=(64, 96), dtype=np.uint16),
+            xyz_to_cam=REAL, black_level=150, white_level=4095,
+            preview_jpeg=b"")
+        jobs.append(ExportJob(str(path), str(tmp_path / f"f{i}.jpg"), p))
+    flags = dict(quality=90, chroma=chroma, jpeg_restart_rows=1)
+    for k in fd.LAUNCHES:
+        fd.LAUNCHES[k] = 0
+    rep = run_batch_export(jobs, batch_size=2, mode="accurate",
+                           demosaic_method="grad", use_kernel=True, **flags)
+    assert rep.succeeded == 2 and not rep.failed
+    key = fd.launch_key("ycbcr420" if chroma == "420" else "rgba", "grad")
+    assert {k: v for k, v in fd.LAUNCHES.items() if v} == {key: 1}
+    for job in jobs:
+        eng = DevelopEngine.open(job.raw_path, "accurate", use_kernel=True,
+                                 demosaic_method="grad")
+        path = eng.export(tmp_path / "engine.jpg", job.params,
+                          jpeg_optimize=False, **flags)
+        with open(path, "rb") as f, open(job.out_path, "rb") as g:
+            assert f.read() == g.read()

@@ -307,3 +307,123 @@ def test_rawkit_loaded_by_path():
     assert rk.__name__ == "_rawkit" and hasattr(rk, "encode_jpeg_420")
     assert rawkit_path().parent.name == "native"
     assert fd.N_SCALARS == 24
+
+
+class _EncodeRecorder:
+    """``_rawkit`` with its JFIF encoders recorded: (name, planes,
+    the remaining arguments)."""
+
+    def __init__(self, rk):
+        self._rk, self.calls = rk, []
+
+    def __getattr__(self, name):
+        fn = getattr(self._rk, name)
+        if not name.startswith("encode_jpeg"):
+            return fn
+
+        def record(*args):
+            self.calls.append((name, [np.array(a) for a in args[:3]],
+                               tuple(args[3:])))
+            return fn(*args)
+
+        return record
+
+
+def _sampling(data: bytes):
+    """(h, v) sampling factors of the first component of a JPEG's SOF."""
+    i = min(j for j in (data.find(m) for m in (b"\xff\xc0", b"\xff\xc2"))
+            if j >= 0)
+    return data[i + 11] >> 4, data[i + 11] & 15
+
+
+@pytest.mark.parametrize("flags", [
+    dict(chroma="444"), dict(jpeg_optimize=True), dict(jpeg_restart_rows=2),
+    dict(chroma="444", jpeg_optimize=True, jpeg_restart_rows=1)],
+    ids=["444", "optimize", "restart", "all"])
+@pytest.mark.parametrize("shape", [(80, 120), (47, 75)], ids=["even", "odd"])
+@pytest.mark.parametrize("use_kernel", [False, True], ids=["plain", "kernel"])
+def test_export_jpeg_flags(flags, shape, use_kernel, rng, tmp_path,
+                           monkeypatch):
+    """``chroma``, ``jpeg_optimize`` and ``jpeg_restart_rows`` as in the
+    JAX engine: 4:4:4 takes the planes path for even and odd frames alike
+    (odd 4:2:0 goes through PIL), and the encoder gets the JAX engine's
+    planes within 1 LSB (measured 0) and the same arguments. The flags
+    show in the bytes: the SOF's sampling factors, a DRI marker, and
+    optimised tables make a smaller file of the same picture."""
+    import raweditor_tpu.native as jax_native
+    import raweditor_tpu_torch.native as port_native
+    from PIL import Image
+
+    raw, jraw = _raws(rng, "RGGB", *shape)
+    port = DevelopEngine(raw, device="cpu", use_kernel=use_kernel)
+    ref = JaxEngine(jraw)
+    p, jp = EditParams(**SLIDERS), JaxParams(**SLIDERS)
+    got_rk = _EncodeRecorder(port_native.require_rawkit())
+    want_rk = _EncodeRecorder(jax_native.get_rawkit())
+    monkeypatch.setattr(port_native, "require_rawkit", lambda: got_rk)
+    monkeypatch.setattr(jax_native, "get_rawkit", lambda: want_rk)
+    port.export(tmp_path / "out.jpg", p, quality=90, **flags)
+    ref.export(tmp_path / "ref.jpg", jp, quality=90, **flags)
+    planes_path = flags.get("chroma") == "444" or shape[0] % 2 == 0
+    assert len(got_rk.calls) == len(want_rk.calls) == int(planes_path)
+    worst = 0
+    for (name, planes, args), (jname, jplanes, jargs) in zip(
+            got_rk.calls, want_rk.calls):
+        assert name == jname == ("encode_jpeg_444" if flags.get("chroma")
+                                 == "444" else "encode_jpeg_420")
+        assert args == jargs
+        for a, b in zip(planes, jplanes):
+            assert a.shape == b.shape
+            worst = max(worst, _max_diff(a, b)[0])
+    assert worst <= 1
+    data = (tmp_path / "out.jpg").read_bytes()
+    ref_data = (tmp_path / "ref.jpg").read_bytes()
+    if worst == 0:
+        assert data == ref_data
+    assert _sampling(data) == ((1, 1) if flags.get("chroma") == "444"
+                               else (2, 2))
+    assert (b"\xff\xdd" in data) == bool(flags.get("jpeg_restart_rows"))
+    if flags.get("jpeg_optimize"):
+        port.export(tmp_path / "base.jpg", p, quality=90,
+                    **{k: v for k, v in flags.items() if k != "jpeg_optimize"})
+        assert len(data) < (tmp_path / "base.jpg").stat().st_size
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(tmp_path / "out.jpg")),
+            np.asarray(Image.open(tmp_path / "base.jpg")))
+    print(f"{shape} {flags} kernel={use_kernel}: planes max {worst} LSB")
+
+
+@pytest.mark.parametrize("flags", [
+    dict(chroma="444"), dict(jpeg_optimize=True), dict(jpeg_restart_rows=1)],
+    ids=["444", "optimize", "restart"])
+def test_pil_export_honours_the_jpeg_flags(flags, rng, tmp_path):
+    """A frame that ``auto_orient`` rotates goes through PIL in both
+    engines with the same flags: the same bytes (same pixels, same
+    encoder), 4:4:4 sampling, restart markers."""
+    raw, jraw = _raws(rng, "RGGB")
+    for r in (raw, jraw):
+        r.orientation = 6
+    port = DevelopEngine(raw, device="cpu", auto_orient=True)
+    ref = JaxEngine(jraw, auto_orient=True)
+    port.export(tmp_path / "out.jpg", EditParams(**SLIDERS), **flags)
+    ref.export(tmp_path / "ref.jpg", JaxParams(**SLIDERS), **flags)
+    data = (tmp_path / "out.jpg").read_bytes()
+    assert data == (tmp_path / "ref.jpg").read_bytes()
+    assert _sampling(data) == ((1, 1) if "chroma" in flags else (2, 2))
+    assert (b"\xff\xdd" in data) == ("jpeg_restart_rows" in flags)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(long_edge=64), dict(rotate=2.0), dict(crop=(0, 0, 40, 40)),
+    dict(lens=(0.01, 0.0, 0.0, 0.0)), dict(perspective=(0.1, 0.0)),
+    dict(chroma="422")], ids=lambda kw: next(iter(kw)))
+def test_export_refuses_unported_arguments(kw, rng, tmp_path):
+    """``long_edge`` and the geometry arguments raise
+    ``NotImplementedError`` naming themselves; an unknown ``chroma``
+    raises ``ValueError``, as in the JAX engine. Nothing is written."""
+    port, _ = _engines(rng, SETUPS[0])
+    name = next(iter(kw))
+    err = ValueError if name == "chroma" else NotImplementedError
+    with pytest.raises(err, match=name):
+        port.export(tmp_path / "out.jpg", EditParams(), **kw)
+    assert not list(tmp_path.iterdir())
