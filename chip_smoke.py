@@ -71,7 +71,27 @@ before it and read just after:
   process with no device pin (B4 planes alone). Each JPEG must equal,
   byte for byte, the engine's export of the same file and edit. It prints
   the tick medians beside the 16.7 ms limit, the frame and open times.
-  Only verbs that need no PIL run on the card.
+  Only verbs that need no PIL run on the card;
+- the wide-gamut, highlight-recovery and 16-bit path (``gamut()``), on
+  the file path's DNG and RAF, a new 4016x6016 DNG with a clipped disc
+  and the batch exporter's catalog: Display P3 ``full_rgba_device``
+  through B1, B3 (bilinear, Malvar), B4 and B5-B7, and B8 after B4 with
+  the extras edit; ``highlight_recovery=60`` on the clipped DNG (one
+  reconstruction for two develops at that amount, one more at 80); an
+  Adobe RGB
+  ``export(".jpg")`` that launches no develop kernel and carries its
+  profile; ``export(".tif")`` of the DNG (P3) and the RAF; run D of
+  ``run_batch_export`` (Display P3, recovery 0 and 60 mixed, JPEG, the
+  launches of run A) and run E (``bits=16`` on four files, no kernel);
+  the CLI's ``develop --mode accurate --color-space display-p3 --fast``
+  in a child process (B2 planes alone). Outside the counted phase every
+  P3 develop, the B4 develop of the recovered mosaic and the B8 pass
+  equal their plain versions (0 LSB), the card's reconstruction equals
+  the CPU's bit for bit, each TIFF's pixels are within 1 LSB of u16 of
+  the CPU's 16-bit develop over a crop, and every output of runs D and E
+  and the CLI's JPEG equals the engine's export byte for byte. It prints
+  the P3 develop times, the reconstruction's time beside its byte bound,
+  the Adobe and TIFF export times and sizes, and each run's report.
 
 Then it holds every kernel against its plain PyTorch version (at the four
 Bayer phases and on an odd 4015x6013 frame; the extras kernel for every
@@ -93,7 +113,8 @@ value may differ. It compares small frames on the card with the CPU,
 times each kernel beside its plain version with CUDA events, and prints:
 
 - a line ``{"kernels": [...]}`` with each kernel's launches on its path
-  (and on the file path and in each export run), its largest difference
+  (and on the file path, in each export run, in the session phase and
+  in the gamut phase), its largest difference
   from the plain version, both times, and its
   bound (the larger of bytes over 3.35 TB/s and f32 operations over
   67 TFLOP/s, the H100 SXM data-sheet rates);
@@ -209,6 +230,11 @@ EXPORT_FILES = {"dng12": 5, "dng14": 4, "raf": 3}
 SESSION_TICKS = 20
 TICK_LIMIT_MS = 16.7  # one 60 Hz frame (PERF.md section 2)
 EXPORT_BATCH = 4
+# The gamut phase: the highlight amount, and the crop (top, left, height,
+# width, margin) of its TIFFs that the CPU develops for the comparison
+# (top and left multiples of 6, the X-Trans period, minus the margin).
+HL_AMOUNT = 60.0
+TIFF_CROP = (1800, 2400, 192, 288, 24)
 # Nikon D3300 ColorMatrix (dcraw adobe_coeff, x10000) for the accurate frame.
 D3300_XYZ_TO_CAM = np.array([[6988, -1384, -714], [-5631, 13410, 2447],
                              [-1485, 2204, 7318]], np.float32) / 10000.0
@@ -1001,6 +1027,413 @@ def session(tmpdir, smi):
     return phase_launches
 
 
+def _tiff16(path):
+    """(pixels (H, W, 3) u16, ICC profile bytes or None) of a 16-bit TIFF
+    written by ``raw/tiff_out.write_tiff16``, read with the port's walker."""
+    from raweditor_tpu_torch.raw import tiff as T
+
+    with open(path, "rb") as f:
+        data = f.read()
+    ifd = T.TiffFile(data).ifds[0]
+    off = ifd.get_scalar(T.STRIP_OFFSETS)
+    h, w = ifd.get_scalar(T.IMAGE_LENGTH), ifd.get_scalar(T.IMAGE_WIDTH)
+    check(ifd.get(T.BITS_PER_SAMPLE) == (16, 16, 16), f"{path}: not 16-bit")
+    icc = ifd.get(34675)
+    pix = np.frombuffer(data, "<u2", h * w * 3, off).reshape(h, w, 3)
+    return pix, (bytes(icc) if icc is not None else None)
+
+
+def _icc_of_jpeg(data):
+    """The ICC profile of a JPEG's APP2 segments, or b"" without them."""
+    out, pos = [], 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF and data[pos + 1] != 0xDA:
+        n = int.from_bytes(data[pos + 2: pos + 4], "big")
+        body = data[pos + 4: pos + 2 + n]
+        if data[pos + 1] == 0xE2 and body.startswith(b"ICC_PROFILE\0"):
+            out.append(body[14:])
+        pos += 2 + n
+    return b"".join(out)
+
+
+def gamut(tmpdir, edit, xedit, smi):
+    """Wide gamut, highlight recovery and 16-bit output at 24 MP, over the
+    file path's DNG and RAF, a new 4016x6016 12-bit DNG with a clipped
+    disc (green at the white level, red and blue below it) and the batch
+    exporter's catalog, with the launch counts reset just before and read
+    just after:
+
+    - Display P3: ``full_rgba_device`` of the DNG for nearest, bilinear,
+      Malvar and grad (B1, B3, B4) and of the RAF for the three generic
+      tiers (B5, B6, B7), each launching its own kernel once, and the
+      extras edit on the grad engine (B4 words, then B8);
+    - recovery: ``highlight_recovery=60`` on the clipped DNG (accurate,
+      grad): one reconstruction for two develops at that amount, one
+      more for a develop at 80;
+    - Adobe RGB: ``export(".jpg")`` of the DNG, which must launch no
+      develop kernel (the kernels have no lane for its transfer) and
+      carry the profile in APP2;
+    - 16-bit: ``export(".tif")`` of the DNG (grad, Display P3) and of the
+      RAF (grad), no kernel (the plain lane);
+    - run D of ``run_batch_export`` over the catalog: Display P3, accurate
+      grad, recovery 0 and 60 alternating within each kind of file (so
+      mixed in every batch of more than one), JPEG; it launches what run
+      A launches;
+    - run E: ``bits=16`` on four of its files, no kernel;
+    - ``python -m raweditor_tpu_torch develop <dng> --mode accurate
+      --color-space display-p3 --fast`` in a child process (B2 planes
+      alone, counted in the child).
+
+    Outside the counted phase: every P3 develop, the B4 develop of the
+    recovered mosaic and the B8 pass are held at 0 LSB against their
+    plain versions; the card's reconstruction bit-equal to the same
+    function on the CPU; each TIFF's pixels against ``develop_u16`` /
+    ``develop_xtrans(bits=16)`` on the CPU over a 192x288 crop (the card's
+    and the CPU's ``pow`` and ``exp2`` may round an ulp apart: at most 1
+    LSB of u16, the differing share printed); every output of runs D and
+    E, and the CLI's JPEG, byte-equal to the engine's export of the same
+    job. Returns (the phase's launches, the child's included; the largest
+    LSB of each kernel from its plain version)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raweditor_tpu_torch import (DevelopEngine, EditParams, Library,
+                                     decode_raw)
+    from raweditor_tpu_torch.color import kernel_gamma_for, transfer16_for
+    from raweditor_tpu_torch.icc import profile_bytes
+    from raweditor_tpu_torch.native import get_rawkit
+    from raweditor_tpu_torch.ops import fused_develop as fused
+    from raweditor_tpu_torch.ops import fused_extras as fx
+    from raweditor_tpu_torch.ops import highlights as hl
+    from raweditor_tpu_torch.ops.develop import develop_u16, develop_xtrans
+    from raweditor_tpu_torch.pipeline.export import (jobs_from_catalog,
+                                                     run_batch_export)
+    from raweditor_tpu_torch.raw import synth
+
+    xtrans = fused.cfa_generic.XTRANS_PATTERN
+    files = os.path.join(tmpdir, "files")
+    dng = os.path.join(files, "DSC_0001.dng")
+    raf_path = os.path.join(files, "DSCF0001.RAF")
+    p3, amount = "display-p3", HL_AMOUNT
+    acc = dict(mode="accurate", use_kernel=True)
+    # The clipped file: a scene with a disc of a bright neutral under the
+    # as-shot WB (0.5, 1, 0.625), which clips green first.
+    rng = np.random.default_rng(SEED + 2)
+    m = scene(rng, H, W, 3600)
+    yy, xx = np.ogrid[:H, :W]
+    disc = (yy - H // 2) ** 2 + (xx - W // 3) ** 2 < (H // 5) ** 2
+    noise = rng.integers(-40, 41, size=(H, W))
+    ye, xe = (yy % 2 == 0), (xx % 2 == 0)
+    site = np.where(ye & xe, 2600, np.where(~ye & ~xe, 3300, 4095))
+    m = np.where(disc, np.clip(site + noise * (site < 4095), 0, 4095),
+                 m).astype(np.uint16)
+    gray = np.full((16, 16), 128, np.uint8)
+    chroma = np.full((8, 8), 128, np.uint8)
+    clip_path = os.path.join(tmpdir, "clipped.dng")
+    synth.write_synthetic_raw(
+        clip_path, m, bpp=12, xyz_to_cam=D3300_XYZ_TO_CAM, black_level=150,
+        white_level=4095, wb_neutral=(0.5, 1.0, 0.625),
+        make="NIKON CORPORATION", model="NIKON D3300",
+        preview_jpeg=get_rawkit().encode_jpeg_420(gray, chroma, chroma, 16,
+                                                  16, 90, False, 0, 0))
+    del m, noise, site, disc
+
+    def launched():
+        return {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES}.items()
+                if v}
+
+    def launching(want, fn, *args):
+        """``fn(*args)``, which must add one launch to each key of
+        ``want`` and to no other key."""
+        before = launched()
+        out = fn(*args)
+        now = launched()
+        moved = {k: now[k] - before.get(k, 0) for k in now
+                 if now[k] != before.get(k, 0)}
+        check(moved == {k: 1 for k in want}, f"{fn.__name__} launched "
+              f"{moved}, expected one each of {want}")
+        return out
+
+    recon_calls = []
+    real_recon = hl.reconstruct_mosaic_highlights
+
+    def counted_recon(*a, **k):
+        recon_calls.append(a[2])
+        return real_recon(*a, **k)
+
+    times, sizes = {}, {}
+    # -- the counted phase: counts reset just before, read just after -----
+    reset(fused.LAUNCHES)
+    reset(fx.LAUNCHES)
+    t0 = time.perf_counter()
+    # Display P3 through every develop kernel, and B8 after B4.
+    eng, times["open_dng_p3_ms"] = host_once(lambda: DevelopEngine.open(
+        dng, demosaic_method="grad", color_space=p3, **acc))
+    raw_dng, raw_raf = eng.raw, decode_raw(raf_path)
+    p3_engines = {("dng", "grad"): eng}
+    for mth in ("nearest", "bilinear", "malvar"):
+        p3_engines["dng", mth] = DevelopEngine(
+            raw_dng, demosaic_method=mth, color_space=p3, **acc)
+    for tier in XT_TIERS:
+        p3_engines["raf", tier] = DevelopEngine(
+            raw_raf, demosaic_method=tier, color_space=p3, **acc)
+    p3_words = {}
+    for (src, mth), e in p3_engines.items():
+        key = fused.launch_key("rgba", mth, xtrans if src == "raf" else None)
+        p3_words[src, mth], times[f"p3_{src}_{mth}_full_rgba_ms"] = host_once(
+            lambda: launching([key], e.full_rgba_device, edit))
+    p3_x = launching([fused.launch_key("rgba", "grad"), "extras_rgba"],
+                     eng.full_rgba_device, xedit)
+    # Highlight recovery: one reconstruction for two develops at 60, and
+    # one more for a drag to 80.
+    hl.reconstruct_mosaic_highlights = counted_recon
+    try:
+        eng_hl = DevelopEngine.open(clip_path, demosaic_method="grad", **acc)
+        grad_rgba = [fused.launch_key("rgba", "grad")]
+        hl_words, times["recovered_first_full_rgba_ms"] = host_once(
+            lambda: launching(grad_rgba, eng_hl.full_rgba_device,
+                              edit.replace(highlight_recovery=amount)))
+        _, times["recovered_again_full_rgba_ms"] = host_once(
+            lambda: launching(grad_rgba, eng_hl.full_rgba_device,
+                              edit.replace(highlight_recovery=amount,
+                                           exposure=0.6)))
+        rec = eng_hl._render_mosaic(edit.replace(highlight_recovery=amount))
+        _, times["recovered_new_amount_full_rgba_ms"] = host_once(
+            lambda: launching(grad_rgba, eng_hl.full_rgba_device,
+                              edit.replace(highlight_recovery=80.0)))
+        plain_words = launching(grad_rgba, eng_hl.full_rgba_device, edit)
+    finally:
+        hl.reconstruct_mosaic_highlights = real_recon
+    check(recon_calls == [amount, 80.0], f"reconstructions {recon_calls}, "
+          f"expected one at {amount}, one at 80")
+    check(not torch.equal(hl_words, plain_words), "recovery changed nothing")
+    # Adobe RGB: the plain develop lane, the profile in APP2.
+    ad = DevelopEngine(raw_dng, demosaic_method="grad", color_space="adobe-rgb",
+                       **acc)
+    before = launched()
+    ad_jpg, times["adobe_export_jpeg_ms"] = host_once(lambda: ad.export(
+        os.path.join(tmpdir, "adobe.jpg"), edit))
+    check(launched() == before, f"the Adobe RGB export launched "
+          f"{ {k: v - before.get(k, 0) for k, v in launched().items()} }")
+    # 16-bit TIFF of the DNG (P3, grad) and of the RAF (grad): no kernel.
+    raf_eng = DevelopEngine(raw_raf, demosaic_method="grad", **acc)
+    tifs = {}
+    for name, e in (("dng", eng), ("raf", raf_eng)):
+        before = launched()
+        tifs[name], times[f"export_tif_{name}_ms"] = host_once(
+            lambda: e.export(os.path.join(tmpdir, f"{name}.tif"), edit))
+        check(launched() == before, f"export .tif of the {name} launched")
+        sizes[f"{name}.tif"] = os.path.getsize(tifs[name])
+    # Runs D and E over the batch exporter's catalog.
+    lib = Library(os.path.join(tmpdir, "export.db"))
+    jobs_d = jobs_from_catalog(lib, os.path.join(tmpdir, "export_D"))
+    seen = {}
+    for job in jobs_d:
+        kind = os.path.basename(job.raw_path)[:4]
+        if seen.setdefault(kind, 0) % 2:
+            job.params = job.params.replace(highlight_recovery=amount)
+        seen[kind] += 1
+    runs = {"D": dict(mode="accurate", demosaic_method="grad",
+                      color_space=p3),
+            "E": dict(mode="accurate", demosaic_method="grad", bits=16)}
+    ids = [img.id for img in lib.get_all_images()
+           if img.filename in ("D12_0002.dng", "D12_0003.dng", "D14_0001.dng",
+                               "DSCF0002.RAF")]
+    jobs_e = jobs_from_catalog(lib, os.path.join(tmpdir, "export_E"),
+                               image_ids=ids, ext="tif")
+    jobs_e[0].params = jobs_e[0].params.replace(highlight_recovery=amount)
+    want_runs = {
+        "D": {fused.launch_key("ycbcr420", "grad"): 2,
+              fused.launch_key("rgba", "grad"): 1, "extras_ycbcr420": 1,
+              fused.launch_key("ycbcr420", "grad", xtrans): 1},
+        "E": {}}
+    for name, jobs in (("D", jobs_d), ("E", jobs_e)):
+        before = launched()
+        rep = run_batch_export(jobs, batch_size=EXPORT_BATCH, quality=95,
+                               use_kernel=True, **runs[name])
+        torch.cuda.synchronize()
+        moved = {k: v - before.get(k, 0) for k, v in launched().items()
+                 if v != before.get(k, 0)}
+        log(f"batch export run {name} {json.dumps(runs[name])}: "
+            f"{json.dumps(rep.as_dict())}; develops_per_sec "
+            f"{rep.develops_per_sec!r}; launches {moved} [{smi}]")
+        n_ok = sum(1 for j in jobs if not j.raw_path.endswith("9999.dng"))
+        check(rep.succeeded == n_ok and len(rep.failed) == len(jobs) - n_ok,
+              f"run {name}: {rep.as_dict()}, failures {rep.failed}")
+        check(moved == want_runs[name], f"run {name} launched {moved}, "
+              f"expected {want_runs[name]}")
+    lib.close()
+    torch.cuda.synchronize()
+    phase_launches = launched()
+    # The CLI in a child process with no device pin: the card. Started
+    # after the counted work so that its start-up overlaps the checks
+    # below and not the phase's times.
+    cli_out = os.path.join(tmpdir, "cli_p3.jpg")
+    argv = ["develop", dng, "-o", cli_out, "--mode", "accurate",
+            "--color-space", p3, "--fast"]
+    code = ("import json, sys\n"
+            "from raweditor_tpu_torch.cli import main\n"
+            "from raweditor_tpu_torch.ops import fused_develop, fused_extras\n"
+            f"code = main({argv!r})\n"
+            "print(json.dumps({**fused_develop.LAUNCHES, "
+            "**fused_extras.LAUNCHES}))\n"
+            "sys.exit(code)\n")
+    env = {k: v for k, v in os.environ.items()
+           if k != "RAWEDITOR_TPU_PLATFORM"}
+    t_child = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", code], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+
+    # -- checks outside the counted phase ----------------------------------
+    try:
+        errs = {}
+
+        def held(key, got, want):
+            mx = lsb_diff(got, want)[0]
+            check(mx == 0, f"{key}: {mx} LSB from its plain version")
+            errs[key] = max(errs.get(key, 0), mx)
+
+        kernel_ms = {}
+        for (src, mth), e in p3_engines.items():
+            pattern = xtrans if src == "raf" else None
+            key = fused.launch_key("rgba", mth, pattern)
+            gamma = kernel_gamma_for(e.transfer)
+            held(key, p3_words[src, mth], fused.develop_rgba_folded_plain(
+                e.mosaic[None], e.scalars(edit)[None], e.cfa_phase, gamma,
+                **e._kernel_demosaic())[0])
+            kernel_ms[key] = statistics.median(
+                cuda_ms(lambda: e.full_rgba_device(edit), 5))
+        table, *flags = fx.pack_extras([xedit])
+        dev = fused.fused_develop_rgba(eng.mosaic, eng.scalars(xedit),
+                                       eng.cfa_phase, "srgb", demosaic="grad")
+        held("extras_rgba", p3_x, fx.finish_extras_plain(
+            dev[None], table.cuda(), *flags)[0])
+        kernel_ms["extras_rgba"] = statistics.median(
+            cuda_ms(lambda: eng.full_rgba_device(xedit), 5))
+        del dev, p3_words, p3_x
+        log(f"gamut phase, Display P3: every develop kernel and B8 0 LSB "
+            f"from plain; full_rgba_device ms (CUDA events, median of 5, the "
+            f"develop and for extras_rgba B4 then B8) {json.dumps(kernel_ms)}"
+            f" [{smi}]")
+        # The reconstruction: the card's equal to the CPU's, B4 over it.
+        lv = (eng_hl.wb, amount, eng_hl.white_level, eng_hl.black_level)
+        cpu_rec = real_recon(eng_hl.mosaic.cpu(), *lv,
+                             cfa_phase=eng_hl.cfa_phase)
+        changed = int((rec != eng_hl.mosaic).sum())
+        check(torch.equal(rec.cpu(), cpu_rec), "reconstruction: card != CPU")
+        check(changed > 0, "the reconstruction changed no site")
+        p_hl = edit.replace(highlight_recovery=amount)
+        held(fused.launch_key("rgba", "grad"), hl_words,
+             fused.develop_rgba_folded_plain(
+                 rec[None], eng_hl.scalars(p_hl)[None], eng_hl.cfa_phase,
+                 kernel_gamma_for(eng_hl.transfer), demosaic="grad")[0])
+        rec_ms = statistics.median(cuda_ms(lambda: real_recon(
+            eng_hl.mosaic, *lv, cfa_phase=eng_hl.cfa_phase), 5))
+        rec_bound = H * W * 4 / HBM_BYTES_PER_S * 1e3
+        log(f"gamut phase, recovery {amount}: card bit-equal to the CPU, "
+            f"{changed} of {H * W} sites raised, B4 over it 0 LSB from "
+            f"plain; reconstruction {rec_ms:.4f} ms (CUDA events, median of "
+            f"5) against its bound {rec_bound:.4f} ms by bytes (2 B/px read, "
+            f"2 written) [{smi}]")
+        del cpu_rec, hl_words, plain_words
+        # The Adobe JPEG carries its profile.
+        with open(ad_jpg, "rb") as f:
+            data = f.read()
+        sizes["adobe.jpg"] = len(data)
+        check(data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9"
+              and _icc_of_jpeg(data) == profile_bytes("adobe-rgb"),
+              "Adobe RGB export: no APP2 profile")
+        # Each TIFF against the CPU's 16-bit develop over a crop.
+        y0, x0, ch, cw, pad = TIFF_CROP
+        tif_lsb = {}
+        for name, e in (("dng", eng), ("raf", raf_eng)):
+            pix, icc = _tiff16(tifs[name])
+            check(pix.shape == (e.height, e.width, 3), f"{name}.tif shape")
+            check(icc == (profile_bytes(p3) if name == "dng" else None),
+                  f"{name}.tif ICC")
+            crop = e.mosaic[y0 - pad: y0 + ch + pad,
+                            x0 - pad: x0 + cw + pad].cpu()
+            kw = dict(white_level=e.white_level, black_level=e.black_level,
+                      matrix_transpose=e.matrix_transpose,
+                      transfer=transfer16_for(e.transfer))
+            if name == "raf":
+                cpu = develop_xtrans(crop, edit, e.wb, e.cam_matrix,
+                                     pattern=xtrans, bits=16,
+                                     demosaic_method="grad", **kw)
+            else:
+                cpu = develop_u16(crop, edit, e.wb, e.cam_matrix,
+                                  demosaic_method="grad",
+                                  cfa_phase=e.cfa_phase, **kw)
+            d = np.abs(pix[y0: y0 + ch, x0: x0 + cw].astype(np.int32)
+                       - cpu[pad:-pad, pad:-pad].numpy().astype(np.int32))
+            tif_lsb[name] = (int(d.max()), float((d > 0).mean()))
+            check(tif_lsb[name][0] <= 1, f"{name}.tif vs the CPU: "
+                  f"{tif_lsb[name]}")
+        log(f"gamut phase, 16-bit: TIFF pixels over the {ch}x{cw} crop at "
+            f"({y0}, {x0}) against develop_u16 / develop_xtrans(bits=16) on "
+            f"the CPU, (max LSB of u16, differing share): "
+            f"{json.dumps(tif_lsb)}; sizes {json.dumps(sizes)} bytes")
+
+        # Every output of runs D and E against the engine's export.
+        def engine_bytes(name, job):
+            kw = dict(runs[name])
+            kw.pop("bits", None)
+            mode = kw.pop("mode")
+            e = DevelopEngine.open(job.raw_path, mode, use_kernel=True, **kw)
+            ref = e.export(os.path.join(
+                tmpdir, f"engine_{name}_{job.image_id}"
+                + os.path.splitext(job.out_path)[1]), job.params, quality=95)
+            with open(ref, "rb") as f, open(job.out_path, "rb") as g:
+                same = f.read() == g.read()
+            os.unlink(ref)
+            if name == "E" or job.out_path.endswith(".tif"):
+                os.unlink(job.out_path)
+            return job.out_path, same
+
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            same = list(pool.map(lambda a: engine_bytes(*a), [
+                (name, job) for name, jobs in (("D", jobs_d), ("E", jobs_e))
+                for job in jobs if not job.raw_path.endswith("9999.dng")]))
+        for path, equal in same:
+            check(equal, f"{path} differs from the engine's export")
+        with open(jobs_d[0].out_path, "rb") as f:
+            check(_icc_of_jpeg(f.read()) == profile_bytes(p3),
+                  "run D: no Display P3 profile")
+        log(f"gamut phase: {len(same)} outputs of runs D and E byte-equal "
+            f"to the engine's export ({time.perf_counter() - t1:.2f} s, four "
+            "threads)")
+        out, err = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+    times["cli_develop_process_ms"] = (time.perf_counter() - t_child) * 1e3
+    check(child.returncode == 0, f"CLI develop exited {child.returncode}: "
+          f"{err[-2000:]}")
+    stdout = out.strip().splitlines()
+    cli_launches = {k: v for k, v in json.loads(stdout[-1]).items() if v}
+    check(stdout[0] == cli_out, f"CLI develop printed {stdout[:1]}")
+    check(cli_launches == {"develop_ycbcr420": 1},
+          f"CLI develop launched {cli_launches}")
+    ref = DevelopEngine.open(dng, color_space=p3, **acc).export(
+        os.path.join(tmpdir, "engine_cli_p3.jpg"), EditParams())
+    with open(ref, "rb") as f, open(cli_out, "rb") as g:
+        data = g.read()
+        check(f.read() == data, "the CLI's P3 JPEG differs from the engine's "
+              "export")
+    check(_icc_of_jpeg(data) == profile_bytes(p3), "CLI JPEG: no profile")
+    del p3_engines, eng, eng_hl, ad, raf_eng, rec
+    torch.cuda.empty_cache()
+    log(f"gamut phase: {seconds:.2f} s counted; launches {phase_launches} in "
+        f"this process, {cli_launches} in the CLI's; times (host clock, one "
+        f"call each, device synced) {json.dumps(times)} [{smi}]")
+    for k, v in cli_launches.items():
+        phase_launches[k] = phase_launches.get(k, 0) + v
+    return phase_launches, errs
+
+
 def main():
     import argparse
 
@@ -1330,6 +1763,24 @@ def main():
           f"{session_want}")
     lap("session, server and CLI")
 
+    # -- wide gamut, recovery, 16-bit (counts reset and read inside) ------
+    gamut_launches, gamut_errs = gamut(tmpdir, edit, xedit, smi)
+    grad = fused.launch_key("rgba", "grad")
+    gamut_want = {
+        # Display P3 through B1, B3, B4 and B5-B7, B4 then B8 for extras
+        "develop_rgba": 1, fused.launch_key("rgba", "bilinear"): 1,
+        fused.launch_key("rgba", "malvar"): 1, "extras_rgba": 1,
+        **{fused.launch_key("rgba", t, xtrans): 1 for t in XT_TIERS},
+        # + the recovered frame four times, + run D as run A
+        grad: 2 + 4 + 1, fused.launch_key("ycbcr420", "grad"): 2,
+        "extras_ycbcr420": 1,
+        fused.launch_key("ycbcr420", "grad", xtrans): 1,
+        # the CLI child's P3 develop --fast (nearest planes)
+        "develop_ycbcr420": 1}
+    check(gamut_launches == gamut_want,
+          f"gamut phase launched {gamut_launches}, expected {gamut_want}")
+    lap("wide gamut, recovery and 16-bit")
+
     # -- outputs ----------------------------------------------------------
     check(tuple(prev.shape) == (854, 1280, 3) and prev.dtype == torch.uint8,
           f"preview shape {tuple(prev.shape)}")
@@ -1368,6 +1819,8 @@ def main():
         f"{[len(j) for j in grad_jpegs]} bytes")
 
     errs = {k: 0 for k in launches}
+    for k, v in gamut_errs.items():
+        errs[k] = max(errs[k], v)
 
     def note(key, mx, what):
         check(mx <= 1, f"{what}: {mx} LSB")
@@ -2056,7 +2509,8 @@ def main():
     # versions' arithmetic bit for bit: no differing pixel in any
     # comparison above, at 24 MP, on the odd frame, at the four phases, in
     # the batch planes or on the edges.
-    for key in (*quad_worst, *grad_worst, *x_edge_worst, *cfa_edge_worst):
+    for key in (*quad_worst, *grad_worst, *x_edge_worst, *cfa_edge_worst,
+                *gamut_errs):
         check(errs[key] == 0, f"{key}: {errs[key]} LSB from its plain version")
 
     kernels = []
@@ -2075,7 +2529,8 @@ def main():
             "file_path_launches": file_launches.get(key, 0),
             "export_launches": {run: n.get(key, 0)
                                 for run, n in export_launches.items()},
-            "session_launches": session_launches.get(key, 0)})
+            "session_launches": session_launches.get(key, 0),
+            "gamut_launches": gamut_launches.get(key, 0)})
     for key in x_timed:
         kernels.append({
             "name": key, "route": "cuda", "source": SRC["extras"],
@@ -2088,7 +2543,8 @@ def main():
             "file_path_launches": file_launches.get(key, 0),
             "export_launches": {run: n.get(key, 0)
                                 for run, n in export_launches.items()},
-            "session_launches": session_launches.get(key, 0)})
+            "session_launches": session_launches.get(key, 0),
+            "gamut_launches": gamut_launches.get(key, 0)})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
         f"build included; seconds by phase {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))

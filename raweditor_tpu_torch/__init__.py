@@ -36,7 +36,7 @@ equal to its source).
 """
 
 from raweditor_tpu_torch.catalog import Library
-from raweditor_tpu_torch.color import cam_to_srgb_matrix
+from raweditor_tpu_torch.color import cam_to_output_matrix, cam_to_srgb_matrix
 from raweditor_tpu_torch.ops.demosaic import (
     DEMOSAIC_METHODS,
     demosaic,
@@ -49,6 +49,7 @@ from raweditor_tpu_torch.ops.develop import (
     develop_preview,
     develop_rgba,
     develop_u8,
+    develop_u16,
     develop_xtrans,
     develop_xtrans_histogram,
     develop_xtrans_preview,
@@ -76,6 +77,7 @@ __all__ = [
     "Library",
     "RawDecodeError",
     "RawImage",
+    "cam_to_output_matrix",
     "cam_to_srgb_matrix",
     "decode_raw",
     "demosaic",
@@ -87,6 +89,7 @@ __all__ = [
     "develop_rgba",
     "develop_rgba_folded_plain",
     "develop_u8",
+    "develop_u16",
     "develop_xtrans",
     "develop_xtrans_histogram",
     "develop_xtrans_preview",

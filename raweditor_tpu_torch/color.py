@@ -1,8 +1,13 @@
-"""Colour science: camera RGB to linear sRGB, and the transfer curves.
+"""Colour science: camera RGB to a linear output space, and the
+transfer curves.
 
-The matrix builders are numpy (host, once per image). The transfer
-curves run on torch tensors in f32 with the same operation order as the
-JAX package's, so the parity lane can match it bit for bit.
+The matrix builders are numpy (host, once per image). The output spaces
+are sRGB and, in accurate mode, the wide gamuts Display P3 and Adobe RGB
+(1998) (``cam_to_output_matrix``); ``icc.py`` builds their profiles from
+the same chromaticities. The transfer curves run on torch tensors in f32
+with the same operation order as the JAX package's, so the parity lane
+can match it bit for bit; ``srgb_decode`` also takes a numpy array, as
+``icc.py`` builds its curve table with it.
 """
 
 from __future__ import annotations
@@ -127,32 +132,133 @@ def srgb_poly_encode(x: torch.Tensor) -> torch.Tensor:
                        horner(s, SRGB_POLY))
 
 
+def srgb_decode(x):
+    """IEC 61966-2-1 inverse transfer (sRGB to linear). A torch tensor
+    stays f32; a numpy array (``icc.py``'s 1024-entry table, float64) is
+    computed as the JAX package's numpy branch computes it, with f32
+    constants."""
+    if isinstance(x, torch.Tensor):
+        x = torch.clamp(x, 0.0, 1.0)
+        lo = x / float(np.float32(12.92))
+        hi = torch.pow((x + float(np.float32(0.055)))
+                       / float(np.float32(1.055)), float(np.float32(2.4)))
+        return torch.where(x <= float(np.float32(0.04045)), lo, hi)
+    x = np.clip(x, 0.0, 1.0)
+    lo = x / np.float32(12.92)
+    hi = np.power((x + np.float32(0.055)) / np.float32(1.055),
+                  np.float32(2.4))
+    return np.where(x <= np.float32(0.04045), lo, hi)
+
+
 # Transfer name to the fused kernel's gamma lane ("pow" is exact 1/2.2).
+# The Adobe RGB transfer has no lane: it takes the plain develop.
 KERNEL_GAMMA_BY_TRANSFER = {
     "gamma22": "pow",
     "gamma22_poly": "poly",
     "srgb": "srgb",
     "srgb_poly": "srgb_poly",
 }
+# The polynomial transfers are fit to u8 accuracy (about 6 LSB of u16):
+# 16-bit output demotes them to the exact curve.
+TRANSFER16_BY_TRANSFER = {
+    "gamma22_poly": "gamma22",
+    "srgb_poly": "srgb",
+}
 
 
-def kernel_gamma_for(transfer: str) -> str:
-    try:
-        return KERNEL_GAMMA_BY_TRANSFER[transfer]
-    except KeyError:
-        raise ValueError(f"unknown transfer {transfer!r}") from None
+def kernel_gamma_for(transfer: str):
+    """The develop kernels' gamma lane of a transfer, or None for a
+    transfer they do not compute (``gamma_adobe``); an unknown name
+    raises ``ValueError``."""
+    encoder_for(transfer)
+    return KERNEL_GAMMA_BY_TRANSFER.get(transfer)
+
+
+def transfer16_for(transfer: str) -> str:
+    return TRANSFER16_BY_TRANSFER.get(transfer, transfer)
 
 
 def encoder_for(transfer: str):
     """The encode callable for a transfer name."""
-    if transfer == "gamma_adobe":
-        raise NotImplementedError("not ported yet: the Adobe RGB transfer")
     try:
         return {
             "gamma22": gamma22_encode,
             "gamma22_poly": gamma22_poly_encode,
             "srgb": srgb_encode,
             "srgb_poly": srgb_poly_encode,
+            "gamma_adobe": adobe_gamma_encode,
         }[transfer]
     except KeyError:
         raise ValueError(f"unknown transfer {transfer!r}") from None
+
+
+# ---------------------------------------------------------------------------
+# Wide-gamut output spaces (accurate mode): the dcraw-style derivation with
+# the target's RGB-to-XYZ matrix in place of sRGB's.
+# ---------------------------------------------------------------------------
+
+
+def _rgb_to_xyz_from_chromaticities(primaries_xy, white_xy):
+    """RGB-to-XYZ (rows X, Y, Z) from primary and white chromaticities:
+    the primary columns scaled so that RGB (1, 1, 1) lands on the white
+    point with Y = 1."""
+    def xyz(x, y):
+        return np.array([x / y, 1.0, (1.0 - x - y) / y], np.float64)
+
+    prim = np.stack([xyz(x, y) for x, y in primaries_xy], axis=1)
+    white = xyz(*white_xy)
+    scale = np.linalg.solve(prim, white)
+    return prim * scale[None, :]
+
+
+_D65_XY = (0.3127, 0.3290)
+# Display P3 (SMPTE EG 432-1 primaries, D65, sRGB transfer).
+DISPLAY_P3_TO_XYZ = _rgb_to_xyz_from_chromaticities(
+    ((0.680, 0.320), (0.265, 0.690), (0.150, 0.060)), _D65_XY)
+# Adobe RGB (1998): 2.19921875 (= 563/256) gamma.
+ADOBE_RGB_TO_XYZ = _rgb_to_xyz_from_chromaticities(
+    ((0.640, 0.330), (0.210, 0.710), (0.150, 0.060)), _D65_XY)
+
+COLOR_SPACES = ("srgb", "display-p3", "adobe-rgb")
+# The transfer each wide space mandates ("srgb" keeps the caller's).
+TRANSFER_BY_SPACE = {"display-p3": "srgb", "adobe-rgb": "gamma_adobe"}
+
+_RGB_TO_XYZ_BY_SPACE = {
+    "display-p3": DISPLAY_P3_TO_XYZ,
+    "adobe-rgb": ADOBE_RGB_TO_XYZ,
+}
+
+ADOBE_GAMMA = 563.0 / 256.0  # Adobe RGB (1998), exactly 2.19921875
+INV_ADOBE = float(np.float32(1.0 / ADOBE_GAMMA))
+
+
+def adobe_gamma_encode(x):
+    """Adobe RGB (1998) forward transfer x^(256/563), negatives clamped
+    to 0 before the pow; a numpy array is computed as the JAX package's
+    numpy branch computes it."""
+    if isinstance(x, torch.Tensor):
+        return torch.pow(torch.clamp_min(x, 0.0), INV_ADOBE)
+    return np.power(np.maximum(x, 0.0), np.float32(1.0 / ADOBE_GAMMA))
+
+
+def cam_to_output_matrix(xyz_to_cam, mode: str = "parity",
+                         color_space: str = "srgb") -> np.ndarray:
+    """(3, 3) f32 camera-RGB to linear-output matrix for any supported
+    space: ``cam_to_srgb_matrix`` with the target's RGB-to-XYZ swapped
+    in. Parity is sRGB only (``ValueError`` otherwise). Identity or
+    broken metadata means the pixels are effectively sRGB, so the
+    fallback is the sRGB-to-target bridge, not the identity."""
+    if color_space in (None, "srgb"):
+        return cam_to_srgb_matrix(xyz_to_cam, mode=mode)
+    if color_space not in _RGB_TO_XYZ_BY_SPACE:
+        raise ValueError(
+            f"unknown color space {color_space!r}; expected one of "
+            f"{COLOR_SPACES}")
+    if mode != "accurate":
+        raise ValueError(
+            "wide-gamut output requires mode='accurate' (parity is "
+            "defined as the reference's sRGB bytes)")
+    m = np.asarray(xyz_to_cam, dtype=np.float64).reshape(3, 3)
+    bridge = (np.linalg.inv(_RGB_TO_XYZ_BY_SPACE[color_space])
+              @ SRGB_TO_XYZ.astype(np.float64)).astype(np.float32)
+    return _cam_matrix_body(m, _RGB_TO_XYZ_BY_SPACE[color_space], bridge)

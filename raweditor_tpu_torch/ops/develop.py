@@ -74,14 +74,14 @@ def u16_to_f32(t: torch.Tensor) -> torch.Tensor:
 def require_ported(params: EditParams, extras=False) -> None:
     """Raise ``NotImplementedError``, naming the field, for edits this
     port cannot render yet (they are never skipped silently): clarity,
-    dehaze, grain, local adjustments and highlight recovery."""
+    dehaze, grain and local adjustments. Highlight recovery is not a
+    stage of these functions: the engine and the exporter reconstruct
+    the mosaic before they develop it (``ops/highlights.py``)."""
     for name in ("clarity", "dehaze", "grain"):
         if float(getattr(params, name)):
             raise NotImplementedError(f"not ported yet: {name}")
     if params.locals:
         raise NotImplementedError("not ported yet: local adjustments")
-    if float(params.highlight_recovery):
-        raise NotImplementedError("not ported yet: highlight recovery")
     _extras_of(params, extras)
 
 
@@ -237,6 +237,33 @@ def finish_to_u8(r, g, b, valid=None, transfer: str = "gamma22",
     return quant(r), quant(g), quant(b)
 
 
+def finish_to_u16(r, g, b, transfer: str = "gamma22", extras=None,
+                  point_curve=None):
+    """The 16-bit ``finish_to_u8``: the same transfer, point curve and
+    extras, quantised ``floor(c*65535 + 0.5)``. The polynomial transfers
+    (u8 accuracy only) are demoted to their exact curves
+    (``transfer16_for``). Returns three u16 planes."""
+    from raweditor_tpu_torch.color import transfer16_for
+
+    encode = encoder_for(transfer16_for(transfer))
+    r, g, b = (torch.clamp_max(encode(c), 1.0) for c in (r, g, b))
+    if point_curve:
+        from raweditor_tpu_torch.ops.curve import apply_point_curve
+
+        r, g, b = (apply_point_curve(c, point_curve) for c in (r, g, b))
+    if extras is not None:
+        from raweditor_tpu_torch.ops.extras import apply_finish_extras
+
+        r, g, b = apply_finish_extras(r, g, b, *extras)
+    return tuple(_to_u16(torch.floor(c * 65535.0 + 0.5)) for c in (r, g, b))
+
+
+def _to_u16(q: torch.Tensor) -> torch.Tensor:
+    """f32 codes 0..65535 to a u16 tensor, through int32 and the int16
+    bit pattern (a direct f32-to-u16 cast is not on every backend)."""
+    return q.to(torch.int32).to(torch.int16).view(torch.uint16)
+
+
 def pack_rgba(r8, g8, b8) -> torch.Tensor:
     """Three u8 planes to packed RGBA u32 words (R in the low byte,
     alpha 0xFF). The shifts run in int64 (uint32 has no shift on the
@@ -309,6 +336,20 @@ def develop_rgba(mosaic, params: EditParams, wb, cam_matrix,
                               **_finish_kwargs(params, transfer, extras))
 
 
+def develop_u16(mosaic, params: EditParams, wb, cam_matrix,
+                white_level=4096.0, black_level=0.0,
+                demosaic_method: str = "nearest",
+                matrix_transpose: bool = True, transfer: str = "gamma22",
+                cfa_phase=(0, 0), extras=False):
+    """Full-resolution develop to 16 bits: (H, W) u16 to (H, W, 3) u16,
+    the TIFF export's develop (``finish_to_u16``)."""
+    r, g, b = _linear_planes(mosaic, params, wb, cam_matrix, white_level,
+                             black_level, demosaic_method,
+                             matrix_transpose, cfa_phase, extras)
+    return torch.stack(finish_to_u16(
+        r, g, b, **_finish_kwargs(params, transfer, extras)), dim=-1)
+
+
 def develop_u8(mosaic, params, wb, cam_matrix, **kwargs) -> np.ndarray:
     """``develop`` returned as a host numpy (H, W, 3) u8 array."""
     return develop(mosaic, params, wb, cam_matrix, **kwargs).cpu().numpy()
@@ -351,7 +392,8 @@ def develop_xtrans(mosaic, params: EditParams, wb, cam_matrix,
                    demosaic_method: str = "nearest", bits: int = 8,
                    extras=False):
     """Full develop of an X-Trans (or any square repeating-CFA) mosaic:
-    (H, W) u16 to (H, W, 3) u8, or with ``rgba`` to (H, W) u32 words.
+    (H, W) u16 to (H, W, 3) u8, with ``rgba`` to (H, W) u32 words, or
+    with ``bits=16`` to (H, W, 3) u16 (``finish_to_u16``).
     ``demosaic_method`` is "nearest", "smooth" or "grad"
     (``ops/cfa_generic.py``); ``pattern`` defaults to the X-Trans grid."""
     from raweditor_tpu_torch.ops import cfa_generic
@@ -360,8 +402,6 @@ def develop_xtrans(mosaic, params: EditParams, wb, cam_matrix,
     side = _square_period(pat)
     if rgba and bits == 16:
         raise ValueError("rgba and bits=16 are mutually exclusive")
-    if bits == 16:
-        raise NotImplementedError("not ported yet: 16-bit output")
     demosaics = {"nearest": cfa_generic.demosaic_nearest_generic,
                  "smooth": cfa_generic.demosaic_smooth_generic,
                  "grad": cfa_generic.demosaic_grad_generic}
@@ -376,7 +416,8 @@ def develop_xtrans(mosaic, params: EditParams, wb, cam_matrix,
     finish = _finish_kwargs(params, transfer, extras)
     if rgba:
         return finish_to_rgba_u32(r, g, b, **finish)
-    return torch.stack(finish_to_u8(r, g, b, **finish), dim=-1)
+    finish_to = finish_to_u16 if bits == 16 else finish_to_u8
+    return torch.stack(finish_to(r, g, b, **finish), dim=-1)
 
 
 def develop_xtrans_preview(mosaic, params: EditParams, wb, cam_matrix,

@@ -12,7 +12,9 @@ plain lane over a batch (per-image extras in the chain, per-image point
 curves), with ``_maybe_ycbcr`` turning its words into JPEG planes;
 ``batch_develop`` is the same lane to (N, H, W, 3) u8;
 ``batch_develop_xtrans_rgba`` is the RGBA lane over X-Trans (generic-CFA)
-mosaics.
+mosaics; ``batch_develop_u16`` is the 16-bit lane over Bayer or X-Trans
+mosaics, the exporter's ``bits=16`` flush (the JAX exporter vmaps
+``develop_u16`` and ``develop_xtrans(bits=16)``).
 """
 
 from __future__ import annotations
@@ -21,12 +23,12 @@ import numpy as np
 import torch
 
 from raweditor_tpu_torch.ops.develop import (develop, develop_rgba,
-                                             develop_xtrans)
+                                             develop_u16, develop_xtrans)
 from raweditor_tpu_torch.ops.fused_develop import fold_scalars
 from raweditor_tpu_torch.ops.fused_extras import pack_extras
 
-__all__ = ["batch_develop", "batch_develop_rgba", "batch_develop_xtrans_rgba",
-           "pack_extras", "pack_params"]
+__all__ = ["batch_develop", "batch_develop_rgba", "batch_develop_u16",
+           "batch_develop_xtrans_rgba", "pack_extras", "pack_params"]
 
 
 def _levels(n: int, white_levels, black_levels):
@@ -129,3 +131,28 @@ def batch_develop_xtrans_rgba(mosaics: torch.Tensor, params_list, wbs,
                        transfer=transfer, rgba=True,
                        demosaic_method=demosaic_method, extras=extras)
     return _maybe_ycbcr(words, output)
+
+
+def batch_develop_u16(mosaics: torch.Tensor, params_list, wbs, cam_matrices,
+                      white_levels=None, black_levels=None,
+                      matrix_transpose: bool = True, cfa_phase=(0, 0),
+                      pattern: str = None, transfer: str = "gamma22",
+                      demosaic_method: str = "nearest", extras=False):
+    """The 16-bit plain lane over a batch: (N, H, W) u16 to
+    (N, H, W, 3) u16, each image with its own edit, WB, matrix and
+    levels. A ``pattern`` develops X-Trans (generic-CFA) mosaics with
+    ``develop_xtrans(bits=16)`` and its ``demosaic_method`` ("nearest",
+    "smooth", "grad"), else Bayer ones at ``cfa_phase`` with
+    ``develop_u16``. ``extras`` is the batch's static finish-extras mode,
+    run in the chain (the words post-pass is 8-bit)."""
+    if pattern is not None:
+        return _per_image(develop_xtrans, mosaics, params_list, wbs,
+                          cam_matrices, white_levels, black_levels,
+                          pattern=pattern, matrix_transpose=matrix_transpose,
+                          transfer=transfer, bits=16,
+                          demosaic_method=demosaic_method, extras=extras)
+    return _per_image(develop_u16, mosaics, params_list, wbs, cam_matrices,
+                      white_levels, black_levels,
+                      demosaic_method=demosaic_method,
+                      matrix_transpose=matrix_transpose, transfer=transfer,
+                      cfa_phase=cfa_phase, extras=extras)

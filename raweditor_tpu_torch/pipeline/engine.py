@@ -71,11 +71,31 @@ white-balance eyedropper, ``before_after`` the before/after toggle, and
 ``ctor_kwargs`` the as-constructed keywords a sibling engine is built
 from.
 
-Not ported yet: LinearRaw frames, CFA
-patterns other than the four Bayer phases and 36-letter grids, clarity, dehaze, grain, local adjustments, highlight recovery
-(each raises ``NotImplementedError`` naming it), wide-gamut output
-(``color_space`` other than "srgb"), tiers, TIFF16 and geometry in
-exports.
+``color_space`` picks the output space: "srgb", or in accurate mode the
+wide gamuts "display-p3" and "adobe-rgb" (``color.cam_to_output_matrix``;
+parity raises ``ValueError``). A wide space mandates its transfer (sRGB's
+for P3, the 563/256 power for Adobe RGB), ``fast_gamma`` then applies,
+and every export embeds the space's ICC profile (``icc.py``): a JPEG APP2
+segment, PNG ``iCCP``, TIFF tag 34675. The develop kernels have no lane
+for the Adobe transfer, so with ``use_kernel`` an Adobe RGB develop takes
+the plain lane (a route chosen by the transfer, as for a point curve);
+extras still run B8 over its words.
+
+A non-zero ``highlight_recovery`` reconstructs the clipped sites of the
+mosaic (``ops/highlights.py``, plain torch on the device) before every
+render: the preview, histogram, full develop, JPEG planes and TIFF take
+``_render_mosaic(params)``, which keeps the last reconstruction per amount.
+The white-balance eyedropper reads the original mosaic.
+
+``export`` writes 16-bit RGB TIFF for ``.tif``/``.tiff``
+(``export_tiff16``: the plain lane's ``develop_u16`` or
+``develop_xtrans(bits=16)`` with the exact transfer, then the copied
+``raw/tiff_out.write_tiff16``).
+
+Not ported yet: LinearRaw frames, CFA patterns other than the four Bayer
+phases and 36-letter grids, clarity, dehaze, grain, local adjustments
+(each raises ``NotImplementedError`` naming it), tiers, and resize and
+geometry in exports.
 """
 
 from __future__ import annotations
@@ -86,7 +106,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from raweditor_tpu_torch.color import cam_to_srgb_matrix, kernel_gamma_for
+from raweditor_tpu_torch.color import (COLOR_SPACES,
+                                       KERNEL_GAMMA_BY_TRANSFER,
+                                       TRANSFER_BY_SPACE,
+                                       cam_to_output_matrix, kernel_gamma_for,
+                                       transfer16_for)
 from raweditor_tpu_torch.ops import develop as _develop
 from raweditor_tpu_torch.ops import fused_develop as _fused
 from raweditor_tpu_torch.ops import fused_extras as _fx
@@ -96,8 +120,7 @@ from raweditor_tpu_torch.ops.demosaic import (CFA_PHASES, DEMOSAIC_METHODS,
                                               phase_of)
 from raweditor_tpu_torch.ops.sampling import histogram_shape, preview_shape
 from raweditor_tpu_torch.params import EditParams
-from raweditor_tpu_torch.pipeline.export import (_COLOR_SPACES,
-                                                 _atomic_write,
+from raweditor_tpu_torch.pipeline.export import (_atomic_write,
                                                  _record_event,
                                                  _refuse_geometry)
 from raweditor_tpu_torch.raw.types import RawImage
@@ -130,14 +153,12 @@ class DevelopEngine:
         if mode not in ("parity", "accurate"):
             raise ValueError(f"unknown mode {mode!r}")
         color_space = (color_space or "srgb").lower()
-        if color_space not in _COLOR_SPACES:
+        if color_space not in COLOR_SPACES:
             raise ValueError(f"unknown color space {color_space!r}; "
-                             f"expected one of {_COLOR_SPACES}")
-        if color_space != "srgb":
-            raise NotImplementedError(
-                f"not ported yet: color_space {color_space!r} (wide-gamut "
-                "output)")
+                             f"expected one of {COLOR_SPACES}")
         self.color_space = color_space
+        # A wide space mandates its transfer; fast_gamma applies after.
+        transfer = TRANSFER_BY_SPACE.get(color_space, transfer)
         if demosaic_method not in DEMOSAIC_METHODS + ("smooth",):
             raise ValueError(f"unknown demosaic method {demosaic_method!r}")
         if raw.is_linear:
@@ -173,7 +194,8 @@ class DevelopEngine:
             mosaic = mosaic.copy()
         self.mosaic = torch.from_numpy(mosaic).to(self.device)
         self.wb = raw.wb_rgb()
-        self.cam_matrix = cam_to_srgb_matrix(raw.xyz_to_cam, mode=mode)
+        self.cam_matrix = cam_to_output_matrix(raw.xyz_to_cam, mode=mode,
+                                               color_space=color_space)
         self.matrix_transpose = mode == "parity"
         self.xtrans_pattern = None  # set for 6x6 CFAs in accurate mode
         if mode == "parity":
@@ -197,6 +219,28 @@ class DevelopEngine:
         # State of the pipelined slider mode's background syncer
         # (preview_tick_pipelined), created at its first tick.
         self._pipe = None
+        # (amount, device mosaic) of the last highlight reconstruction
+        # (_render_mosaic): a drag redoes it only when the amount moves.
+        self._hl_cache = None
+
+    def _render_mosaic(self, params: EditParams):
+        """The mosaic the renders develop: the device mosaic, or with a
+        non-zero ``highlight_recovery`` the reconstructed one (same shape
+        and dtype), cached per amount. Clipping is detected at the
+        mode's levels, the ones the develop normalises by (and the
+        exporter reconstructs at), so engine and exporter agree."""
+        amt = float(params.highlight_recovery)
+        if amt == 0.0:
+            return self.mosaic
+        if self._hl_cache is not None and self._hl_cache[0] == amt:
+            return self._hl_cache[1]
+        from raweditor_tpu_torch.ops import highlights as _hl
+
+        m = _hl.reconstruct_mosaic_highlights(
+            self.mosaic, self.wb, amt, self.white_level, self.black_level,
+            cfa_phase=self.cfa_phase, xtrans_pattern=self.xtrans_pattern)
+        self._hl_cache = (amt, m)
+        return m
 
     # -- slider tick -----------------------------------------------------
     def _view_kwargs(self, params, zoom, pan):
@@ -216,8 +260,8 @@ class DevelopEngine:
         """(preview_h, preview_w, 3) u8 preview, left on the device."""
         preview = (_develop.develop_preview if self.xtrans_pattern is None
                    else _develop.develop_xtrans_preview)
-        return preview(self.mosaic, params, self.wb, self.cam_matrix,
-                       self.preview_w, self.preview_h,
+        return preview(self._render_mosaic(params), params, self.wb,
+                       self.cam_matrix, self.preview_w, self.preview_h,
                        **self._view_kwargs(params, zoom, pan))
 
     def preview_tick(self, params: EditParams, zoom: float = 1.0,
@@ -369,8 +413,8 @@ class DevelopEngine:
         histogram = (_develop.develop_histogram
                      if self.xtrans_pattern is None
                      else _develop.develop_xtrans_histogram)
-        return histogram(self.mosaic, params, self.wb, self.cam_matrix,
-                         self.histogram_w, self.histogram_h,
+        return histogram(self._render_mosaic(params), params, self.wb,
+                         self.cam_matrix, self.histogram_w, self.histogram_h,
                          **self._view_kwargs(params, zoom, pan)).cpu().numpy()
 
     def pick_wb(self, x: float, y: float,
@@ -480,25 +524,33 @@ class DevelopEngine:
                       transfer=self.transfer)
         if self.xtrans_pattern is not None:
             return _develop.develop_xtrans(
-                self.mosaic, params, self.wb, self.cam_matrix,
-                pattern=self.xtrans_pattern, rgba=rgba,
+                self._render_mosaic(params), params, self.wb,
+                self.cam_matrix, pattern=self.xtrans_pattern, rgba=rgba,
                 demosaic_method=generic_cfa_method(self.demosaic_method),
                 **levels)
         develop = _develop.develop_rgba if rgba else _develop.develop
-        return develop(self.mosaic, params, self.wb, self.cam_matrix,
-                       demosaic_method=self.demosaic_method,
+        return develop(self._render_mosaic(params), params, self.wb,
+                       self.cam_matrix, demosaic_method=self.demosaic_method,
                        cfa_phase=self.cfa_phase, **levels)
+
+    def _kernel_route(self, params: EditParams) -> bool:
+        """Whether the develop runs a fused kernel: ``use_kernel``, no
+        point curve and a transfer the kernels compute. A point curve and
+        the Adobe RGB transfer take the plain lane (which computes them)
+        even with ``use_kernel``; the develop kernels never do."""
+        return (self.use_kernel and not params.point_curve
+                and self.transfer in KERNEL_GAMMA_BY_TRANSFER)
 
     def _develop_words(self, params: EditParams):
         """The develop before the extras post-pass, (H, W) u32 words: the
-        fused kernel with ``use_kernel``, else the plain lane. A point
-        curve takes the plain lane (which applies it) even with
-        ``use_kernel``: the develop kernels never compute it."""
+        fused kernel on its route (``_kernel_route``), else the plain
+        lane."""
         _develop.require_ported(params)
-        if self.use_kernel and not params.point_curve:
+        if self._kernel_route(params):
             return _fused.fused_develop_rgba(
-                self.mosaic, self.scalars(params), self.cfa_phase,
-                kernel_gamma_for(self.transfer), **self._kernel_demosaic())
+                self._render_mosaic(params), self.scalars(params),
+                self.cfa_phase, kernel_gamma_for(self.transfer),
+                **self._kernel_demosaic())
         return self._plain_develop(params, rgba=True)
 
     def _extras_post(self, words, params: EditParams, output: str = "rgba"):
@@ -545,9 +597,9 @@ class DevelopEngine:
         (H/2, W/2), u8, on the device) for even frames. With
         ``use_kernel`` they come straight from a kernel: the finish-extras
         kernel after the develop when the edit has extras, else the
-        develop kernel (a point curve without extras converts the plain
-        lane's words). Without ``use_kernel``, from the plain lane's
-        RGBA words."""
+        develop kernel (a point curve or the Adobe RGB transfer without
+        extras converts the plain lane's words). Without ``use_kernel``,
+        from the plain lane's RGBA words."""
         if self.height % 2 or self.width % 2:
             raise ValueError("ycbcr420 requires even dimensions")
         if not self.use_kernel:
@@ -555,20 +607,26 @@ class DevelopEngine:
         if params.finish_extras_mode():
             return self._extras_post(self._develop_words(params), params,
                                      "ycbcr420")
-        if params.point_curve:
+        if not self._kernel_route(params):
             return _jpeg.rgba_words_to_ycbcr420(self._develop_words(params))
         _develop.require_ported(params)
         y, cbcr = _fused.fused_batch_develop_rgba(
-            self.mosaic[None], self.scalars(params)[None], self.cfa_phase,
+            self._render_mosaic(params)[None], self.scalars(params)[None],
+            self.cfa_phase,
             kernel_gamma_for(self.transfer), output="ycbcr420",
             **self._kernel_demosaic())
         return y[0], cbcr[0, :, 0::2], cbcr[0, :, 1::2]
 
     # -- export ----------------------------------------------------------
     def _icc_bytes(self):
-        """The ICC profile an export embeds: None for sRGB, the only
-        output space ported yet."""
-        return None
+        """The ICC profile an export embeds: None for sRGB (consumers
+        assume it, and the sRGB export bytes stay as they were), else
+        ``icc.profile_bytes`` of the output space."""
+        if self.color_space == "srgb":
+            return None
+        from raweditor_tpu_torch.icc import profile_bytes
+
+        return profile_bytes(self.color_space)
 
     @staticmethod
     def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
@@ -620,10 +678,11 @@ class DevelopEngine:
     @staticmethod
     def _pil_jpeg(rgb: np.ndarray, quality: int, exif: bytes = b"",
                   optimize: bool = False, chroma: str = "420",
-                  restart_rows: int = 0) -> bytes:
+                  restart_rows: int = 0, icc: bytes = None) -> bytes:
         """JFIF bytes of an (H, W, 3) u8 frame through PIL, with the
         native encoder's flags: 4:4:4 (``subsampling=0``), restart
-        markers every ``restart_rows`` MCU rows, optimised tables."""
+        markers every ``restart_rows`` MCU rows, optimised tables, and
+        the ``icc`` profile when given."""
         import io
 
         from PIL import Image
@@ -631,6 +690,8 @@ class DevelopEngine:
         kw = {"subsampling": 0} if chroma == "444" else {}
         if restart_rows > 0:
             kw["restart_marker_rows"] = int(restart_rows)
+        if icc:
+            kw["icc_profile"] = icc
         buf = io.BytesIO()
         Image.fromarray(rgb).save(buf, format="JPEG", quality=int(quality),
                                   exif=exif, optimize=bool(optimize), **kw)
@@ -641,9 +702,11 @@ class DevelopEngine:
                jpeg_optimize: bool = False, chroma: str = "420",
                jpeg_restart_rows: int = 0, rotate: float = 0.0, crop=None,
                lens=None, perspective=None) -> str:
-        """Full-resolution develop written as JPEG (``.jpg``/``.jpeg``) or
-        RGBA PNG (``.png``, PIL), atomically; returns the path. Every file
-        carries the EXIF block of ``_exif_bytes``.
+        """Full-resolution develop written as JPEG (``.jpg``/``.jpeg``),
+        RGBA PNG (``.png``, PIL) or 16-bit RGB TIFF (``.tif``/``.tiff``,
+        ``export_tiff16``), atomically; returns the path. Every JPEG and
+        PNG carries the EXIF block of ``_exif_bytes``, and a wide-gamut
+        export its ICC profile (``_icc_bytes``).
 
         A JPEG goes through device YCbCr planes and the native encoder:
         4:2:0 planes of even frames (``jpeg_planes``), or with
@@ -653,20 +716,21 @@ class DevelopEngine:
         the same flags. ``jpeg_restart_rows`` > 0 writes DRI/RSTn restart
         markers every that many MCU rows; ``jpeg_optimize`` writes
         optimised Huffman tables. ``long_edge``, ``rotate``, ``crop``,
-        ``lens``, ``perspective`` and 16-bit TIFF are not ported yet and
-        raise ``NotImplementedError`` naming themselves."""
+        ``lens`` and ``perspective`` are not ported yet and raise
+        ``NotImplementedError`` naming themselves."""
         path = os.fspath(path)
         if chroma not in ("420", "444"):
             raise ValueError(f"chroma must be '420' or '444', got {chroma!r}")
         _refuse_geometry(long_edge, rotate, crop, lens, perspective)
         ext = os.path.splitext(path)[1].lower()
+        if ext not in (".tif", ".tiff", ".jpg", ".jpeg", ".png"):
+            raise ValueError(f"unsupported export extension {ext!r} "
+                             "(use .jpg/.jpeg/.png/.tif/.tiff)")
         if ext in (".tif", ".tiff"):
-            raise NotImplementedError("not ported yet: 16-bit TIFF export")
-        if ext not in (".jpg", ".jpeg", ".png"):
-            raise ValueError(
-                f"unsupported export extension {ext!r} (use .jpg/.jpeg/.png)")
+            return self.export_tiff16(path, params)
         rotates = self.auto_orient and self.raw.orientation != 1
         exif = self._exif_bytes()
+        icc = self._icc_bytes()
         flags = dict(optimize=jpeg_optimize, chroma=chroma,
                      restart_rows=jpeg_restart_rows)
         even = self.height % 2 == 0 and self.width % 2 == 0
@@ -678,6 +742,10 @@ class DevelopEngine:
                 else self.jpeg_planes(params))
             data = splice_exif(self._encode_planes(
                 planes, self.width, self.height, quality, **flags), exif)
+            if icc:
+                from raweditor_tpu_torch.icc import splice_icc_jpeg
+
+                data = splice_icc_jpeg(data, icc)
         else:
             words = np.ascontiguousarray(_develop.rgba_view(
                 self.full_rgba_device(params)))
@@ -690,18 +758,65 @@ class DevelopEngine:
                 from PIL import Image
 
                 buf = io.BytesIO()
-                Image.fromarray(words).save(buf, format="PNG", exif=exif)
+                ikw = {"icc_profile": icc} if icc else {}
+                Image.fromarray(words).save(buf, format="PNG", exif=exif,
+                                            **ikw)
                 data = buf.getvalue()
             else:
                 data = self._pil_jpeg(
                     np.ascontiguousarray(words[..., :3]), quality, exif,
-                    **flags)
+                    icc=icc, **flags)
 
         def write(tmp_path):
             with open(tmp_path, "wb") as f:
                 f.write(data)
 
         _atomic_write(path, write)
+        return path
+
+    def export_tiff16(self, path: os.PathLike, params: EditParams,
+                      long_edge: int = None, rotate: float = 0.0, crop=None,
+                      lens=None, perspective=None) -> str:
+        """Full-resolution develop at 16 bits a channel to an uncompressed
+        RGB TIFF (the copied ``raw/tiff_out.write_tiff16``), atomically,
+        with make, model, the orientation tag (1 when ``auto_orient``
+        rotated the pixels), the software tag and the ICC profile of a
+        wide space; returns the path. The develop is the plain lane with
+        the exact transfer (``transfer16_for``) and the extras in the
+        chain, as the JAX engine's. The geometry arguments are not ported
+        yet and raise ``NotImplementedError``."""
+        from raweditor_tpu_torch.raw.exif import SOFTWARE
+        from raweditor_tpu_torch.raw.tiff_out import write_tiff16
+
+        _refuse_geometry(long_edge, rotate, crop, lens, perspective)
+        _develop.require_ported(params)
+        levels = dict(white_level=self.white_level,
+                      black_level=self.black_level,
+                      matrix_transpose=self.matrix_transpose,
+                      transfer=transfer16_for(self.transfer),
+                      extras=params.finish_extras_mode())
+        mosaic = self._render_mosaic(params)
+        if self.xtrans_pattern is not None:
+            rgb = _develop.develop_xtrans(
+                mosaic, params, self.wb, self.cam_matrix,
+                pattern=self.xtrans_pattern, bits=16,
+                demosaic_method=generic_cfa_method(self.demosaic_method),
+                **levels)
+        else:
+            rgb = _develop.develop_u16(
+                mosaic, params, self.wb, self.cam_matrix,
+                demosaic_method=self.demosaic_method,
+                cfa_phase=self.cfa_phase, **levels)
+        rgb = rgb.cpu().numpy()
+        if self.auto_orient and self.raw.orientation != 1:
+            rgb = np.ascontiguousarray(
+                self.apply_orientation(rgb, self.raw.orientation))
+        path = os.fspath(path)
+        _atomic_write(path, lambda tmp: write_tiff16(
+            tmp, rgb, make=self.raw.camera_make,
+            model=self.raw.camera_model,
+            orientation=1 if self.auto_orient else self.raw.orientation,
+            software=SOFTWARE, icc=self._icc_bytes()))
         return path
 
     # -- convenience -----------------------------------------------------

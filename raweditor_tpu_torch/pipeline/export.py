@@ -1,7 +1,8 @@
-"""Batch export on one card: RAW files to developed JPEG or PNG files.
+"""Batch export on one card: RAW files to developed JPEG, PNG or 16-bit
+TIFF files.
 
 The PyTorch port of the JAX package's ``pipeline/export.py`` on its
-single-device route (``mesh=None``, 8-bit, sRGB)::
+single-device route (``mesh=None``)::
 
     decode pool ──▶ staging ──▶ shape buckets ──▶ one develop per ──▶ fetch ──▶ encode
     (host threads,  (bit-packed, (padded to a      flush: the fused    thread   pool
@@ -32,6 +33,20 @@ single-device route (``mesh=None``, 8-bit, sRGB)::
   the JAX exporter keeps them on XLA for reasons of TPU speed that do not
   carry over, and the port's engine routes them the same way.
   ``chroma="444"`` converts the words to full-size planes on the card.
+  The kernels have no lane for the Adobe RGB transfer: such a run takes
+  the plain lane (a route by transfer, as the JAX exporter's
+  ``pallas_ok``), and its extras still run B8.
+- A flush with any non-zero ``highlight_recovery`` first reconstructs
+  the clipped sites of its stacked mosaics
+  (``ops/highlights.batch_reconstruct_mosaic``, per-image amounts; a
+  zero-amount image passes through bit-exactly), before any develop.
+- ``color_space`` "display-p3" or "adobe-rgb" (accurate mode) develops
+  into the wide space with its mandated transfer
+  (``color.cam_to_output_matrix``) and every encoder embeds its ICC
+  profile (``icc.py``).
+- ``bits=16`` develops each flush through the 16-bit plain lane
+  (``parallel/batch.batch_develop_u16``, exact transfer, extras in the
+  chain) and writes uncompressed RGB TIFFs (``_encode_one_tiff16``).
 - A fetch thread waits on an event recorded after the flush's launches
   (not on a device-wide sync, which would also wait for the next flush's
   upload), slices the padding off on the card and copies the rest to
@@ -48,10 +63,9 @@ single-device route (``mesh=None``, 8-bit, sRGB)::
   its image (``"encode: ..."``).
 
 Not ported yet, each refused with ``NotImplementedError`` naming itself
-before any file is read: ``mesh``, ``bits=16``, a ``color_space`` other
-than sRGB, ``long_edge``, ``rotate``, ``crop``, ``lens``, ``perspective``,
-and any job whose edit has clarity, dehaze, grain, local adjustments or
-highlight recovery.
+before any file is read: ``mesh``, ``long_edge``, ``rotate``, ``crop``,
+``lens``, ``perspective``, and any job whose edit has clarity, dehaze,
+grain or local adjustments.
 """
 
 from __future__ import annotations
@@ -67,21 +81,22 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from raweditor_tpu_torch.color import (cam_to_srgb_matrix, encoder_for,
-                                       kernel_gamma_for)
+from raweditor_tpu_torch.color import (COLOR_SPACES,
+                                       KERNEL_GAMMA_BY_TRANSFER,
+                                       TRANSFER_BY_SPACE,
+                                       cam_to_output_matrix, encoder_for,
+                                       kernel_gamma_for, transfer16_for)
 from raweditor_tpu_torch.ops import fused_develop as _fused
 from raweditor_tpu_torch.ops import fused_extras as _fx
 from raweditor_tpu_torch.ops.cfa_generic import generic_cfa_method
 from raweditor_tpu_torch.params import EditParams
 from raweditor_tpu_torch.parallel.batch import (
     batch_develop_rgba,
+    batch_develop_u16,
     batch_develop_xtrans_rgba,
     pack_extras,
     pack_params,
 )
-
-# The JAX package's output spaces; the port writes sRGB only so far.
-_COLOR_SPACES = ("srgb", "display-p3", "adobe-rgb")
 
 
 @dataclasses.dataclass
@@ -233,7 +248,8 @@ class _Uploader:
         return dev, done, pinned
 
 
-def _decode_job(job: ExportJob, mode: str, upload_pool=None):
+def _decode_job(job: ExportJob, mode: str, upload_pool=None,
+                color_space: str = "srgb"):
     """Returns (decoded, decode_seconds, stage_seconds).
 
     decode_seconds covers the codec and metadata work only; the staging
@@ -268,7 +284,7 @@ def _decode_job(job: ExportJob, mode: str, upload_pool=None):
         job=job,
         mosaic=raw.fold_site_blacks() if mode == "accurate" else raw.mosaic,
         wb=raw.wb_rgb(),
-        cam_matrix=cam_to_srgb_matrix(raw.xyz_to_cam, mode),
+        cam_matrix=cam_to_output_matrix(raw.xyz_to_cam, mode, color_space),
         white_level=white,
         black_level=black,
         cfa_phase=phase,
@@ -378,14 +394,15 @@ def _atomic_write(out_path: str, write_fn) -> None:
 
 def _encode_one(out_path: str, rgba_words: np.ndarray, quality: int,
                 exif: bytes = b"", optimize: bool = False,
-                chroma: str = "420", restart_rows: int = 0) -> None:
+                chroma: str = "420", restart_rows: int = 0,
+                icc: bytes = None) -> None:
     """Encode a (H, W) u32 packed-RGBA image through PIL: an RGBA PNG,
     or a JPEG with the alpha stripped on the host, as the reference does
     (reference: main.rs:1778-1781). ``exif`` carries the camera
-    provenance and orientation (raw/exif.py). A JPEG honours
-    chroma='444' (subsampling=0), ``optimize`` and ``restart_rows``
-    (PIL's restart_marker_rows is the same MCU-row unit as the native
-    encoder's)."""
+    provenance and orientation (raw/exif.py), ``icc`` the profile of a
+    wide-gamut space. A JPEG honours chroma='444' (subsampling=0),
+    ``optimize`` and ``restart_rows`` (PIL's restart_marker_rows is the
+    same MCU-row unit as the native encoder's)."""
     from PIL import Image
 
     h, w = rgba_words.shape
@@ -399,18 +416,19 @@ def _encode_one(out_path: str, rgba_words: np.ndarray, quality: int,
         # JPEG bytes under a .tif name (etc.) would report success and
         # poison skip_existing reruns.
         raise ValueError(f"unsupported 8-bit export extension {ext!r} "
-                         "(use .jpg/.jpeg/.png)")
+                         "(use .jpg/.jpeg/.png, or bits=16 for .tif)")
 
     def write(tmp_path):
+        ikw = {"icc_profile": icc} if icc else {}
         if ext == ".png":
-            img.save(tmp_path, format="PNG", exif=exif)
+            img.save(tmp_path, format="PNG", exif=exif, **ikw)
         else:
             kw = {"subsampling": 0} if chroma == "444" else {}
             if restart_rows > 0:
                 kw["restart_marker_rows"] = int(restart_rows)
             img.convert("RGB").save(tmp_path, format="JPEG",
                                     quality=quality, exif=exif,
-                                    optimize=optimize, **kw)
+                                    optimize=optimize, **kw, **ikw)
 
     _atomic_write(out_path, write)
 
@@ -449,12 +467,14 @@ def _encode_one_jpeg420(out_path: str, y: np.ndarray, cb: np.ndarray,
                         exif: bytes = b"",
                         optimize: bool = False,
                         chroma: str = "420",
-                        restart_rows: int = 0) -> None:
+                        restart_rows: int = 0,
+                        icc: bytes = None) -> None:
     """Encode device-produced YCbCr planes (4:2:0, or full-size chroma
     for '444') through the native baseline JFIF encoder, with no host
-    colorspace pass. Atomic like the PIL path. ``restart_rows`` > 0
-    writes DRI/RSTn resilient streams; one thread per image, because the
-    encode pool already spreads the images over the host cores."""
+    colorspace pass; ``icc`` is spliced in as APP2 segments. Atomic like
+    the PIL path. ``restart_rows`` > 0 writes DRI/RSTn resilient streams;
+    one thread per image, because the encode pool already spreads the
+    images over the host cores."""
     from raweditor_tpu_torch.native import require_rawkit
 
     rk = require_rawkit()
@@ -468,6 +488,10 @@ def _encode_one_jpeg420(out_path: str, y: np.ndarray, cb: np.ndarray,
         from raweditor_tpu_torch.raw.exif import splice_exif
 
         data = splice_exif(data, exif)
+    if icc:
+        from raweditor_tpu_torch.icc import splice_icc_jpeg
+
+        data = splice_icc_jpeg(data, icc)
 
     def write(tmp_path):
         with open(tmp_path, "wb") as f:
@@ -476,10 +500,31 @@ def _encode_one_jpeg420(out_path: str, y: np.ndarray, cb: np.ndarray,
     _atomic_write(out_path, write)
 
 
-def _refuse_unported(mesh, bits, color_space, long_edge, rotate, crop, lens,
-                     perspective, jobs) -> None:
+def _encode_one_tiff16(out_path: str, rgb_u16: np.ndarray,
+                       make: str = "", model: str = "",
+                       orientation: int = 1,
+                       icc: bytes = None) -> None:
+    """Encode an (H, W, 3) u16 frame as an uncompressed 16-bit RGB TIFF
+    (the copied ``raw/tiff_out.write_tiff16``), atomically."""
+    ext = os.path.splitext(out_path)[1].lower()
+    if ext not in (".tif", ".tiff"):
+        # TIFF bytes under a .jpg/.png name would report success and
+        # poison skip_existing reruns.
+        raise ValueError(f"unsupported 16-bit export extension {ext!r} "
+                         "(bits=16 writes .tif/.tiff)")
+    from raweditor_tpu_torch.raw.exif import SOFTWARE
+    from raweditor_tpu_torch.raw.tiff_out import write_tiff16
+
+    _atomic_write(out_path, lambda tmp: write_tiff16(
+        tmp, rgb_u16, make=make, model=model, orientation=orientation,
+        software=SOFTWARE, icc=icc))
+
+
+def _refuse_unported(mesh, bits, color_space, mode, long_edge, rotate, crop,
+                     lens, perspective, jobs) -> None:
     """``NotImplementedError`` naming each argument, and each edit, that
-    this port cannot export yet (checked before any file is read)."""
+    this port cannot export yet, and ``ValueError`` for arguments the
+    JAX exporter refuses too (checked before any file is read)."""
     from raweditor_tpu_torch.ops.develop import require_ported
 
     if mesh is not None:
@@ -487,14 +532,12 @@ def _refuse_unported(mesh, bits, color_space, long_edge, rotate, crop, lens,
                                   "export)")
     if bits not in (8, 16):
         raise ValueError("bits must be 8 or 16")
-    if bits == 16:
-        raise NotImplementedError("not ported yet: bits=16 (16-bit TIFF)")
-    if color_space not in _COLOR_SPACES:
+    if color_space not in COLOR_SPACES:
         raise ValueError(f"unknown color space {color_space!r}; expected "
-                         f"one of {_COLOR_SPACES}")
-    if color_space != "srgb":
-        raise NotImplementedError(
-            f"not ported yet: color_space={color_space!r}")
+                         f"one of {COLOR_SPACES}")
+    if color_space != "srgb" and mode != "accurate":
+        raise ValueError("wide-gamut output requires mode='accurate' "
+                         "(parity is defined as the reference's sRGB bytes)")
     _refuse_geometry(long_edge, rotate, crop, lens, perspective)
     for job in jobs:
         require_ported(job.params)
@@ -589,24 +632,35 @@ def run_batch_export(
         arena_cap_from_env, cap_malloc_arenas, trim_malloc)
 
     color_space = (color_space or "srgb").lower()
-    _refuse_unported(mesh, bits, color_space, long_edge, rotate, crop, lens,
-                     perspective, jobs)
     if mode not in ("parity", "accurate"):
         raise ValueError(f"unknown mode {mode!r}")
+    _refuse_unported(mesh, bits, color_space, mode, long_edge, rotate, crop,
+                     lens, perspective, jobs)
     if demosaic_method not in DEMOSAIC_METHODS + ("smooth",):
         raise ValueError(f"unknown demosaic method {demosaic_method!r}")
     if chroma not in ("420", "444"):
         raise ValueError(f"chroma must be '420' or '444', got {chroma!r}")
     if matrix_transpose is None:
         matrix_transpose = mode == "parity"
+    # A wide space mandates its transfer; the fast forms apply after.
+    transfer = TRANSFER_BY_SPACE.get(color_space, transfer)
     # Polynomial forms of the transfers: within 1 LSB after u8
-    # quantisation.
+    # quantisation, so 16-bit output demotes them (transfer16).
     if transfer is None:
         transfer = "gamma22_poly" if fast_gamma else "gamma22"
     elif fast_gamma and transfer == "srgb":
         transfer = "srgb_poly"
     encoder_for(transfer)  # validated up front, not deep in a flush
     gamma = kernel_gamma_for(transfer)
+    transfer16 = transfer16_for(transfer)
+    # The develop kernels compute every transfer but Adobe RGB's, which
+    # takes the plain lane (a route by transfer, never by failure).
+    kernel_ok = use_kernel and transfer in KERNEL_GAMMA_BY_TRANSFER
+    icc = None
+    if color_space != "srgb":
+        from raweditor_tpu_torch.icc import profile_bytes
+
+        icc = profile_bytes(color_space)
     device = resolve_device(device)
     # glibc arena retention made long-run RSS track cumulative decode
     # volume instead of the working set; cap arenas before the pools
@@ -653,7 +707,7 @@ def run_batch_export(
     # file is read: a missing one raises naming its file instead of
     # moving the colour conversion to the host (RAWEDITOR_TPU_NO_NATIVE
     # switches the decoders' codec only).
-    jpeg_planes_ok = bool(jobs) and all(
+    jpeg_planes_ok = bits == 8 and bool(jobs) and all(
         j.out_path.lower().endswith((".jpg", ".jpeg")) for j in jobs)
     if jpeg_planes_ok:
         require_rawkit()
@@ -684,20 +738,26 @@ def run_batch_export(
                         _encode_one_jpeg420, d.job.out_path, y.copy(),
                         cbcr[:, 0::2].copy(), cbcr[:, 1::2].copy(),
                         quality, exif, jpeg_optimize, chroma,
-                        jpeg_restart_rows
+                        jpeg_restart_rows, icc
                     )
                 elif isinstance(host, tuple):  # YCbCr plane triple
                     y, cb, cr = (p[i] for p in host)
                     fut = encode_pool.submit(
                         _encode_one_jpeg420, d.job.out_path, y.copy(),
                         cb.copy(), cr.copy(), quality, exif,
-                        jpeg_optimize, chroma, jpeg_restart_rows
+                        jpeg_optimize, chroma, jpeg_restart_rows, icc
+                    )
+                elif bits == 16:
+                    fut = encode_pool.submit(
+                        _encode_one_tiff16, d.job.out_path,
+                        host[i].copy(), d.make, d.model, d.orientation,
+                        icc
                     )
                 else:
                     fut = encode_pool.submit(
                         _encode_one, d.job.out_path, host[i].copy(),
                         quality, exif, jpeg_optimize, chroma,
-                        jpeg_restart_rows
+                        jpeg_restart_rows, icc
                     )
                 encode_futures.append((fut, d.job))
             # Backpressure: the card outruns host JPEG encode; without a
@@ -819,6 +879,22 @@ def run_batch_export(
             blacks = np.array([d.black_level for d in padded], np.float32)
             phase = batch[0].cfa_phase
             xtrans = isinstance(phase, str)
+            # Clipped-highlight reconstruction, gated on the flush: the
+            # per-image amounts keep zero-amount images bit-exact, so a
+            # mixed batch needs no split. Every route below sees a plain
+            # u16 batch.
+            if any(float(d.job.params.highlight_recovery) != 0.0
+                   for d in batch):
+                from raweditor_tpu_torch.ops.highlights import (
+                    batch_reconstruct_mosaic)
+
+                amounts = np.array(
+                    [float(d.job.params.highlight_recovery)
+                     for d in padded], np.float32)
+                mosaics = batch_reconstruct_mosaic(
+                    mosaics, wbs, amounts, whites, blacks,
+                    cfa_phase=(0, 0) if xtrans else phase,
+                    xtrans_pattern=phase if xtrans else None)
             # Finish extras: the batch's static flags, ORed over its
             # images (zero-amount images inside such a batch develop
             # within 1 LSB of their extras-off render).
@@ -826,6 +902,24 @@ def run_batch_export(
             if ex_on:
                 table, mixer_on, grading_on, stencils = pack_extras(params)
                 ex_on = mixer_on or grading_on or stencils
+            if bits == 16:
+                # The 16-bit lane: extras in the chain (the words pass is
+                # 8-bit), the exact transfer.
+                mode16 = "+".join(
+                    part for part, on in (("base", ex_on and stencils),
+                                          ("mixer", ex_on and mixer_on),
+                                          ("grading", ex_on and grading_on))
+                    if on) or False
+                t0 = time.perf_counter()
+                out = batch_develop_u16(
+                    mosaics, params, wbs, cms, whites, blacks,
+                    matrix_transpose=matrix_transpose,
+                    cfa_phase=(0, 0) if xtrans else phase,
+                    pattern=phase if xtrans else None, transfer=transfer16,
+                    demosaic_method=(generic_cfa_method(demosaic_method)
+                                     if xtrans else demosaic_method),
+                    extras=mode16)
+                return out, t0, _record_event(device)
             # Point curves ride the plain lane's finish; the develop
             # kernels do not compute them.
             curve_on = bool(batch[0].job.params.point_curve)
@@ -837,7 +931,7 @@ def run_batch_export(
                 elif h_m % 2 == 0 and w_m % 2 == 0:
                     planes = "ycbcr420"
             t0 = time.perf_counter()
-            if use_kernel and not curve_on:
+            if kernel_ok and not curve_on:
                 cfa = (dict(pattern=phase,
                             demosaic=generic_cfa_method(demosaic_method))
                        if xtrans else dict(cfa_phase=phase,
@@ -918,8 +1012,8 @@ def run_batch_export(
                 if job is None:
                     return False
                 pending.append(
-                    (decode_pool.submit(_decode_job, job, mode, uploader),
-                     job)
+                    (decode_pool.submit(_decode_job, job, mode, uploader,
+                                        color_space), job)
                 )
                 return True
 

@@ -4,8 +4,9 @@ the same arguments through both ``main`` functions, on the CPU
 package's own output directory; pictures are compared decoded (previews
 and develops within the lanes' 1 LSB, JPEGs of them within a small mean).
 Also: the argparse surfaces and ``RANGES`` are equal, the commands of
-modules not ported yet exit with "not ported yet", and the two faults of
-the JAX ``validate`` are not inherited."""
+modules not ported yet exit with "not ported yet" (the cases of wide
+gamut and 16-bit TIFF, ported since, answer as the JAX CLI), and the two
+faults of the JAX ``validate`` are not inherited."""
 
 import io
 import json
@@ -251,12 +252,62 @@ def test_parser_surface_and_ranges_equal_the_jax_cli():
     (["bench"], "bench: not ported yet: bench"),
 ])
 def test_unported_commands_exit_with_a_message(argv, message, tmp_path,
-                                               photos):
+                                               photos, capsys):
+    if message in NOW_PORTED:
+        # Wide gamut and 16-bit TIFF are ported: the command answers as
+        # the JAX CLI's and writes its picture (develop: the ICC profile
+        # equal and the JPEG decoded close; TIFFs within 1 LSB of u16).
+        argv = [a.replace("{P}", str(photos / "s0.nef")).replace(
+            "{T}", "{D}") for a in argv] + NOW_PORTED[message]
+        (jcode, jout), (pcode, pout) = _both(capsys, tmp_path, *argv)
+        assert pcode == jcode == 0
+        if argv[0] == "export":
+            want, got = json.loads(jout), json.loads(pout)
+            for key in ("total", "succeeded", "skipped", "failed"):
+                assert got[key] == want[key] == (key in ("total",
+                                                         "succeeded")), key
+            rel = "o/s0.tif"
+        else:
+            assert pout == jout
+            rel = argv[3].replace("{D}/", "")
+        if rel.endswith(".tif"):
+            a, b = (_tiff_pixels(tmp_path / n / rel) for n in NAMES)
+            assert a.shape == b.shape == (24, 32, 3)
+            assert np.abs(a - b).max() <= 1
+        else:
+            _close(tmp_path, rel)
+            icc = [Image.open(tmp_path / n / rel).info.get("icc_profile")
+                   for n in NAMES]
+            assert icc[0] and icc[0] == icc[1]
+        return
     argv = [a.replace("{P}", str(photos / "s0.nef")).replace(
         "{T}", str(tmp_path)) for a in argv]
     with pytest.raises(SystemExit) as e:
         main(argv)
     assert str(e.value.code).startswith(message)
+
+
+def _tiff_pixels(path):
+    """(H, W, 3) int pixels of a 16-bit RGB TIFF, through the port's
+    TIFF walker (PIL reads no 16-bit RGB)."""
+    from raweditor_tpu_torch.raw import tiff as T
+
+    data = path.read_bytes()
+    ifd = T.TiffFile(data).ifds[0]
+    off = ifd.get_scalar(T.STRIP_OFFSETS)
+    h, w = ifd.get_scalar(T.IMAGE_LENGTH), ifd.get_scalar(T.IMAGE_WIDTH)
+    return np.frombuffer(data[off:off + h * w * 6], "<u2").reshape(
+        h, w, 3).astype(int)
+
+
+# Cases of the test above that are ported now, with the arguments the
+# check adds (a wide space needs accurate mode).
+NOW_PORTED = {
+    "develop: not ported yet: color_space 'display-p3'": ["--mode",
+                                                          "accurate"],
+    "develop: not ported yet: 16-bit TIFF export": [],
+    "export: not ported yet: bits=16": [],
+}
 
 
 def test_an_import_error_inside_the_port_is_not_called_unported(

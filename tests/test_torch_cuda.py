@@ -801,3 +801,87 @@ def test_batch_export_equals_engine_export(cuda, chroma, rng, tmp_path):
                           jpeg_optimize=False, **flags)
         with open(path, "rb") as f, open(job.out_path, "rb") as g:
             assert f.read() == g.read()
+
+
+# -- wide gamut, highlight recovery and 16-bit output --------------------
+
+XT_GRID = ("GGRGGB" "GGBGGR" "BRGRBG" "GGBGGR" "GGRGGB" "RBGBRG")
+D3300 = np.array([[6988, -1384, -714], [-5631, 13410, 2447],
+                  [-1485, 2204, 7318]], np.float32) / 10000.0
+
+
+def _raw(rng, pattern, h=64, w=96, clipped=False):
+    m = rng.integers(150, 4096, (h, w), dtype=np.uint16)
+    if clipped:
+        m[h // 4: 3 * h // 4, w // 4: w // 2] = 4095
+    return RawImage(m, np.array([2.0, 1.0, 1.5, 1.0], np.float32), D3300,
+                    black_level=150.0, white_level=4095.0,
+                    cfa_pattern=pattern)
+
+
+@pytest.mark.parametrize("demosaic,pattern", [
+    ("nearest", "RGGB"), ("bilinear", "GBRG"), ("malvar", "BGGR"),
+    ("grad", "GRBG"), ("nearest", XT_GRID), ("smooth", XT_GRID),
+    ("grad", XT_GRID)], ids=["B1", "B3-bilinear", "B3-malvar", "B4", "B5",
+                             "B6", "B7"])
+def test_display_p3_develop_equals_plain(cuda, demosaic, pattern, rng):
+    """A Display P3 develop through each develop kernel: 0 LSB from the
+    kernel's plain version on the engine's own (P3) scalars."""
+    e = DevelopEngine(_raw(rng, pattern), mode="accurate", use_kernel=True,
+                      demosaic_method=demosaic, color_space="display-p3",
+                      device=cuda)
+    assert e.transfer == "srgb"
+    got = e.full_rgba_device(FULL)
+    kw = dict(e._kernel_demosaic())
+    want = fd.develop_rgba_folded_plain(e.mosaic[None], e.scalars(FULL)[None],
+                                        e.cfa_phase, "srgb", **kw)[0]
+    assert _words_diff(got, want) == 0
+
+
+def test_reconstruction_on_the_card_equals_the_cpu(cuda, rng):
+    from raweditor_tpu_torch.ops import highlights as hl
+
+    for pattern, phase, grid in (("GBRG", (1, 0), None),
+                                 (XT_GRID, (0, 0), XT_GRID)):
+        m = _raw(rng, pattern, clipped=True).mosaic
+        m[5:9, 60:70] = rng.integers(3900, 4096, (4, 10))
+        t = torch.from_numpy(m)
+        for amount in (0.0, 35.0, 60.0, 100.0):
+            got = hl.reconstruct_mosaic_highlights(
+                t.to(cuda), [2.0, 1.0, 1.5], amount, 4095.0, 150.0,
+                cfa_phase=phase, xtrans_pattern=grid)
+            want = hl.reconstruct_mosaic_highlights(
+                t, [2.0, 1.0, 1.5], amount, 4095.0, 150.0, cfa_phase=phase,
+                xtrans_pattern=grid)
+            assert torch.equal(got.cpu(), want)
+            assert (amount == 0.0) == torch.equal(want, t)
+
+
+@pytest.mark.parametrize("demosaic", ["nearest", "malvar", "grad"])
+def test_develop_u16_on_the_card_within_1_lsb_of_the_cpu(cuda, demosaic,
+                                                         rng):
+    from raweditor_tpu_torch.ops.develop import develop_u16
+
+    m = torch.from_numpy(_raw(rng, "RGGB").mosaic)
+    kw = dict(white_level=4095.0, black_level=150.0,
+              demosaic_method=demosaic, matrix_transpose=False,
+              transfer="srgb")
+    got = develop_u16(m.to(cuda), FULL, [2.0, 1.0, 1.5], REAL, **kw)
+    want = develop_u16(m, FULL, [2.0, 1.0, 1.5], REAL, **kw)
+    assert got.dtype == torch.uint16
+    d = (got.cpu().to(torch.int32) - want.to(torch.int32)).abs()
+    assert int(d.max()) <= 1
+
+
+def test_adobe_rgb_with_use_kernel_launches_no_develop_kernel(cuda, rng):
+    e = DevelopEngine(_raw(rng, "RGGB"), mode="accurate", use_kernel=True,
+                      demosaic_method="grad", color_space="adobe-rgb",
+                      device=cuda)
+    before = dict(fd.LAUNCHES)
+    words = e.full_rgba_device(FULL)
+    planes = e.jpeg_planes(FULL)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES == before
+    e.use_kernel = False
+    assert torch.equal(words, e.full_rgba_device(FULL))
+    assert all(torch.equal(a, b) for a, b in zip(planes, e.jpeg_planes(FULL)))

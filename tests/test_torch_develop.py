@@ -193,10 +193,15 @@ def test_pack_unpack_round_trip(rng):
 
 def test_unported_inputs_raise(rng):
     m = torch.from_numpy(rng.integers(0, 4096, (8, 8), dtype=np.uint16))
-    for p in (EditParams(clarity=10.0), EditParams(highlight_recovery=5.0),
-              EditParams(grain=10.0)):
+    for p in (EditParams(clarity=10.0), EditParams(grain=10.0)):
         with pytest.raises(NotImplementedError):
             td.develop_rgba(m, p, WB, IDENTITY)
+    # Highlight recovery is ported, and as in the JAX package it is no
+    # stage of the develop functions (the engine and the exporter
+    # reconstruct the mosaic first): the develop ignores the field.
+    assert torch.equal(td.develop_rgba(m, EditParams(highlight_recovery=5.0),
+                                       WB, IDENTITY),
+                       td.develop_rgba(m, EditParams(), WB, IDENTITY))
     with pytest.raises(NotImplementedError):
         td.develop_rgba(m, EditParams(), WB, IDENTITY,
                         demosaic_method="bilinear", extras=True)

@@ -472,7 +472,9 @@ def test_jpeg_flags_reach_the_bytes(flags, use_kernel, tmp_path):
 def test_unported_arguments_raise_before_any_file_is_read(arg, tmp_path):
     """Each argument and edit the port cannot export yet raises
     ``NotImplementedError`` naming itself, before a file is read (the
-    job's file does not exist)."""
+    job's file does not exist). ``bits``, ``color_space`` and
+    ``highlight_recovery`` are ported: the run goes on to read the file
+    and fails its job at the decode, as the JAX exporter's does."""
     kw, edit = {}, {}
     value = {"mesh": object(), "bits": 16, "color_space": "display-p3",
              "long_edge": 16, "rotate": 1.5, "crop": (0, 0, 8, 8),
@@ -486,8 +488,17 @@ def test_unported_arguments_raise_before_any_file_is_read(arg, tmp_path):
         kw[arg] = value
     job = pex.ExportJob(str(tmp_path / "missing.dng"),
                         str(tmp_path / "out.jpg"), EditParams(**edit))
-    name = {"locals": "local adjustments",
-            "highlight_recovery": "highlight recovery"}.get(arg, arg)
+    if arg in ("bits", "color_space", "highlight_recovery"):
+        if arg == "color_space":
+            kw["mode"] = "accurate"
+        ref_job = jex.ExportJob(job.raw_path, job.out_path,
+                                JaxParams(**edit))
+        rep, ref = _run([job], [ref_job], **kw)
+        _same_report(rep, ref)
+        assert [m.split(":")[0] for _, m in rep.failed] == ["decode"]
+        assert not (tmp_path / "out.jpg").exists()
+        return
+    name = {"locals": "local adjustments"}.get(arg, arg)
     with pytest.raises(NotImplementedError, match=name):
         pex.run_batch_export([job], device="cpu", **kw)
     assert not (tmp_path / "out.jpg").exists()

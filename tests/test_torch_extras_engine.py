@@ -249,8 +249,35 @@ def test_batch_routes_against_jax(rng):
     (dict(locals=({"kind": "radial"},)), "local adjustments")])
 def test_unported_fields_raise_on_every_entry_point(edit, name, rng,
                                                     tmp_path):
-    port, _ = _engines(rng, use_kernel=True)
+    port, ref = _engines(rng, use_kernel=True)
     p = EditParams(sharpen=30.0).replace(**edit)
+    if name == "highlight recovery":
+        # Ported: every entry point renders the reconstructed mosaic,
+        # bit-equal to the JAX reconstruction run op by op (the JAX
+        # engine's jitted one rounds up to 1 LSB of u16 apart:
+        # tests/test_torch_highlights.py); the tick within 1 LSB.
+        from raweditor_tpu.ops.highlights import (
+            reconstruct_mosaic_highlights)
+
+        jp = JaxParams(sharpen=30.0, **edit)
+        np.testing.assert_array_equal(
+            port._render_mosaic(p).numpy(),
+            np.asarray(reconstruct_mosaic_highlights(
+                ref.mosaic, ref.wb, 50.0, ref.white_level, ref.black_level,
+                cfa_phase=ref.cfa_phase)))
+        mx, share = _max_diff(port.preview_tick(p).numpy(), ref.preview(jp))
+        print(f"recovered tick: max {mx}, differing {share:.2e}")
+        assert mx <= 1
+        assert port.histogram(p).sum() == ref.histogram(jp).sum()
+        words = port.full_rgba_device(p)
+        assert not torch.equal(words, port.full_rgba_device(
+            p.replace(highlight_recovery=0.0)))
+        np.testing.assert_array_equal(port.full(p),
+                                      td.rgba_view(words)[..., :3])
+        assert len(port.jpeg_planes(p)) == 3
+        port.export(tmp_path / "x.jpg", p)
+        assert (tmp_path / "x.jpg").exists()
+        return
     for call in (lambda: port.preview_tick(p), lambda: port.histogram(p),
                  lambda: port.full_rgba_device(p), lambda: port.full(p),
                  lambda: port.jpeg_planes(p),

@@ -168,6 +168,43 @@ def test_every_verb_answers_as_the_jax_session(mode, tmp_path):
         lib.close()
 
 
+@pytest.mark.parametrize("mode", ["parity", "accurate"])
+def test_highlight_recovery_and_full_tif_answer_as_the_jax_session(
+        mode, tmp_path):
+    """``set highlight_recovery 60`` and ``full x.tif``: the answers equal
+    the JAX session's, the previews within 1 LSB, the TIFF's pixels
+    within 1 LSB of u16 and every other byte equal."""
+    from raweditor_tpu_torch.raw import tiff as T
+
+    _, (js, jlib, _, jout), (ps, plib, _, pout) = _pair(tmp_path,
+                                                        MODES[mode])
+    for line in ("set highlight_recovery 60", "set exposure 0.4",
+                 "full OUT/x.tif", "set highlight_recovery 0",
+                 "full OUT/y.tiff"):
+        ja = js.handle(line.replace("OUT", str(jout)))
+        pa = ps.handle(line.replace("OUT", str(pout)))
+        assert pa["ok"] and _strip(pa, pout) == _strip(ja, jout), line
+        want = np.asarray(js.engine.preview(js.params))
+        got = ps.engine.preview(ps.params)
+        assert np.abs(want.astype(int) - got).max() <= 1, line
+    worst = 0
+    for name in ("x.tif", "y.tiff"):
+        a, b = ((d / name).read_bytes() for d in (pout, jout))
+        ifd = T.TiffFile(a).ifds[0]
+        off = ifd.get_scalar(T.STRIP_OFFSETS)
+        n = H * W * 6
+        assert len(a) == len(b) and a[:off] + a[off + n:] == b[:off] + b[
+            off + n:]
+        worst = max(worst, int(np.abs(
+            np.frombuffer(a[off:off + n], "<u2").astype(int)
+            - np.frombuffer(b[off:off + n], "<u2")).max()))
+    print(f"{mode}: TIFFs max {worst} LSB of u16")
+    assert worst <= 1
+    for s, lib in ((js, jlib), (ps, plib)):
+        s.close()
+        lib.close()
+
+
 def _jax_jit_planes(rgb):
     """The JAX engine's own (jitted) 4:2:0 conversion of a preview."""
     from raweditor_tpu.pipeline.engine import _ycbcr420_jit
@@ -309,8 +346,19 @@ def test_ctor_kwargs_and_color_space(tmp_path):
         "use_kernel", "device"}
     assert DevelopEngine.open(path, device="cpu",
                               color_space="SRGB").color_space == "srgb"
+    # The wide spaces are ported: the JAX engine's matrix, bit for bit,
+    # and its resolved transfer (the space's, then fast_gamma); parity
+    # refuses them with ValueError, as the JAX engine does.
     for space in ("display-p3", "adobe-rgb"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        for fast in (False, True):
+            eng = DevelopEngine.open(path, device="cpu", mode="accurate",
+                                     color_space=space, fast_gamma=fast)
+            ref = JaxEngine.open(path, mode="accurate", color_space=space,
+                                 fast_gamma=fast)
+            assert (eng.color_space, eng.transfer) == (ref.color_space,
+                                                       ref.transfer)
+            assert eng.cam_matrix.tobytes() == ref.cam_matrix.tobytes()
+        with pytest.raises(ValueError, match="accurate"):
             DevelopEngine.open(path, device="cpu", color_space=space)
     with pytest.raises(ValueError, match="unknown color space"):
         DevelopEngine.open(path, device="cpu", color_space="rec2020")

@@ -294,8 +294,13 @@ def test_develop_xtrans_defaults_and_errors(rng):
     print(f"develop_xtrans defaults: max {mx} LSB, differing {share:.2e}")
     assert mx <= 1
     args = (t, EditParams(), WB, REAL_MATRIX)
-    with pytest.raises(NotImplementedError, match="16-bit"):
-        td.develop_xtrans(*args, bits=16)
+    # 16-bit output is ported: the JAX function's u16 within 1 LSB.
+    mx, share = _diff(td.develop_xtrans(*args, bits=16).numpy(),
+                      jd.develop_xtrans(mosaic, JaxParams(), WB, REAL_MATRIX,
+                                        bits=16))
+    print(f"develop_xtrans bits=16: max {mx} LSB of u16, "
+          f"differing {share:.2e}")
+    assert mx <= 1
     with pytest.raises(ValueError, match="mutually exclusive"):
         td.develop_xtrans(*args, rgba=True, bits=16)
     with pytest.raises(ValueError, match="unknown generic-CFA"):
