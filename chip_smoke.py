@@ -91,7 +91,25 @@ before it and read just after:
   the CPU's 16-bit develop over a crop, and every output of runs D and E
   and the CLI's JPEG equals the engine's export byte for byte. It prints
   the P3 develop times, the reconstruction's time beside its byte bound,
-  the Adobe and TIFF export times and sizes, and each run's report.
+  the Adobe and TIFF export times and sizes, and each run's report;
+- the LinearRaw, resize and geometry path (``linear_geometry()``): a
+  seeded 4016x6016 16-bit LinearRaw DNG (no develop kernel: the plain
+  lane, as the JAX engine's XLA) through the slider tick, the histogram,
+  ``full_rgba_device`` with and without extras (B8 RGBA over its words),
+  ``jpeg_planes`` with extras (B8 planes), JPEG and TIFF export and a
+  recovered develop; ``export(".jpg")`` with ``long_edge=2048``,
+  ``rotate``, a crop, a lens and a keystone, a resized and rotated TIFF
+  and ``develop_tiers`` of the file path's DNG (B4 RGBA a JPEG) and RAF
+  (B7 RGBA a JPEG) and the LinearRaw DNG; run F of ``run_batch_export``
+  (the export catalog and two LinearRaw files, accurate grad,
+  ``long_edge=2048``, ``rotate=2.0``: B4 RGBA three times, B7 RGBA once,
+  B8 RGBA twice). Outside the counted phase B8 over the LinearRaw words
+  equals its plain version (0 LSB, both outputs), the LinearRaw develop
+  and every resize and geometry form on the card are within 1 LSB of the
+  CPU's, each export has its expected size, and every output of run F
+  equals the engine's export byte for byte. It prints the phase's host
+  times, the resize's and the geometry's device times beside the
+  resize's bound, and run F's report.
 
 Then it holds every kernel against its plain PyTorch version (at the four
 Bayer phases and on an odd 4015x6013 frame; the extras kernel for every
@@ -235,6 +253,8 @@ EXPORT_BATCH = 4
 # (top and left multiples of 6, the X-Trans period, minus the margin).
 HL_AMOUNT = 60.0
 TIFF_CROP = (1800, 2400, 192, 288, 24)
+LONG_EDGE = 2048  # the exports' resize in the linear/geometry phase
+GEO_CROP = (600, 400, 4000, 3000)  # (left, top, width, height) in it
 # Nikon D3300 ColorMatrix (dcraw adobe_coeff, x10000) for the accurate frame.
 D3300_XYZ_TO_CAM = np.array([[6988, -1384, -714], [-5631, 13410, 2447],
                              [-1485, 2204, 7318]], np.float32) / 10000.0
@@ -1434,6 +1454,370 @@ def gamut(tmpdir, edit, xedit, smi):
     return phase_launches, errs
 
 
+def _jpeg_size(data):
+    """(height, width) from a baseline or progressive JPEG's SOF."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        marker, n = data[pos + 1], int.from_bytes(data[pos + 2: pos + 4], "big")
+        if marker in (0xC0, 0xC2):
+            return (int.from_bytes(data[pos + 5: pos + 7], "big"),
+                    int.from_bytes(data[pos + 7: pos + 9], "big"))
+        pos += 2 + n
+    raise AssertionError("no SOF in the JPEG")
+
+
+def linear_geometry(tmpdir, edit, xedit, smi):
+    """LinearRaw frames, the device resize and the output geometry at
+    24 MP, with the launch counts reset just before and read just after:
+
+    - a seeded 4016x6016 16-bit LinearRaw DNG (``scene()`` on three
+      channels, white level 60000, a disc clipped in green;
+      ``write_synthetic_linear_dng``)
+      opened with ``DevelopEngine.open(mode="accurate", use_kernel=True)``:
+      ``preview_tick``, ``histogram``, ``full_rgba_device`` with and
+      without the extras edit (B8 RGBA over the plain develop's words, no
+      develop kernel), ``jpeg_planes`` with it (B8 planes),
+      ``export(".jpg")``, ``export(".tif")`` and a develop recovered at 60;
+    - on the file path's DNG (accurate grad: B4 RGBA) and RAF (grad: B7
+      RGBA) and the LinearRaw DNG: ``export(".jpg")`` with
+      ``long_edge=2048``, ``rotate=3.0``, an explicit crop, a lens and a
+      keystone, ``export(".tif", long_edge=2048, rotate=3.0)`` and
+      ``develop_tiers``;
+    - run F of ``run_batch_export`` over the export catalog and two more
+      LinearRaw files (one with the extras edit): accurate grad,
+      ``use_kernel``, ``long_edge=2048``, ``rotate=2.0``.
+
+    Outside the counted phase: B8 over the LinearRaw words at 0 LSB from
+    ``finish_extras_plain`` in both outputs; the LinearRaw develop on the
+    card within 1 LSB of the CPU's over a crop; each resize and geometry
+    form on the card within 1 LSB of the same function on the CPU over
+    the fetched 24 MP words (the contraction asserted to run in full
+    f32); their device times by CUDA events; each JPEG's size from its
+    SOF; every output of run F byte-equal to the engine's export of the
+    same job. Returns (the phase's launches, the largest LSB of each
+    kernel from its plain version)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raweditor_tpu_torch import DevelopEngine, Library
+    from raweditor_tpu_torch.native import get_rawkit
+    from raweditor_tpu_torch.ops import fused_develop as fused
+    from raweditor_tpu_torch.ops import fused_extras as fx
+    from raweditor_tpu_torch.ops import geometry, resize
+    from raweditor_tpu_torch.ops.develop import develop_linear
+    from raweditor_tpu_torch.pipeline.export import (jobs_from_catalog,
+                                                     run_batch_export)
+    from raweditor_tpu_torch.raw import synth
+
+    xtrans = fused.cfa_generic.XTRANS_PATTERN
+    files = os.path.join(tmpdir, "files")
+    dng, raf_path = (os.path.join(files, n)
+                     for n in ("DSC_0001.dng", "DSCF0001.RAF"))
+    rk = get_rawkit()
+    gray = np.full((16, 16), 128, np.uint8)
+    chroma = np.full((8, 8), 128, np.uint8)
+    preview = rk.encode_jpeg_420(gray, chroma, chroma, 16, 16, 90, False, 0,
+                                 0)
+    # The LinearRaw frames: one scene per file on three channels, and a
+    # disc of a bright neutral under the as-shot WB (0.55, 1, 0.7): green
+    # at the white level, red and blue below it.
+    lin_dir = os.path.join(tmpdir, "linear")
+    os.makedirs(lin_dir)
+    rng = np.random.default_rng(SEED + 3)
+    # 16-bit samples under a white level of 60000, so a reconstruction has
+    # headroom above it.
+    base = scene(rng, H, W, 56000)
+    yy, xx = np.ogrid[:H, :W]
+    disc = (yy - H // 3) ** 2 + (xx - W // 2) ** 2 < (H // 6) ** 2
+    real_preview = synth.preview_from_mosaic
+    synth.preview_from_mosaic = lambda *a, **k: preview  # no PIL needed
+
+    def write_linear(path, shift):
+        g = np.roll(base, shift, axis=(0, 1))
+        rgb = np.stack([(g * 0.8).astype(np.uint16), g,
+                        np.roll(g, 501, axis=1)], axis=-1)
+        d = np.roll(disc, shift, axis=(0, 1))
+        rgb[d] = (37000, 60000, 46000)
+        synth.write_synthetic_linear_dng(path, rgb, bpp=16, white_level=60000,
+                                         wb_neutral=(0.55, 1.0, 0.7))
+
+    lin_path = os.path.join(tmpdir, "LIN_0000.dng")
+    try:
+        t_w = time.perf_counter()
+        with ThreadPoolExecutor(3) as pool:
+            list(pool.map(lambda a: write_linear(*a), [
+                (lin_path, (0, 0)),
+                (os.path.join(lin_dir, "LIN_0001.dng"), (211, 97)),
+                (os.path.join(lin_dir, "LIN_0002.dng"), (97, 211))]))
+        write_s = time.perf_counter() - t_w
+    finally:
+        synth.preview_from_mosaic = real_preview
+    del base, disc
+    size_mb = os.path.getsize(lin_path) / 1e6
+    lib = Library(os.path.join(tmpdir, "export.db"))
+    imported = lib.import_folder(lin_dir)
+    check(imported == {"imported": 2, "skipped": 0},
+          f"LinearRaw import {imported}")
+    for img in lib.get_all_images():
+        if img.filename == "LIN_0001.dng":
+            lib.save_edit_params(img.id, xedit)
+        elif img.filename == "LIN_0002.dng":
+            lib.save_edit_params(img.id, edit)
+    jobs_f = jobs_from_catalog(lib, os.path.join(tmpdir, "export_F"))
+    run_f = dict(mode="accurate", demosaic_method="grad", long_edge=LONG_EDGE,
+                 rotate=2.0)
+    acc = dict(mode="accurate", use_kernel=True)
+    geo_cases = {"long_edge": dict(long_edge=LONG_EDGE),
+                 "rotate": dict(rotate=3.0),
+                 "crop": dict(crop=GEO_CROP),
+                 "lens": dict(lens=(0.02, 0.0, 1.0, -1.0)),
+                 "perspective": dict(perspective=(0.1, 0.0))}
+    rec = edit.replace(highlight_recovery=HL_AMOUNT)
+    grad_rgba = fused.launch_key("rgba", "grad")
+    xt_rgba = fused.launch_key("rgba", "grad", xtrans)
+
+    def launched():
+        return {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES}.items()
+                if v}
+
+    def launching(want, fn, *args, **kw):
+        """``fn(*args, **kw)``, which must add one launch to each key of
+        ``want`` and to no other key."""
+        before = launched()
+        out = fn(*args, **kw)
+        now = launched()
+        moved = {k: now[k] - before.get(k, 0) for k in now
+                 if now[k] != before.get(k, 0)}
+        check(moved == {k: 1 for k in want}, f"{fn.__name__} launched "
+              f"{moved}, expected one each of {want}")
+        return out
+
+    times, shapes = {}, {}
+    # -- the counted phase: counts reset just before, read just after -----
+    reset(fused.LAUNCHES)
+    reset(fx.LAUNCHES)
+    t0 = time.perf_counter()
+    lin, times["open_linear_ms"] = host_once(
+        lambda: DevelopEngine.open(lin_path, **acc))
+    check(lin.linear and tuple(lin.mosaic.shape) == (H, W, 3),
+          f"LinearRaw engine {tuple(lin.mosaic.shape)}")
+    lin_prev_h, lin_prev_w = lin.preview_h, lin.preview_w
+    lin_hist_px = lin.histogram_w * lin.histogram_h
+    prev, times["linear_preview_tick_ms"] = host_once(
+        lambda: launching([], lin.preview_tick, edit, 1.5, (0.01, 0.0)))
+    hist, times["linear_histogram_ms"] = host_once(
+        lambda: launching([], lin.histogram, edit))
+    lin_words, times["linear_full_rgba_ms"] = host_once(
+        lambda: launching([], lin.full_rgba_device, edit))
+    lin_x, times["linear_extras_full_rgba_ms"] = host_once(
+        lambda: launching(["extras_rgba"], lin.full_rgba_device, xedit))
+    lin_xp, times["linear_extras_jpeg_planes_ms"] = host_once(
+        lambda: launching(["extras_ycbcr420"], lin.jpeg_planes, xedit))
+    outs = {}
+    outs["linear.jpg"], times["linear_export_jpeg_ms"] = host_once(
+        lambda: launching([], lin.export, os.path.join(tmpdir, "lin.jpg"),
+                          edit))
+    outs["linear.tif"], times["linear_export_tif_ms"] = host_once(
+        lambda: launching([], lin.export, os.path.join(tmpdir, "lin.tif"),
+                          edit))
+    lin_rec, times["linear_recovered_full_rgba_ms"] = host_once(
+        lambda: launching([], lin.full_rgba_device, rec))
+    engines = {"dng": DevelopEngine.open(dng, demosaic_method="grad", **acc),
+               "raf": DevelopEngine.open(raf_path, demosaic_method="grad",
+                                         **acc),
+               "linear": lin}
+    want_key = {"dng": [grad_rgba], "raf": [xt_rgba], "linear": []}
+    tiers = {}
+    for src, e in engines.items():
+        for case, kw in geo_cases.items():
+            name = f"{src}_{case}.jpg"
+            outs[name], times[f"{src}_{case}_export_jpeg_ms"] = host_once(
+                lambda: launching(want_key[src], e.export,
+                                  os.path.join(tmpdir, name), edit, **kw))
+            h, w = e.height, e.width
+            if "long_edge" in kw:
+                shapes[name] = resize.long_edge_shape(h, w, LONG_EDGE)
+            else:
+                ow, oh = geometry.output_rect(h, w, kw.get("rotate", 0.0),
+                                              kw.get("crop"),
+                                              kw.get("perspective"))[:2]
+                shapes[name] = (oh, ow)
+        name = f"{src}_long_edge_rotate.tif"
+        outs[name], times[f"{src}_export_tif_long_edge_rotate_ms"] = host_once(
+            lambda: launching([], e.export, os.path.join(tmpdir, name), edit,
+                              long_edge=LONG_EDGE, rotate=3.0))
+        ow, oh = geometry.output_rect(e.height, e.width, 3.0)[:2]
+        shapes[name] = resize.long_edge_shape(oh, ow, LONG_EDGE)
+        tiers[src], times[f"{src}_develop_tiers_ms"] = host_once(
+            lambda: launching([], e.develop_tiers, edit))
+    before = launched()
+    rep = run_batch_export(jobs_f, batch_size=EXPORT_BATCH, quality=95,
+                           use_kernel=True, **run_f)
+    torch.cuda.synchronize()
+    run_launches = {k: v - before.get(k, 0) for k, v in launched().items()
+                    if v != before.get(k, 0)}
+    phase_launches = launched()
+    seconds = time.perf_counter() - t0
+    log(f"batch export run F {json.dumps(run_f)}: "
+        f"{json.dumps(rep.as_dict())}; develops_per_sec "
+        f"{rep.develops_per_sec!r}; launches {run_launches} [{smi}]")
+    n_ok = sum(1 for j in jobs_f if not j.raw_path.endswith("9999.dng"))
+    check(rep.succeeded == n_ok and len(rep.failed) == len(jobs_f) - n_ok,
+          f"run F: {rep.as_dict()}, failures {rep.failed}")
+    want_f = {grad_rgba: 3, xt_rgba: 1, "extras_rgba": 2}
+    check(run_launches == want_f, f"run F launched {run_launches}, expected "
+          f"{want_f}")
+
+    # -- checks outside the counted phase ----------------------------------
+    errs = {}
+    table, *flags = fx.pack_extras([xedit])
+    plain = lin._plain_develop(xedit, rgba=True)
+    mx = lsb_diff(lin_x, fx.finish_extras_plain(plain[None], table.cuda(),
+                                                *flags)[0])[0]
+    y, cbcr = fx.finish_extras_plain(plain[None], table.cuda(), *flags,
+                                     output="ycbcr420")
+    mx_p = planes_diff(lin_xp, (y[0], cbcr[0, :, 0::2], cbcr[0, :, 1::2]))
+    check(mx == 0 and mx_p == 0, f"B8 over LinearRaw words: {mx} LSB (RGBA),"
+          f" {mx_p} (planes) from its plain version")
+    errs["extras_rgba"], errs["extras_ycbcr420"] = mx, mx_p
+    b8_ms = {"extras_rgba": statistics.median(cuda_ms(
+        lambda: fx.fused_finish_extras_rgba(plain, table[0].cuda(),
+                                            **dict(zip(("mixer_on",
+                                                        "grading_on",
+                                                        "stencils"), flags))),
+        5))}
+    b8_ms["linear_plain_develop_rgba"] = statistics.median(cuda_ms(
+        lambda: lin._plain_develop(edit, rgba=True), 5))
+    del plain, lin_x, lin_xp, y, cbcr
+    # Repeated host-clock medians of the LinearRaw entry points (the
+    # counted calls above were each the first of its kind in the process).
+    again = {
+        "linear_preview_tick_ms": host_ms(
+            lambda: lin.preview_tick(edit, 1.5, (0.01, 0.0)), 10),
+        "linear_histogram_ms": host_ms(lambda: lin.histogram(edit), 10),
+        "linear_full_rgba_ms": host_ms(lambda: lin.full_rgba_device(edit), 5),
+        "linear_extras_full_rgba_ms": host_ms(
+            lambda: lin.full_rgba_device(xedit), 5),
+        "linear_extras_jpeg_planes_ms": host_ms(
+            lambda: lin.jpeg_planes(xedit), 5),
+        "dng_long_edge_export_jpeg_ms": host_ms(
+            lambda: engines["dng"].export(os.path.join(tmpdir, "again.jpg"),
+                                          edit, long_edge=LONG_EDGE), 3)}
+    # The LinearRaw develop, card against the CPU over a crop.
+    y0, x0, ch, cw, _ = TIFF_CROP
+    crop = lin.mosaic[y0: y0 + ch, x0: x0 + cw].cpu()
+    cpu = develop_linear(crop, edit, lin.wb, lin.cam_matrix,
+                         white_level=lin.white_level,
+                         black_level=lin.black_level,
+                         matrix_transpose=lin.matrix_transpose,
+                         transfer=lin.transfer, rgba=True)
+    lin_lsb = lsb_diff(lin_words[y0: y0 + ch, x0: x0 + cw].cpu(), cpu)
+    check(lin_lsb[0] <= 1, f"LinearRaw develop card vs CPU: {lin_lsb}")
+    check(not torch.equal(lin_rec, lin_words), "recovery changed nothing")
+    # Resize and geometry: the card against the same function on the CPU
+    # over the fetched words, and their device times.
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "the resize's matrix products would run in TF32")
+    words = engines["dng"].full_rgba_device(edit)
+    host = words.cpu()
+    oh, ow = resize.long_edge_shape(H, W, LONG_EDGE)
+    forms = {"resize_rgba_words": lambda w: resize.resize_rgba_words(
+        w, ow, oh)}
+    for case, kw in geo_cases.items():
+        if case != "long_edge":
+            forms[f"rotate_crop_rgba_words_{case}"] = (
+                lambda w, kw=kw: geometry.rotate_crop_rgba_words(
+                    w, kw.get("rotate", 0.0), kw.get("crop"),
+                    lens=kw.get("lens"), perspective=kw.get("perspective")))
+    card_cpu, dev_ms = {}, {}
+    for name, fn in forms.items():
+        got = fn(words)
+        card_cpu[name] = lsb_diff(got.cpu(), fn(host))
+        check(card_cpu[name][0] <= 1, f"{name}: card vs CPU {card_cpu[name]}")
+        dev_ms[name] = statistics.median(cuda_ms(lambda: fn(words), 5))
+        del got
+    u16 = torch.from_numpy(_tiff16(outs["linear.tif"])[0][:1024, :1536]
+                           .copy())
+    for name, fn in (("resize_rgb16", lambda x: resize.resize_rgb16(
+            x, 768, 512)), ("rotate_crop_u16", lambda x:
+                            geometry.rotate_crop_u16(x, 3.0))):
+        a = fn(u16.cuda()).cpu().view(torch.int16).to(torch.int32) & 0xFFFF
+        b = fn(u16).view(torch.int16).to(torch.int32) & 0xFFFF
+        d = (a - b).abs()
+        card_cpu[name] = (int(d.max()), float((d > 0).float().mean()))
+        check(card_cpu[name][0] <= 1, f"{name}: card vs CPU {card_cpu[name]}")
+    # Bounds of the resize: the two contractions' f32 operations (the
+    # order resize_hw runs them), and each input read and output written.
+    h_first = H * W * oh + oh * W * ow
+    w_first = H * W * ow + H * ow * oh
+    ops = 2.0 * 3 * min(h_first, w_first)
+    bytes_ = H * W * 4 + oh * ow * 4
+    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"linear/geometry phase: B8 over LinearRaw words 0 LSB from plain "
+        f"(RGBA and planes); device ms (CUDA events, median of 5) of B8 RGBA "
+        f"and of the LinearRaw plain develop {json.dumps(b8_ms)}; host ms "
+        f"again (medians of 10, 5 or 3 after a warm-up) {json.dumps(again)};"
+        f" LinearRaw"
+        f" develop card vs CPU over the {ch}x{cw} crop (max LSB, differing "
+        f"share) {lin_lsb}; card vs CPU on the 24 MP words "
+        f"{json.dumps(card_cpu)}; device ms (CUDA events, median of 5) "
+        f"{json.dumps(dev_ms)}; resize bound {max(t_ops, t_bytes):.4f} ms by "
+        f"{bound_by} ({ops / 1e9:.1f} GFLOP f32, {bytes_ / 1e6:.1f} MB) "
+        f"[{smi}]")
+    # Each output's size.
+    for name, path in outs.items():
+        if name.endswith(".jpg"):
+            with open(path, "rb") as f:
+                data = f.read()
+            check(data[:2] == b"\xff\xd8" and data[-2:] == b"\xff\xd9",
+                  f"{name}: JFIF markers")
+            got = _jpeg_size(data)
+        else:
+            got = _tiff16(path)[0].shape[:2]
+        want = shapes.get(name, (H, W))
+        check(tuple(got) == tuple(want), f"{name}: {got}, expected {want}")
+    for src, ts in tiers.items():
+        e = engines[src]
+        check([t.shape for t in ts] == [
+            (resize.tier_shape(e.width, e.height, tw)[1], tw, 3)
+            for tw in (256, 384, 1280)], f"{src} tiers {[t.shape for t in ts]}")
+    check(tuple(prev.shape) == (lin_prev_h, lin_prev_w, 3)
+          and hist.shape == (3, 256)
+          and (hist.sum(axis=1) == lin_hist_px).all(),
+          f"LinearRaw preview {tuple(prev.shape)}, histogram sums "
+          f"{hist.sum(axis=1)}")
+
+    # Every output of run F against the engine's export of the same job.
+    def engine_bytes(job):
+        e = DevelopEngine.open(job.raw_path, "accurate", use_kernel=True,
+                               demosaic_method="grad")
+        ref = e.export(os.path.join(tmpdir, f"engine_F_{job.image_id}.jpg"),
+                       job.params, quality=95, long_edge=LONG_EDGE,
+                       rotate=2.0)
+        with open(ref, "rb") as f, open(job.out_path, "rb") as g:
+            same = f.read() == g.read()
+        os.unlink(ref)
+        return job.out_path, same
+
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        same = list(pool.map(engine_bytes, [
+            j for j in jobs_f if not j.raw_path.endswith("9999.dng")]))
+    for path, equal in same:
+        check(equal, f"{path} differs from the engine's export")
+    lib.close()
+    del engines, lin, words, host, lin_words, lin_rec
+    torch.cuda.empty_cache()
+    log(f"linear/geometry phase: {len(same)} outputs of run F byte-equal to "
+        f"the engine's export ({time.perf_counter() - t1:.2f} s, four "
+        f"threads); LinearRaw DNGs written in {write_s:.2f} s "
+        f"({size_mb:.1f} MB each); {seconds:.2f} s counted; launches "
+        f"{phase_launches}; times (host clock, one call each, device synced)"
+        f" {json.dumps(times)} [{smi}]")
+    return phase_launches, errs
+
+
 def main():
     import argparse
 
@@ -1781,6 +2165,17 @@ def main():
           f"gamut phase launched {gamut_launches}, expected {gamut_want}")
     lap("wide gamut, recovery and 16-bit")
 
+    # -- LinearRaw, resize and geometry (counts reset and read inside) -----
+    lg_launches, lg_errs = linear_geometry(tmpdir, edit, xedit, smi)
+    lg_want = {
+        # the DNG's and the RAF's five geometry exports, + run F's flushes
+        grad: 5 + 3, fused.launch_key("rgba", "grad", xtrans): 5 + 1,
+        # B8 over the LinearRaw words, + run F's two extras flushes
+        "extras_rgba": 1 + 2, "extras_ycbcr420": 1}
+    check(lg_launches == lg_want, f"linear/geometry phase launched "
+          f"{lg_launches}, expected {lg_want}")
+    lap("LinearRaw, resize and geometry")
+
     # -- outputs ----------------------------------------------------------
     check(tuple(prev.shape) == (854, 1280, 3) and prev.dtype == torch.uint8,
           f"preview shape {tuple(prev.shape)}")
@@ -1819,7 +2214,7 @@ def main():
         f"{[len(j) for j in grad_jpegs]} bytes")
 
     errs = {k: 0 for k in launches}
-    for k, v in gamut_errs.items():
+    for k, v in (*gamut_errs.items(), *lg_errs.items()):
         errs[k] = max(errs[k], v)
 
     def note(key, mx, what):
@@ -2510,7 +2905,7 @@ def main():
     # comparison above, at 24 MP, on the odd frame, at the four phases, in
     # the batch planes or on the edges.
     for key in (*quad_worst, *grad_worst, *x_edge_worst, *cfa_edge_worst,
-                *gamut_errs):
+                *gamut_errs, *lg_errs):
         check(errs[key] == 0, f"{key}: {errs[key]} LSB from its plain version")
 
     kernels = []
@@ -2530,7 +2925,8 @@ def main():
             "export_launches": {run: n.get(key, 0)
                                 for run, n in export_launches.items()},
             "session_launches": session_launches.get(key, 0),
-            "gamut_launches": gamut_launches.get(key, 0)})
+            "gamut_launches": gamut_launches.get(key, 0),
+            "linear_geometry_launches": lg_launches.get(key, 0)})
     for key in x_timed:
         kernels.append({
             "name": key, "route": "cuda", "source": SRC["extras"],
@@ -2544,7 +2940,8 @@ def main():
             "export_launches": {run: n.get(key, 0)
                                 for run, n in export_launches.items()},
             "session_launches": session_launches.get(key, 0),
-            "gamut_launches": gamut_launches.get(key, 0)})
+            "gamut_launches": gamut_launches.get(key, 0),
+            "linear_geometry_launches": lg_launches.get(key, 0)})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
         f"build included; seconds by phase {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))

@@ -10,9 +10,11 @@ jax, and importing any submodule of ``raweditor_tpu`` runs its
 package is the compiled JFIF encoder ``_rawkit``, loaded by file path
 (``native.py``).
 
-Ported so far: the develop of a decoded Bayer or X-Trans frame through
+Ported so far: the develop of a decoded Bayer, X-Trans or LinearRaw frame
+through
 ``DevelopEngine`` (slider tick preview and histogram, full-resolution
-develop, JPEG export) in parity and accurate mode, with the nearest,
+develop, JPEG, PNG and 16-bit TIFF export with the device resize and
+output geometry) in parity and accurate mode, with the nearest,
 bilinear, Malvar-He-Cutler and gradient-weighted Bayer demosaics and the
 nearest, smooth and gradient-weighted generic-CFA tiers
 (``demosaic_method``), the finish extras, and the fused develop kernels
@@ -46,6 +48,7 @@ from raweditor_tpu_torch.ops.demosaic import (
 from raweditor_tpu_torch.ops.develop import (
     develop,
     develop_histogram,
+    develop_linear,
     develop_preview,
     develop_rgba,
     develop_u8,
@@ -85,6 +88,7 @@ __all__ = [
     "demosaic_malvar",
     "develop",
     "develop_histogram",
+    "develop_linear",
     "develop_preview",
     "develop_rgba",
     "develop_rgba_folded_plain",

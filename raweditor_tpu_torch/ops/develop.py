@@ -26,6 +26,11 @@ the chain before quantisation, as the JAX functions run them. The
 CFA (the 6x6 X-Trans grid by default) with the generic-CFA demosaics of
 ``ops/cfa_generic.py``: ``"nearest"``, ``"smooth"`` or ``"grad"``.
 
+``develop_linear``, ``develop_linear_preview`` and
+``develop_linear_histogram`` are the same chain over an already
+demosaiced (H, W, 3) u16 frame (DNG LinearRaw): each channel plane is
+normalised on its own and no demosaic runs.
+
 ``demosaic_method`` selects the demosaic of ``develop``,
 ``develop_rgba`` and ``develop_u8``: the parity stencil ``"nearest"``,
 or the accurate lane's ``"bilinear"``, ``"malvar"`` and ``"grad"``
@@ -482,3 +487,68 @@ def develop_xtrans_histogram(mosaic, params: EditParams, wb, cam_matrix,
         mosaic, params, wb, cam_matrix, out_w, out_h, zoom, pan_x, pan_y,
         white_level, black_level, pattern, matrix_transpose, transfer,
         extras))
+
+
+def _linear_normalized(rgb_u16, white_level, black_level):
+    """The three channel planes of an (..., 3) u16 frame, each
+    normalised on its own (the JAX function splits them first)."""
+    return tuple(_normalize(rgb_u16[..., c], white_level, black_level)
+                 for c in range(3))
+
+
+def develop_linear(rgb_u16, params: EditParams, wb, cam_matrix,
+                   white_level=4096.0, black_level=0.0,
+                   matrix_transpose: bool = False,
+                   transfer: str = "gamma22", rgba: bool = False,
+                   bits: int = 8, extras=False):
+    """Develop an already-demosaiced (H, W, 3) u16 frame (DNG LinearRaw,
+    photometric 34892): the edit stack with no demosaic. Returns
+    (H, W, 3) u8, with ``rgba`` (H, W) u32 words, or with ``bits=16``
+    (H, W, 3) u16 (``finish_to_u16``)."""
+    if rgba and bits == 16:
+        raise ValueError("rgba and bits=16 are mutually exclusive")
+    require_ported(params, extras)
+    r, g, b = _linear_normalized(rgb_u16, white_level, black_level)
+    r, g, b = apply_edit_stack(r, g, b, params, wb, cam_matrix,
+                               matrix_transpose)
+    finish = _finish_kwargs(params, transfer, extras)
+    if rgba:
+        return finish_to_rgba_u32(r, g, b, **finish)
+    finish_to = finish_to_u16 if bits == 16 else finish_to_u8
+    return torch.stack(finish_to(r, g, b, **finish), dim=-1)
+
+
+def develop_linear_preview(rgb_u16, params: EditParams, wb, cam_matrix,
+                           out_w: int, out_h: int, zoom=1.0, pan_x=0.0,
+                           pan_y=0.0, white_level=4096.0, black_level=0.0,
+                           matrix_transpose: bool = False,
+                           transfer: str = "gamma22", extras=False):
+    """LinearRaw preview at (out_h, out_w) with zoom/pan: nearest-sample
+    the RGB frame at output pixel centres, then run the edit stack on the
+    sampled sites. Returns (out_h, out_w, 3) u8."""
+    require_ported(params, extras)
+    h, w = rgb_u16.shape[:2]
+    dev = rgb_u16.device
+    xi, xvalid = _sampling.sample_axis(out_w, w, zoom, pan_x, dev)
+    yi, yvalid = _sampling.sample_axis(out_h, h, zoom, pan_y, dev)
+    valid = yvalid[:, None] & xvalid[None, :]
+    src = (rgb_u16.view(torch.int16) if rgb_u16.dtype == torch.uint16
+           else rgb_u16)
+    sub = src.index_select(0, yi).index_select(1, xi)
+    r, g, b = _linear_normalized(sub, white_level, black_level)
+    r, g, b = apply_edit_stack(r, g, b, params, wb, cam_matrix,
+                               matrix_transpose)
+    return torch.stack(finish_to_u8(
+        r, g, b, valid=valid, **_finish_kwargs(params, transfer, extras)),
+        dim=-1)
+
+
+def develop_linear_histogram(rgb_u16, params: EditParams, wb, cam_matrix,
+                             out_w: int, out_h: int, zoom=1.0, pan_x=0.0,
+                             pan_y=0.0, white_level=4096.0, black_level=0.0,
+                             matrix_transpose: bool = False,
+                             transfer: str = "gamma22", extras=False):
+    """The LinearRaw live histogram: a small sampled render, binned."""
+    return histogram_256(develop_linear_preview(
+        rgb_u16, params, wb, cam_matrix, out_w, out_h, zoom, pan_x, pan_y,
+        white_level, black_level, matrix_transpose, transfer, extras))

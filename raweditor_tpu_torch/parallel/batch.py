@@ -14,7 +14,9 @@ curves), with ``_maybe_ycbcr`` turning its words into JPEG planes;
 ``batch_develop_xtrans_rgba`` is the RGBA lane over X-Trans (generic-CFA)
 mosaics; ``batch_develop_u16`` is the 16-bit lane over Bayer or X-Trans
 mosaics, the exporter's ``bits=16`` flush (the JAX exporter vmaps
-``develop_u16`` and ``develop_xtrans(bits=16)``).
+``develop_u16`` and ``develop_xtrans(bits=16)``);
+``batch_develop_linear_rgba`` is the RGBA lane over already-demosaiced
+LinearRaw frames (N, H, W, 3) u16.
 """
 
 from __future__ import annotations
@@ -22,12 +24,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raweditor_tpu_torch.ops.develop import (develop, develop_rgba,
-                                             develop_u16, develop_xtrans)
+from raweditor_tpu_torch.ops.develop import (develop, develop_linear,
+                                             develop_rgba, develop_u16,
+                                             develop_xtrans)
 from raweditor_tpu_torch.ops.fused_develop import fold_scalars
 from raweditor_tpu_torch.ops.fused_extras import pack_extras
 
-__all__ = ["batch_develop", "batch_develop_rgba", "batch_develop_u16",
+__all__ = ["batch_develop", "batch_develop_linear_rgba",
+           "batch_develop_rgba", "batch_develop_u16",
            "batch_develop_xtrans_rgba", "pack_extras", "pack_params"]
 
 
@@ -133,18 +137,42 @@ def batch_develop_xtrans_rgba(mosaics: torch.Tensor, params_list, wbs,
     return _maybe_ycbcr(words, output)
 
 
+def batch_develop_linear_rgba(frames: torch.Tensor, params_list, wbs,
+                              cam_matrices, white_levels=None,
+                              black_levels=None,
+                              matrix_transpose: bool = False,
+                              transfer: str = "gamma22",
+                              output: str = "rgba_words", extras=False):
+    """The plain lane over a batch of LinearRaw frames: (N, H, W, 3) u16
+    to (N, H, W) u32, or JPEG planes; ``output`` and ``extras`` as in
+    ``batch_develop_rgba``."""
+    words = _per_image(develop_linear, frames, params_list, wbs,
+                       cam_matrices, white_levels, black_levels,
+                       matrix_transpose=matrix_transpose, transfer=transfer,
+                       rgba=True, extras=extras)
+    return _maybe_ycbcr(words, output)
+
+
 def batch_develop_u16(mosaics: torch.Tensor, params_list, wbs, cam_matrices,
                       white_levels=None, black_levels=None,
                       matrix_transpose: bool = True, cfa_phase=(0, 0),
                       pattern: str = None, transfer: str = "gamma22",
-                      demosaic_method: str = "nearest", extras=False):
+                      demosaic_method: str = "nearest", extras=False,
+                      linear: bool = False):
     """The 16-bit plain lane over a batch: (N, H, W) u16 to
     (N, H, W, 3) u16, each image with its own edit, WB, matrix and
     levels. A ``pattern`` develops X-Trans (generic-CFA) mosaics with
     ``develop_xtrans(bits=16)`` and its ``demosaic_method`` ("nearest",
     "smooth", "grad"), else Bayer ones at ``cfa_phase`` with
-    ``develop_u16``. ``extras`` is the batch's static finish-extras mode,
-    run in the chain (the words post-pass is 8-bit)."""
+    ``develop_u16``; with ``linear`` they are LinearRaw frames
+    (N, H, W, 3) u16 and develop with ``develop_linear(bits=16)``.
+    ``extras`` is the batch's static finish-extras mode, run in the chain
+    (the words post-pass is 8-bit)."""
+    if linear:
+        return _per_image(develop_linear, mosaics, params_list, wbs,
+                          cam_matrices, white_levels, black_levels,
+                          matrix_transpose=matrix_transpose,
+                          transfer=transfer, bits=16, extras=extras)
     if pattern is not None:
         return _per_image(develop_xtrans, mosaics, params_list, wbs,
                           cam_matrices, white_levels, black_levels,

@@ -1,4 +1,5 @@
-"""The interactive develop engine for one decoded Bayer or X-Trans frame.
+"""The interactive develop engine for one decoded Bayer, X-Trans or
+LinearRaw frame.
 
 The PyTorch counterpart of the JAX package's ``DevelopEngine``: the u16
 mosaic stays on the device, and the slider tick (a sampled preview plus
@@ -92,10 +93,27 @@ The white-balance eyedropper reads the original mosaic.
 ``develop_xtrans(bits=16)`` with the exact transfer, then the copied
 ``raw/tiff_out.write_tiff16``).
 
-Not ported yet: LinearRaw frames, CFA patterns other than the four Bayer
-phases and 36-letter grids, clarity, dehaze, grain, local adjustments
-(each raises ``NotImplementedError`` naming it), tiers, and resize and
-geometry in exports.
+A LinearRaw frame (DNG photometric 34892, an (H, W, 3) u16 frame that is
+already demosaiced; ``self.linear``) develops through the plain lane's
+``develop_linear``, ``develop_linear_preview`` and
+``develop_linear_histogram`` on every entry point, with or without
+``use_kernel`` (no develop kernel runs: the JAX engine develops it in XLA
+too); with extras its words take the finish-extras post-pass, B8 with
+``use_kernel``. Recovery reconstructs it with
+``ops/highlights.reconstruct_linear_highlights``. In accurate mode a
+pattern that is neither a Bayer phase nor a 36-letter grid raises the
+JAX engine's ``ValueError`` (``ops/demosaic.phase_of``).
+
+``export`` and ``export_tiff16`` take the output geometry (``rotate``,
+``crop``, ``lens``, ``perspective``: ``ops/geometry.py``) and
+``long_edge`` (``ops/resize.py``, Lanczos3, never upscales), in that
+order, on the developed RGBA words (or 16-bit frame) on the device; a
+JPEG then converts the shaped words to YCbCr planes on the device, and an
+odd 4:2:0 output goes through PIL. ``develop_tiers`` resizes the
+full-resolution develop to the preview tiers on the device.
+
+Not ported yet: clarity, dehaze, grain and local adjustments (each
+raises ``NotImplementedError`` naming it).
 """
 
 from __future__ import annotations
@@ -114,15 +132,14 @@ from raweditor_tpu_torch.color import (COLOR_SPACES,
 from raweditor_tpu_torch.ops import develop as _develop
 from raweditor_tpu_torch.ops import fused_develop as _fused
 from raweditor_tpu_torch.ops import fused_extras as _fx
+from raweditor_tpu_torch.ops import geometry as _geometry
 from raweditor_tpu_torch.ops import jpeg as _jpeg
+from raweditor_tpu_torch.ops import resize as _resize
 from raweditor_tpu_torch.ops.cfa_generic import generic_cfa_method, is_xtrans
-from raweditor_tpu_torch.ops.demosaic import (CFA_PHASES, DEMOSAIC_METHODS,
-                                              phase_of)
+from raweditor_tpu_torch.ops.demosaic import DEMOSAIC_METHODS, phase_of
 from raweditor_tpu_torch.ops.sampling import histogram_shape, preview_shape
 from raweditor_tpu_torch.params import EditParams
-from raweditor_tpu_torch.pipeline.export import (_atomic_write,
-                                                 _record_event,
-                                                 _refuse_geometry)
+from raweditor_tpu_torch.pipeline.export import _atomic_write, _record_event
 from raweditor_tpu_torch.raw.types import RawImage
 from raweditor_tpu_torch.utils.device import resolve_device
 
@@ -161,8 +178,6 @@ class DevelopEngine:
         transfer = TRANSFER_BY_SPACE.get(color_space, transfer)
         if demosaic_method not in DEMOSAIC_METHODS + ("smooth",):
             raise ValueError(f"unknown demosaic method {demosaic_method!r}")
-        if raw.is_linear:
-            raise NotImplementedError("not ported yet: LinearRaw frames")
         self.device = resolve_device(device)
         self.mode = mode
         self.use_kernel = use_kernel
@@ -198,22 +213,24 @@ class DevelopEngine:
                                                color_space=color_space)
         self.matrix_transpose = mode == "parity"
         self.xtrans_pattern = None  # set for 6x6 CFAs in accurate mode
+        self.linear = raw.is_linear  # LinearRaw: already demosaiced
         if mode == "parity":
             self.white_level, self.black_level = 4096.0, 0.0
             self.cfa_phase = (0, 0)
         else:
             self.white_level = float(raw.white_level)
             self.black_level = float(raw.black_level)
-            if is_xtrans(raw.cfa_pattern):
+            if self.linear:
+                self.cfa_phase = (0, 0)
+            elif is_xtrans(raw.cfa_pattern):
                 self.xtrans_pattern = raw.cfa_pattern
                 self.cfa_phase = (0, 0)
-            elif raw.cfa_pattern.upper() in CFA_PHASES:
-                self.cfa_phase = phase_of(raw.cfa_pattern)
             else:
-                raise NotImplementedError(
-                    f"not ported yet: CFA pattern {raw.cfa_pattern!r} "
-                    "(neither a 2x2 Bayer phase nor a 36-letter grid)")
-        if demosaic_method == "smooth" and self.xtrans_pattern is None:
+                # Raises the JAX engine's ValueError for a pattern that is
+                # neither a Bayer phase nor a 36-letter grid.
+                self.cfa_phase = phase_of(raw.cfa_pattern)
+        if (demosaic_method == "smooth" and self.xtrans_pattern is None
+                and not self.linear):
             raise ValueError("'smooth' is the generic-CFA tier; Bayer uses "
                              "bilinear/malvar/grad")
         # State of the pipelined slider mode's background syncer
@@ -236,17 +253,25 @@ class DevelopEngine:
             return self._hl_cache[1]
         from raweditor_tpu_torch.ops import highlights as _hl
 
-        m = _hl.reconstruct_mosaic_highlights(
-            self.mosaic, self.wb, amt, self.white_level, self.black_level,
-            cfa_phase=self.cfa_phase, xtrans_pattern=self.xtrans_pattern)
+        if self.linear:
+            m = _hl.reconstruct_linear_highlights(
+                self.mosaic, self.wb, amt, self.white_level, self.black_level)
+        else:
+            m = _hl.reconstruct_mosaic_highlights(
+                self.mosaic, self.wb, amt, self.white_level,
+                self.black_level, cfa_phase=self.cfa_phase,
+                xtrans_pattern=self.xtrans_pattern)
         self._hl_cache = (amt, m)
         return m
 
     # -- slider tick -----------------------------------------------------
     def _view_kwargs(self, params, zoom, pan):
         """The sampled render's keywords: the pattern for an X-Trans
-        frame (``develop_xtrans_preview``), else the Bayer phase."""
-        cfa = (dict(cfa_phase=self.cfa_phase) if self.xtrans_pattern is None
+        frame (``develop_xtrans_preview``), none for a LinearRaw frame,
+        else the Bayer phase."""
+        cfa = ({} if self.linear
+               else dict(cfa_phase=self.cfa_phase)
+               if self.xtrans_pattern is None
                else dict(pattern=self.xtrans_pattern))
         return dict(zoom=float(zoom), pan_x=float(pan[0]),
                     pan_y=float(pan[1]), white_level=self.white_level,
@@ -258,7 +283,9 @@ class DevelopEngine:
     def preview_device(self, params: EditParams, zoom: float = 1.0,
                        pan: Tuple[float, float] = (0.0, 0.0)):
         """(preview_h, preview_w, 3) u8 preview, left on the device."""
-        preview = (_develop.develop_preview if self.xtrans_pattern is None
+        preview = (_develop.develop_linear_preview if self.linear
+                   else _develop.develop_preview
+                   if self.xtrans_pattern is None
                    else _develop.develop_xtrans_preview)
         return preview(self._render_mosaic(params), params, self.wb,
                        self.cam_matrix, self.preview_w, self.preview_h,
@@ -410,7 +437,8 @@ class DevelopEngine:
     def histogram(self, params: EditParams, zoom: float = 1.0,
                   pan: Tuple[float, float] = (0.0, 0.0)) -> np.ndarray:
         """(3, 256) int32 live histogram of a histogram_w-wide render."""
-        histogram = (_develop.develop_histogram
+        histogram = (_develop.develop_linear_histogram if self.linear
+                     else _develop.develop_histogram
                      if self.xtrans_pattern is None
                      else _develop.develop_xtrans_histogram)
         return histogram(self._render_mosaic(params), params, self.wb,
@@ -430,8 +458,9 @@ class DevelopEngine:
             u = ((1 + 0.3t) r / g - 1) / 0.3
 
         Only the mosaic window comes to the host. Channel means are per
-        CFA site (the Bayer phase, or the X-Trans grid's channel map),
-        black-subtracted, times the camera WB gains. Raises
+        CFA site (the Bayer phase, or the X-Trans grid's channel map) or,
+        on a LinearRaw frame, per channel plane, black-subtracted, times
+        the camera WB gains. Raises
         ``ValueError`` for a point outside the frame and for a patch
         that misses a channel, is clipped or is black."""
         h, w = self.height, self.width
@@ -445,6 +474,25 @@ class DevelopEngine:
         black = float(self.black_level)
         white = float(self.white_level)
         lin = np.clip(win - black, 0.0, None) / max(white - black, 1.0)
+        if self.linear:
+            means = [float(lin[..., c].mean()) for c in range(3)]
+        else:
+            means = self._site_means(lin, y0, y1, x0, x1)
+        if max(means) >= 0.98:
+            raise ValueError("patch is clipped - pick a dimmer neutral")
+        if max(means) <= 1e-4:
+            raise ValueError("patch is black - pick a brighter neutral")
+        wbv = np.asarray(self.wb, np.float32)
+        r, g, b = (means[0] * float(wbv[0]), means[1] * float(wbv[1]),
+                   means[2] * float(wbv[2]))
+        t = (b - r) / (0.3 * max(r + b, 1e-6))
+        t = float(np.clip(t, -1.0, 1.0))
+        u = ((1.0 + 0.3 * t) * r / max(g, 1e-6) - 1.0) / 0.3
+        u = float(np.clip(u, -1.0, 1.0))
+        return t, u
+
+    def _site_means(self, lin, y0, y1, x0, x1):
+        """Per-channel means of a mosaic window over its CFA sites."""
         yy, xx = np.mgrid[y0:y1, x0:x1]
         if self.xtrans_pattern is not None:
             from raweditor_tpu_torch.ops.cfa_generic import channel_grid
@@ -464,18 +512,7 @@ class DevelopEngine:
                 raise ValueError("patch too small for this CFA - pick "
                                  "elsewhere or enlarge radius")
             means.append(float(lin[msk].mean()))
-        if max(means) >= 0.98:
-            raise ValueError("patch is clipped - pick a dimmer neutral")
-        if max(means) <= 1e-4:
-            raise ValueError("patch is black - pick a brighter neutral")
-        wbv = np.asarray(self.wb, np.float32)
-        r, g, b = (means[0] * float(wbv[0]), means[1] * float(wbv[1]),
-                   means[2] * float(wbv[2]))
-        t = (b - r) / (0.3 * max(r + b, 1e-6))
-        t = float(np.clip(t, -1.0, 1.0))
-        u = ((1.0 + 0.3 * t) * r / max(g, 1e-6) - 1.0) / 0.3
-        u = float(np.clip(u, -1.0, 1.0))
-        return t, u
+        return means
 
     def before_after(self, params: EditParams, zoom: float = 1.0,
                      pan: Tuple[float, float] = (0.0, 0.0)):
@@ -522,6 +559,10 @@ class DevelopEngine:
                       black_level=self.black_level,
                       matrix_transpose=self.matrix_transpose,
                       transfer=self.transfer)
+        if self.linear:
+            return _develop.develop_linear(
+                self._render_mosaic(params), params, self.wb,
+                self.cam_matrix, rgba=rgba, **levels)
         if self.xtrans_pattern is not None:
             return _develop.develop_xtrans(
                 self._render_mosaic(params), params, self.wb,
@@ -534,11 +575,13 @@ class DevelopEngine:
                        cfa_phase=self.cfa_phase, **levels)
 
     def _kernel_route(self, params: EditParams) -> bool:
-        """Whether the develop runs a fused kernel: ``use_kernel``, no
-        point curve and a transfer the kernels compute. A point curve and
-        the Adobe RGB transfer take the plain lane (which computes them)
-        even with ``use_kernel``; the develop kernels never do."""
-        return (self.use_kernel and not params.point_curve
+        """Whether the develop runs a fused kernel: ``use_kernel``, a
+        mosaic (not a LinearRaw frame), no point curve and a transfer the
+        kernels compute. A LinearRaw frame, a point curve and the Adobe
+        RGB transfer take the plain lane (which computes them) even with
+        ``use_kernel``; the develop kernels never do."""
+        return (self.use_kernel and not self.linear
+                and not params.point_curve
                 and self.transfer in KERNEL_GAMMA_BY_TRANSFER)
 
     def _develop_words(self, params: EditParams):
@@ -697,6 +740,20 @@ class DevelopEngine:
                                   exif=exif, optimize=bool(optimize), **kw)
         return buf.getvalue()
 
+    def _guard_geometry(self, rotate, crop) -> None:
+        """Geometry applies in the stored sensor frame: with
+        ``auto_orient`` on a rotated shot a rotation or a rectangle would
+        land on the wrong part of the upright picture, so it raises
+        ``ValueError`` (the JAX engine's rule)."""
+        if ((rotate or crop is not None) and self.auto_orient
+                and self.raw.orientation != 1):
+            raise ValueError(
+                "rotate/crop with auto_orient on a rotated shot "
+                f"(orientation {self.raw.orientation}) is not "
+                "supported: geometry applies in the stored sensor "
+                "frame - disable auto_orient or crop in stored "
+                "coordinates")
+
     def export(self, path: os.PathLike, params: EditParams,
                quality: int = 95, long_edge: int = None,
                jpeg_optimize: bool = False, chroma: str = "420",
@@ -708,47 +765,73 @@ class DevelopEngine:
         PNG carries the EXIF block of ``_exif_bytes``, and a wide-gamut
         export its ICC profile (``_icc_bytes``).
 
+        ``rotate`` (degrees, clockwise on screen), ``crop`` ((left, top,
+        width, height), or None for the largest upright rectangle of the
+        source aspect), ``lens`` ((k1, k2, ca_r, ca_b)) and
+        ``perspective`` ((kv, kh)) reshape the developed RGBA words on the
+        device, in the stored sensor frame, and ``long_edge`` then resizes
+        them (Lanczos3, never upscaling): ``ops/geometry.shape_output``.
+        A rotation or
+        crop with ``auto_orient`` on a rotated shot raises ``ValueError``.
+
         A JPEG goes through device YCbCr planes and the native encoder:
-        4:2:0 planes of even frames (``jpeg_planes``), or with
-        ``chroma="444"`` full-size chroma of any frame
-        (``rgba_words_to_ycbcr444`` over ``full_rgba_device``). Odd 4:2:0
-        frames and frames that ``auto_orient`` rotates go through PIL with
-        the same flags. ``jpeg_restart_rows`` > 0 writes DRI/RSTn restart
-        markers every that many MCU rows; ``jpeg_optimize`` writes
-        optimised Huffman tables. ``long_edge``, ``rotate``, ``crop``,
-        ``lens`` and ``perspective`` are not ported yet and raise
-        ``NotImplementedError`` naming themselves."""
+        4:2:0 planes of even frames (``jpeg_planes`` when nothing reshapes
+        the frame, else the shaped words converted on the device), or
+        with ``chroma="444"`` full-size chroma of any frame
+        (``rgba_words_to_ycbcr444``). Odd 4:2:0 outputs and frames that
+        ``auto_orient`` rotates go through PIL with the same flags.
+        ``jpeg_restart_rows`` > 0 writes DRI/RSTn restart markers every
+        that many MCU rows; ``jpeg_optimize`` writes optimised Huffman
+        tables."""
         path = os.fspath(path)
         if chroma not in ("420", "444"):
             raise ValueError(f"chroma must be '420' or '444', got {chroma!r}")
-        _refuse_geometry(long_edge, rotate, crop, lens, perspective)
+        self._guard_geometry(rotate, crop)
+        lens = _geometry._resolve_lens(lens)
         ext = os.path.splitext(path)[1].lower()
         if ext not in (".tif", ".tiff", ".jpg", ".jpeg", ".png"):
             raise ValueError(f"unsupported export extension {ext!r} "
                              "(use .jpg/.jpeg/.png/.tif/.tiff)")
         if ext in (".tif", ".tiff"):
-            return self.export_tiff16(path, params)
+            return self.export_tiff16(path, params, long_edge=long_edge,
+                                      rotate=rotate, crop=crop, lens=lens,
+                                      perspective=perspective)
         rotates = self.auto_orient and self.raw.orientation != 1
         exif = self._exif_bytes()
         icc = self._icc_bytes()
         flags = dict(optimize=jpeg_optimize, chroma=chroma,
                      restart_rows=jpeg_restart_rows)
-        even = self.height % 2 == 0 and self.width % 2 == 0
+        words_dev = None
+        out_h, out_w = self.height, self.width
+        if _geometry.reshapes((out_h, out_w), long_edge, rotate, crop, lens,
+                              perspective):
+            words_dev = _geometry.shape_output(
+                self.full_rgba_device(params), "words", long_edge, rotate,
+                crop, lens, perspective)
+            out_h, out_w = words_dev.shape
+        even = out_h % 2 == 0 and out_w % 2 == 0
         if ext != ".png" and not rotates and (chroma == "444" or even):
             from raweditor_tpu_torch.raw.exif import splice_exif
 
-            planes = (_jpeg.rgba_words_to_ycbcr444(
-                self.full_rgba_device(params)) if chroma == "444"
-                else self.jpeg_planes(params))
+            if words_dev is not None:
+                planes = (_jpeg.rgba_words_to_ycbcr444(words_dev)
+                          if chroma == "444"
+                          else _jpeg.rgba_words_to_ycbcr420(words_dev))
+            elif chroma == "444":
+                planes = _jpeg.rgba_words_to_ycbcr444(
+                    self.full_rgba_device(params))
+            else:
+                planes = self.jpeg_planes(params)
             data = splice_exif(self._encode_planes(
-                planes, self.width, self.height, quality, **flags), exif)
+                planes, out_w, out_h, quality, **flags), exif)
             if icc:
                 from raweditor_tpu_torch.icc import splice_icc_jpeg
 
                 data = splice_icc_jpeg(data, icc)
         else:
-            words = np.ascontiguousarray(_develop.rgba_view(
-                self.full_rgba_device(params)))
+            if words_dev is None:
+                words_dev = self.full_rgba_device(params)
+            words = np.ascontiguousarray(_develop.rgba_view(words_dev))
             if rotates:
                 words = np.ascontiguousarray(
                     self.apply_orientation(words, self.raw.orientation))
@@ -783,12 +866,13 @@ class DevelopEngine:
         rotated the pixels), the software tag and the ICC profile of a
         wide space; returns the path. The develop is the plain lane with
         the exact transfer (``transfer16_for``) and the extras in the
-        chain, as the JAX engine's. The geometry arguments are not ported
-        yet and raise ``NotImplementedError``."""
+        chain, as the JAX engine's; the geometry and ``long_edge`` then
+        reshape the 16-bit frame on the device
+        (``ops/geometry.shape_output``)."""
         from raweditor_tpu_torch.raw.exif import SOFTWARE
         from raweditor_tpu_torch.raw.tiff_out import write_tiff16
 
-        _refuse_geometry(long_edge, rotate, crop, lens, perspective)
+        self._guard_geometry(rotate, crop)
         _develop.require_ported(params)
         levels = dict(white_level=self.white_level,
                       black_level=self.black_level,
@@ -796,7 +880,10 @@ class DevelopEngine:
                       transfer=transfer16_for(self.transfer),
                       extras=params.finish_extras_mode())
         mosaic = self._render_mosaic(params)
-        if self.xtrans_pattern is not None:
+        if self.linear:
+            rgb = _develop.develop_linear(
+                mosaic, params, self.wb, self.cam_matrix, bits=16, **levels)
+        elif self.xtrans_pattern is not None:
             rgb = _develop.develop_xtrans(
                 mosaic, params, self.wb, self.cam_matrix,
                 pattern=self.xtrans_pattern, bits=16,
@@ -807,17 +894,26 @@ class DevelopEngine:
                 mosaic, params, self.wb, self.cam_matrix,
                 demosaic_method=self.demosaic_method,
                 cfa_phase=self.cfa_phase, **levels)
-        rgb = rgb.cpu().numpy()
+        rgb = _geometry.shape_output(rgb, "u16", long_edge, rotate, crop,
+                                     lens, perspective).cpu().numpy()
         if self.auto_orient and self.raw.orientation != 1:
             rgb = np.ascontiguousarray(
                 self.apply_orientation(rgb, self.raw.orientation))
         path = os.fspath(path)
         _atomic_write(path, lambda tmp: write_tiff16(
-            tmp, rgb, make=self.raw.camera_make,
+            tmp, np.ascontiguousarray(rgb), make=self.raw.camera_make,
             model=self.raw.camera_model,
             orientation=1 if self.auto_orient else self.raw.orientation,
             software=SOFTWARE, icc=self._icc_bytes()))
         return path
+
+    def develop_tiers(self, params: EditParams, widths=(256, 384, 1280)):
+        """Preview tiers of the developed image (``full_device``), resized
+        on the device (Lanczos3, ``ops/resize.develop_tiers``): host
+        (h, w, 3) u8 arrays, one per width."""
+        return [t.cpu().numpy()
+                for t in _resize.develop_tiers(self.full_device(params),
+                                               widths)]
 
     # -- convenience -----------------------------------------------------
     @classmethod

@@ -36,10 +36,24 @@ single-device route (``mesh=None``)::
   The kernels have no lane for the Adobe RGB transfer: such a run takes
   the plain lane (a route by transfer, as the JAX exporter's
   ``pallas_ok``), and its extras still run B8.
+- LinearRaw files (DNG photometric 34892, (H, W, 3) u16 frames already
+  demosaiced) form buckets of their own (the JAX ``"__linear__"`` key),
+  stage unpacked, and develop through the plain lane's
+  ``parallel/batch.batch_develop_linear_rgba`` on either route (the JAX
+  exporter runs XLA there too); their extras take the B8 post-pass like
+  any other bucket's.
 - A flush with any non-zero ``highlight_recovery`` first reconstructs
   the clipped sites of its stacked mosaics
-  (``ops/highlights.batch_reconstruct_mosaic``, per-image amounts; a
+  (``ops/highlights.batch_reconstruct_mosaic``, or
+  ``batch_reconstruct_linear`` for LinearRaw frames; per-image amounts; a
   zero-amount image passes through bit-exactly), before any develop.
+- ``rotate``, ``crop``, ``lens`` and ``perspective`` (the same geometry
+  for every image, ``ops/geometry.py``) and a ``long_edge`` below a
+  bucket's longer side (``ops/resize.py``) force RGBA words out of the
+  develop (and out of B8); each image is then shaped on the card with
+  ``ops/geometry.shape_output`` (geometry, then resize; the
+  16-bit frames too), and an all-JPEG run converts the shaped words to
+  YCbCr planes on the card, so every file equals the engine's export.
 - ``color_space`` "display-p3" or "adobe-rgb" (accurate mode) develops
   into the wide space with its mandated transfer
   (``color.cam_to_output_matrix``) and every encoder embeds its ICC
@@ -56,16 +70,16 @@ single-device route (``mesh=None``)::
   requires the native encoder before it reads a file; it never hands
   words to PIL in place of the planes.
 - One bad file fails its own job (``report.failed``, ``"decode: ..."``;
-  a LinearRaw file or a CFA pattern that is neither a Bayer phase nor a
-  36-letter grid among them). A develop that raises fails its batch
-  (``"develop: ..."``): a kernel that fails to build or launch is never
-  routed around, and no later flush avoids it. A failed encode fails
-  its image (``"encode: ..."``).
+  a CFA pattern that is neither a Bayer phase nor a 36-letter grid among
+  them). A develop that raises fails its batch (``"develop: ..."``; an
+  invalid lens, keystone or crop among them, as in the JAX exporter): a
+  kernel that fails to build or launch is never routed around, and no
+  later flush avoids it. A failed encode fails its image
+  (``"encode: ..."``).
 
 Not ported yet, each refused with ``NotImplementedError`` naming itself
-before any file is read: ``mesh``, ``long_edge``, ``rotate``, ``crop``,
-``lens``, ``perspective``, and any job whose edit has clarity, dehaze,
-grain or local adjustments.
+before any file is read: ``mesh``, and any job whose edit has clarity,
+dehaze, grain or local adjustments.
 """
 
 from __future__ import annotations
@@ -90,13 +104,20 @@ from raweditor_tpu_torch.ops import fused_develop as _fused
 from raweditor_tpu_torch.ops import fused_extras as _fx
 from raweditor_tpu_torch.ops.cfa_generic import generic_cfa_method
 from raweditor_tpu_torch.params import EditParams
+from raweditor_tpu_torch.ops import geometry as _geometry
 from raweditor_tpu_torch.parallel.batch import (
+    batch_develop_linear_rgba,
     batch_develop_rgba,
     batch_develop_u16,
     batch_develop_xtrans_rgba,
     pack_extras,
     pack_params,
 )
+
+
+# The bucket key of LinearRaw frames in place of a CFA phase (the JAX
+# exporter's).
+LINEAR = "__linear__"
 
 
 @dataclasses.dataclass
@@ -262,19 +283,19 @@ def _decode_job(job: ExportJob, mode: str, upload_pool=None,
 
     t0 = time.perf_counter()
     raw = decode_raw(job.raw_path)
-    if raw.is_linear:
-        raise NotImplementedError("not ported yet: LinearRaw frames")
     if mode == "parity":
         # The reference hardcodes 4096 and the RGGB stencil
-        # (gpu/shaders.rs:110-125).
+        # (gpu/shaders.rs:110-125). LinearRaw still skips the demosaic.
         white, black = 4096.0, 0.0
-        phase = (0, 0)
+        phase = LINEAR if raw.is_linear else (0, 0)
     else:
         from raweditor_tpu_torch.ops.cfa_generic import is_xtrans
         from raweditor_tpu_torch.ops.demosaic import phase_of
 
         white, black = float(raw.white_level), float(raw.black_level)
-        if is_xtrans(raw.cfa_pattern):
+        if raw.is_linear:
+            phase = LINEAR
+        elif is_xtrans(raw.cfa_pattern):
             # X-Trans buckets carry the pattern string instead of a
             # Bayer phase; flush routes them to the generic-CFA develop.
             phase = raw.cfa_pattern
@@ -520,8 +541,7 @@ def _encode_one_tiff16(out_path: str, rgb_u16: np.ndarray,
         software=SOFTWARE, icc=icc))
 
 
-def _refuse_unported(mesh, bits, color_space, mode, long_edge, rotate, crop,
-                     lens, perspective, jobs) -> None:
+def _refuse_unported(mesh, bits, color_space, mode, jobs) -> None:
     """``NotImplementedError`` naming each argument, and each edit, that
     this port cannot export yet, and ``ValueError`` for arguments the
     JAX exporter refuses too (checked before any file is read)."""
@@ -538,22 +558,8 @@ def _refuse_unported(mesh, bits, color_space, mode, long_edge, rotate, crop,
     if color_space != "srgb" and mode != "accurate":
         raise ValueError("wide-gamut output requires mode='accurate' "
                          "(parity is defined as the reference's sRGB bytes)")
-    _refuse_geometry(long_edge, rotate, crop, lens, perspective)
     for job in jobs:
         require_ported(job.params)
-
-
-def _refuse_geometry(long_edge, rotate, crop, lens, perspective) -> None:
-    """``NotImplementedError`` naming the first output-geometry argument
-    that is set: the resize and the geometry stages are not ported yet
-    (the engine's ``export`` refuses them the same way)."""
-    for name, value in (("long_edge", long_edge), ("rotate", rotate)):
-        if value:
-            raise NotImplementedError(f"not ported yet: {name}")
-    for name, value in (("crop", crop), ("lens", lens),
-                        ("perspective", perspective)):
-        if value is not None:
-            raise NotImplementedError(f"not ported yet: {name}")
 
 
 @contextlib.contextmanager
@@ -634,8 +640,7 @@ def run_batch_export(
     color_space = (color_space or "srgb").lower()
     if mode not in ("parity", "accurate"):
         raise ValueError(f"unknown mode {mode!r}")
-    _refuse_unported(mesh, bits, color_space, mode, long_edge, rotate, crop,
-                     lens, perspective, jobs)
+    _refuse_unported(mesh, bits, color_space, mode, jobs)
     if demosaic_method not in DEMOSAIC_METHODS + ("smooth",):
         raise ValueError(f"unknown demosaic method {demosaic_method!r}")
     if chroma not in ("420", "444"):
@@ -878,7 +883,8 @@ def run_batch_export(
             whites = np.array([d.white_level for d in padded], np.float32)
             blacks = np.array([d.black_level for d in padded], np.float32)
             phase = batch[0].cfa_phase
-            xtrans = isinstance(phase, str)
+            linear = phase == LINEAR
+            xtrans = isinstance(phase, str) and not linear
             # Clipped-highlight reconstruction, gated on the flush: the
             # per-image amounts keep zero-amount images bit-exact, so a
             # mixed batch needs no split. Every route below sees a plain
@@ -891,10 +897,17 @@ def run_batch_export(
                 amounts = np.array(
                     [float(d.job.params.highlight_recovery)
                      for d in padded], np.float32)
-                mosaics = batch_reconstruct_mosaic(
-                    mosaics, wbs, amounts, whites, blacks,
-                    cfa_phase=(0, 0) if xtrans else phase,
-                    xtrans_pattern=phase if xtrans else None)
+                if linear:
+                    from raweditor_tpu_torch.ops.highlights import (
+                        batch_reconstruct_linear)
+
+                    mosaics = batch_reconstruct_linear(
+                        mosaics, wbs, amounts, whites, blacks)
+                else:
+                    mosaics = batch_reconstruct_mosaic(
+                        mosaics, wbs, amounts, whites, blacks,
+                        cfa_phase=(0, 0) if xtrans else phase,
+                        xtrans_pattern=phase if xtrans else None)
             # Finish extras: the batch's static flags, ORed over its
             # images (zero-amount images inside such a batch develop
             # within 1 LSB of their extras-off render).
@@ -902,6 +915,17 @@ def run_batch_export(
             if ex_on:
                 table, mixer_on, grading_on, stencils = pack_extras(params)
                 ex_on = mixer_on or grading_on or stencils
+            # The output stage (geometry, then resize) takes words, or the
+            # 16-bit frames, image by image.
+            h_m, w_m = mosaics.shape[1], mosaics.shape[2]
+            shaped = _geometry.reshapes((h_m, w_m), long_edge, rotate, crop,
+                                        lens, perspective)
+
+            def shape(out, kind):
+                return torch.stack([_geometry.shape_output(
+                    img, kind, long_edge, rotate, crop, lens, perspective)
+                    for img in out[:len(batch)]])
+
             if bits == 16:
                 # The 16-bit lane: extras in the chain (the words pass is
                 # 8-bit), the exact transfer.
@@ -918,20 +942,28 @@ def run_batch_export(
                     pattern=phase if xtrans else None, transfer=transfer16,
                     demosaic_method=(generic_cfa_method(demosaic_method)
                                      if xtrans else demosaic_method),
-                    extras=mode16)
+                    extras=mode16, linear=linear)
+                if shaped:
+                    out = shape(out, "u16")
                 return out, t0, _record_event(device)
             # Point curves ride the plain lane's finish; the develop
             # kernels do not compute them.
             curve_on = bool(batch[0].job.params.point_curve)
-            h_m, w_m = mosaics.shape[1], mosaics.shape[2]
             planes = "rgba_words"
-            if jpeg_planes_ok:
+            if jpeg_planes_ok and not shaped:
                 if chroma == "444":
                     planes = "ycbcr444"
                 elif h_m % 2 == 0 and w_m % 2 == 0:
                     planes = "ycbcr420"
             t0 = time.perf_counter()
-            if kernel_ok and not curve_on:
+            if linear:
+                # No develop kernel: the plain lane on either route, as
+                # the JAX exporter's XLA lane.
+                out = batch_develop_linear_rgba(
+                    mosaics, params, wbs, cms, whites, blacks,
+                    matrix_transpose=matrix_transpose, transfer=transfer,
+                    output="rgba_words" if ex_on else planes)
+            elif kernel_ok and not curve_on:
                 cfa = (dict(pattern=phase,
                             demosaic=generic_cfa_method(demosaic_method))
                        if xtrans else dict(cfa_phase=phase,
@@ -964,6 +996,13 @@ def run_batch_export(
                     out, table.to(device), mixer_on=mixer_on,
                     grading_on=grading_on, stencils=stencils,
                     output="ycbcr420" if planes == "ycbcr420" else "rgba")
+            if shaped:
+                out = shape(out, "words")
+                h_o, w_o = out.shape[1], out.shape[2]
+                if jpeg_planes_ok and chroma == "444":
+                    planes = "ycbcr444"
+                elif jpeg_planes_ok and h_o % 2 == 0 and w_o % 2 == 0:
+                    planes = "ycbcr420"
             if planes != "rgba_words" and not isinstance(out, tuple):
                 out = (rgba_words_to_ycbcr444(out) if planes == "ycbcr444"
                        else rgba_words_to_ycbcr420(out))

@@ -254,9 +254,11 @@ def test_parser_surface_and_ranges_equal_the_jax_cli():
 def test_unported_commands_exit_with_a_message(argv, message, tmp_path,
                                                photos, capsys):
     if message in NOW_PORTED:
-        # Wide gamut and 16-bit TIFF are ported: the command answers as
-        # the JAX CLI's and writes its picture (develop: the ICC profile
-        # equal and the JPEG decoded close; TIFFs within 1 LSB of u16).
+        # Wide gamut, 16-bit TIFF, the geometry and the long-edge resize
+        # are ported: the command answers as the JAX CLI's and writes its
+        # picture (develop: the ICC profile equal and the JPEG decoded
+        # close; TIFFs within 1 LSB of u16); the geometry and resize
+        # files equal the port engine's export of the same arguments.
         argv = [a.replace("{P}", str(photos / "s0.nef")).replace(
             "{T}", "{D}") for a in argv] + NOW_PORTED[message]
         (jcode, jout), (pcode, pout) = _both(capsys, tmp_path, *argv)
@@ -266,7 +268,7 @@ def test_unported_commands_exit_with_a_message(argv, message, tmp_path,
             for key in ("total", "succeeded", "skipped", "failed"):
                 assert got[key] == want[key] == (key in ("total",
                                                          "succeeded")), key
-            rel = "o/s0.tif"
+            rel = "o/s0." + ("tif" if "tif" in argv else "jpg")
         else:
             assert pout == jout
             rel = argv[3].replace("{D}/", "")
@@ -276,9 +278,13 @@ def test_unported_commands_exit_with_a_message(argv, message, tmp_path,
             assert np.abs(a - b).max() <= 1
         else:
             _close(tmp_path, rel)
-            icc = [Image.open(tmp_path / n / rel).info.get("icc_profile")
-                   for n in NAMES]
+        icc = [Image.open(tmp_path / n / rel).info.get("icc_profile")
+               for n in NAMES if not rel.endswith(".tif")]
+        if "color_space" in message:
             assert icc[0] and icc[0] == icc[1]
+        if message in ENGINE_FILE:
+            _engine_writes_the_cli_file(photos / "s0.nef", tmp_path, rel,
+                                        ENGINE_FILE[message])
         return
     argv = [a.replace("{P}", str(photos / "s0.nef")).replace(
         "{T}", str(tmp_path)) for a in argv]
@@ -305,9 +311,33 @@ def _tiff_pixels(path):
 NOW_PORTED = {
     "develop: not ported yet: color_space 'display-p3'": ["--mode",
                                                           "accurate"],
+    "develop: not ported yet: rotate": [],
     "develop: not ported yet: 16-bit TIFF export": [],
     "export: not ported yet: bits=16": [],
+    "export: not ported yet: long_edge": [],
 }
+# Of those, the cases whose file must equal the port engine's export with
+# these keywords (and the CLI's default quality).
+ENGINE_FILE = {
+    "develop: not ported yet: rotate": dict(rotate=5.0),
+    "export: not ported yet: long_edge": dict(long_edge=16),
+}
+
+
+def _engine_writes_the_cli_file(photo, tmp_path, rel, kw):
+    """The port CLI's file equals ``DevelopEngine.open(photo).export`` of
+    the default edit with ``kw``, byte for byte; for ``long_edge`` the
+    picture is the resized one."""
+    from raweditor_tpu_torch import DevelopEngine
+    from raweditor_tpu_torch.utils.config import Config
+
+    eng = DevelopEngine.open(photo)
+    ref = eng.export(tmp_path / ("engine" + rel[-4:]), EditParams(),
+                     quality=Config.from_env().jpeg_quality, **kw)
+    data = (tmp_path / "port" / rel).read_bytes()
+    assert open(ref, "rb").read() == data
+    if "long_edge" in kw:
+        assert Image.open(io.BytesIO(data)).size == (16, 12)
 
 
 def test_an_import_error_inside_the_port_is_not_called_unported(

@@ -885,3 +885,87 @@ def test_adobe_rgb_with_use_kernel_launches_no_develop_kernel(cuda, rng):
     e.use_kernel = False
     assert torch.equal(words, e.full_rgba_device(FULL))
     assert all(torch.equal(a, b) for a, b in zip(planes, e.jpeg_planes(FULL)))
+
+
+# -- LinearRaw frames, the resize and the output geometry ---------------------
+
+def _linear_raw(rng, h=72, w=110):
+    rgb = rng.integers(0, 4096, (h, w, 3), dtype=np.uint16)
+    return RawImage(rgb, np.array([1.8, 1.0, 1.4, 1.0], np.float32),
+                    REAL * 10000, black_level=64.0, white_level=4095.0)
+
+
+def test_linear_extras_is_b8_at_0_lsb_from_plain(cuda, rng):
+    """A LinearRaw engine with ``use_kernel``: ``full_rgba_device`` of an
+    extras edit launches exactly B8 (no develop kernel) and its words
+    equal ``finish_extras_plain`` over the plain develop's words; the
+    planes route equals the plain planes too. Within 1 LSB of the CPU."""
+    e = DevelopEngine(_linear_raw(rng), mode="accurate", use_kernel=True,
+                      transfer="srgb", device=cuda)
+    cpu = DevelopEngine(_linear_raw(np.random.default_rng(1234)),
+                        mode="accurate", use_kernel=True, transfer="srgb",
+                        device="cpu")
+    p = FULL.replace(**{k: getattr(EXTRA, k) for k in fx.EXTRAS_COLUMNS})
+    before = dict(fd.LAUNCHES), dict(fx.LAUNCHES)
+    words = e.full_rgba_device(p)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES == before[0]
+    moved = {k: v - before[1][k] for k, v in fx.LAUNCHES.items()
+             if v != before[1][k]}
+    assert moved == {"extras_rgba": 1}
+    table, *flags = fx.pack_extras([p])
+    plain = e._plain_develop(p, rgba=True)
+    want = fx.finish_extras_plain(plain[None], table.to(cuda), *flags)[0]
+    assert _words_diff(words, want) == 0
+    planes = e.jpeg_planes(p)
+    want_planes = fx.finish_extras_plain(plain[None], table.to(cuda), *flags,
+                                         output="ycbcr420")
+    got = (planes[0], torch.stack([planes[1], planes[2]], -1).flatten(-2))
+    for g, w in zip(got, want_planes):
+        assert torch.equal(g.cpu(), w[0].cpu())
+    assert _words_diff(words, cpu.full_rgba_device(p)) <= 1
+
+
+def test_resize_and_geometry_on_the_card_within_1_lsb_of_the_cpu(cuda, rng):
+    from raweditor_tpu_torch.ops import geometry, resize
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    rgb = rng.integers(0, 256, (200, 300, 3), dtype=np.uint32)
+    words = torch.from_numpy((rgb[..., 0] | rgb[..., 1] << 8
+                              | rgb[..., 2] << 16 | 0xFF000000).astype(
+        np.uint32).view(np.int32)).view(torch.uint32)
+    cases = [lambda w: resize.resize_rgba_words(w, 96, 64),
+             lambda w: resize.resize_rgba_words(w, 611, 397),
+             lambda w: geometry.rotate_crop_rgba_words(w, 3.0),
+             lambda w: geometry.rotate_crop_rgba_words(
+                 w, 0.0, lens=(0.02, 0.0, 1.0, -1.0)),
+             lambda w: geometry.rotate_crop_rgba_words(
+                 w, -2.0, perspective=(0.1, 0.05)),
+             lambda w: geometry.shape_output(w, "words", 128, 2.0)]
+    for fn in cases:
+        got, want = fn(words.to(cuda)), fn(words)
+        assert got.shape == want.shape
+        assert _words_diff(got, want) <= 1
+    u16 = torch.from_numpy(rng.integers(0, 65536, (120, 180, 3),
+                                        dtype=np.uint16))
+    for fn in (lambda x: resize.resize_rgb16(x, 90, 60),
+               lambda x: geometry.rotate_crop_u16(x, 4.0)):
+        got, want = fn(u16.to(cuda)), fn(u16)
+        d = (got.cpu().view(torch.int16).to(torch.int32) & 0xFFFF) - (
+            want.view(torch.int16).to(torch.int32) & 0xFFFF)
+        assert int(d.abs().max()) <= 1
+
+
+def test_linear_frame_stages_unpacked_and_bit_exact(cuda, rng, tmp_path):
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raweditor_tpu_torch.pipeline import export as pex
+
+    frame = rng.integers(0, 65536, (40, 60, 3), dtype=np.uint16)
+    with ThreadPoolExecutor(1) as pool:
+        t, done, _ = pex._Uploader(pool, cuda).submit(frame).result()
+    done.synchronize()
+    assert t.dtype == torch.uint16 and tuple(t.shape) == frame.shape
+    got = t.view(torch.int16).cpu().numpy().view(np.uint16)
+    np.testing.assert_array_equal(got, frame)

@@ -292,16 +292,19 @@ def test_unported_and_invalid(rng, tmp_path, monkeypatch):
     assert mx <= 1
     with pytest.raises(ValueError):
         port.export(tmp_path / "x.webp", EditParams())
-    raw, _ = _raws(rng, "RGGB")
+    raw, jraw = _raws(rng, "RGGB")
     # Neither a Bayer phase nor a 36-letter grid (those develop as
-    # X-Trans: tests/test_torch_xtrans.py).
+    # X-Trans: tests/test_torch_xtrans.py): the JAX engine's ValueError.
     for pattern in ("RGGG" "GGGG" "GGGB" "GGGG", "RGBG", "GGRGGB" * 4):
-        raw.cfa_pattern = pattern
-        with pytest.raises(NotImplementedError, match="CFA pattern"):
+        raw.cfa_pattern = jraw.cfa_pattern = pattern
+        with pytest.raises(ValueError, match="unsupported CFA pattern") as a:
             DevelopEngine(raw, mode="accurate", device="cpu")
+        with pytest.raises(ValueError) as b:
+            JaxEngine(jraw, mode="accurate")
+        assert str(a.value) == str(b.value)
+    # A LinearRaw frame develops (tests/test_torch_linear.py).
     raw.mosaic = np.zeros((4, 4, 3), np.uint16)
-    with pytest.raises(NotImplementedError):
-        DevelopEngine(raw, device="cpu")
+    assert DevelopEngine(raw, device="cpu").linear
     with pytest.raises(ValueError):
         DevelopEngine(raw, mode="fast", device="cpu")
     # An explicit CUDA device never falls back to the CPU.
@@ -433,12 +436,23 @@ def test_pil_export_honours_the_jpeg_flags(flags, rng, tmp_path):
     dict(lens=(0.01, 0.0, 0.0, 0.0)), dict(perspective=(0.1, 0.0)),
     dict(chroma="422")], ids=lambda kw: next(iter(kw)))
 def test_export_refuses_unported_arguments(kw, rng, tmp_path):
-    """``long_edge`` and the geometry arguments raise
-    ``NotImplementedError`` naming themselves; an unknown ``chroma``
-    raises ``ValueError``, as in the JAX engine. Nothing is written."""
-    port, _ = _engines(rng, SETUPS[0])
+    """``long_edge`` and the geometry arguments are ported: the JPEG, PNG
+    and TIFF exports equal the JAX engine's (``hold_exports`` in
+    ``tests/test_torch_linear.py``: pixels within 1 LSB, u16 for TIFF,
+    every other byte equal, JPEG headers equal and decoded within a mean
+    of 0.05; the JAX engine's ``perspective`` JPEG raises, so the port's
+    is held against the JAX PNG through the port's encoder). An unknown
+    ``chroma`` raises ``ValueError``, as in the JAX engine, and writes
+    nothing."""
+    from test_torch_linear import hold_exports
+
+    port, ref = _engines(rng, SETUPS[0])
     name = next(iter(kw))
-    err = ValueError if name == "chroma" else NotImplementedError
-    with pytest.raises(err, match=name):
-        port.export(tmp_path / "out.jpg", EditParams(), **kw)
-    assert not list(tmp_path.iterdir())
+    if name == "chroma":
+        with pytest.raises(ValueError, match=name):
+            port.export(tmp_path / "out.jpg", EditParams(), **kw)
+        assert not list(tmp_path.iterdir())
+        return
+    got = hold_exports(port, ref, tmp_path, kw, EditParams(**SLIDERS),
+                       JaxParams(**SLIDERS))
+    print(f"Bayer export {kw}: (max LSB, differing share) {got}")

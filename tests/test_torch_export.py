@@ -249,8 +249,8 @@ def test_extras_route_calls_the_extras_wrapper_on_both_routes(tmp_path,
                                   "encode", "linear"])
 def test_failures_quarantine_their_job(case, tmp_path):
     """One bad job fails alone with the JAX exporter's prefix; the others
-    succeed. (A LinearRaw file is quarantined at decode by the port,
-    which does not develop LinearRaw yet; the JAX exporter develops it.)"""
+    succeed. (A LinearRaw file is no bad job: both exporters develop it,
+    to the same JPEG within a decoded mean of 0.05.)"""
     paths = _files(tmp_path, xtrans=False)[:3]
     bad = str(tmp_path / "raw" / "bad.dng")
     rng = np.random.default_rng(3)
@@ -271,14 +271,21 @@ def test_failures_quarantine_their_job(case, tmp_path):
             jobs[-1].raw_path = paths[0]
             jobs[-1].out_path = str(tmp_path / "afile" / "sub" / "x.jpg")
     rep, ref = _run(port_jobs, ref_jobs, batch_size=2, mode="accurate")
+    if case == "linear":
+        from PIL import Image
+
+        _same_report(rep, ref)
+        assert rep.succeeded == 4 and not rep.failed
+        a, b = (np.asarray(Image.open(j[-1].out_path)).astype(int)
+                for j in (port_jobs, ref_jobs))
+        assert a.shape == b.shape == (24, 32, 3)
+        assert np.abs(a - b).mean() < 0.05
+        return
     want = {"missing": "decode", "truncated": "decode", "bad_cfa": "decode",
-            "encode": "encode", "linear": "decode"}[case]
+            "encode": "encode"}[case]
     assert rep.succeeded == 3 and len(rep.failed) == 1
     assert rep.failed[0][1].startswith(want + ": "), rep.failed
-    if case == "linear":
-        assert "LinearRaw" in rep.failed[0][1] and ref.succeeded == 4
-    else:
-        _same_report(rep, ref)
+    _same_report(rep, ref)
 
 
 @pytest.mark.parametrize("wrapper", ["develop", "extras"])
@@ -472,9 +479,10 @@ def test_jpeg_flags_reach_the_bytes(flags, use_kernel, tmp_path):
 def test_unported_arguments_raise_before_any_file_is_read(arg, tmp_path):
     """Each argument and edit the port cannot export yet raises
     ``NotImplementedError`` naming itself, before a file is read (the
-    job's file does not exist). ``bits``, ``color_space`` and
-    ``highlight_recovery`` are ported: the run goes on to read the file
-    and fails its job at the decode, as the JAX exporter's does."""
+    job's file does not exist). ``bits``, ``color_space``,
+    ``highlight_recovery``, ``long_edge`` and the geometry arguments are
+    ported: the run goes on to read the file and fails its job at the
+    decode, as the JAX exporter's does."""
     kw, edit = {}, {}
     value = {"mesh": object(), "bits": 16, "color_space": "display-p3",
              "long_edge": 16, "rotate": 1.5, "crop": (0, 0, 8, 8),
@@ -488,7 +496,8 @@ def test_unported_arguments_raise_before_any_file_is_read(arg, tmp_path):
         kw[arg] = value
     job = pex.ExportJob(str(tmp_path / "missing.dng"),
                         str(tmp_path / "out.jpg"), EditParams(**edit))
-    if arg in ("bits", "color_space", "highlight_recovery"):
+    if arg in ("bits", "color_space", "highlight_recovery", "long_edge",
+               "rotate", "crop", "lens", "perspective"):
         if arg == "color_space":
             kw["mode"] = "accurate"
         ref_job = jex.ExportJob(job.raw_path, job.out_path,

@@ -146,13 +146,22 @@ def test_open_routes_xtrans_to_the_generic_cfa_tiers(tmp_path, monkeypatch):
 
 
 def test_open_of_linear_raw_is_not_ported(tmp_path):
+    """LinearRaw is ported: ``open`` on the CPU develops the JAX engine's
+    picture (within 1 LSB; tests/test_torch_linear.py holds every entry
+    point), and an explicit CUDA device without a card raises rather
+    than falling back."""
     path = tmp_path / "linear.dng"
     synth.write_synthetic_linear_dng(
         path, np.random.default_rng(3).integers(0, 65536, (16, 24, 3),
                                                 dtype=np.uint16))
-    for device in ("cpu", "cuda"):
-        with pytest.raises(NotImplementedError, match="LinearRaw"):
-            DevelopEngine.open(path, mode="accurate", device=device)
+    eng = DevelopEngine.open(path, mode="accurate", device="cpu")
+    assert eng.linear and tuple(eng.mosaic.shape) == (16, 24, 3)
+    got = eng.full(EditParams(**SLIDERS)).astype(int)
+    want = JaxEngine.open(path, mode="accurate").full(JaxParams(**SLIDERS))
+    assert got.shape == want.shape and np.abs(got - want).max() <= 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            DevelopEngine.open(path, mode="accurate", device="cuda")
 
 
 def test_open_defaults_to_the_card(tmp_path, monkeypatch):

@@ -530,8 +530,16 @@ def test_unported_verbs_answer_without_ending_the_session(tmp_path):
             "not ported yet: "), line
     assert sess.handle("preset a b") == {
         "ok": False, "error": "usage: preset <name|list>"}
-    out = sess.handle(f"full {tmp_path / 'f.jpg'} 32")
-    assert out == {"ok": False, "error": "not ported yet: long_edge"}
+    # The long edge is ported: ``full <path> <long-edge>`` writes the
+    # engine's resized export (24x32 -> 12x16) and the session goes on.
+    out = sess.handle(f"full {tmp_path / 'f.jpg'} 16")
+    assert out == {"ok": True, "path": str(tmp_path / "f.jpg")}
+    want = eng.export(tmp_path / "e.jpg", sess.params, long_edge=16)
+    data = (tmp_path / "f.jpg").read_bytes()
+    assert data == open(want, "rb").read()
+    from PIL import Image
+
+    assert Image.open(io.BytesIO(data)).size == (16, 12)
     buf = io.StringIO()
     sess.repl(stdin=io.StringIO("local list\nset exposure 0.3\n"),
               stdout=buf)

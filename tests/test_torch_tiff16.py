@@ -148,8 +148,13 @@ def test_export_tiff16_equals_the_jax_engine(case, rng, tmp_path):
     pix = _split((tmp_path / "p.tif").read_bytes())[0]
     rotated = kw.get("auto_orient") and orientation in (6, 8)
     assert pix.shape[:2] == ((36, 24) if rotated else (24, 36))
-    with pytest.raises(NotImplementedError, match="long_edge"):
-        port.export_tiff16(tmp_path / "r.tif", EditParams(), long_edge=16)
+    # The long edge is ported: the JAX engine's resized TIFF.
+    port.export_tiff16(tmp_path / "r.tif", EditParams(), long_edge=16)
+    ref.export_tiff16(tmp_path / "rj.tif", JaxParams(), long_edge=16)
+    assert _same_tiff(tmp_path / "r.tif", tmp_path / "rj.tif",
+                      f"long_edge 16 {case[:5]}") <= 1
+    pix = _split((tmp_path / "r.tif").read_bytes())[0]
+    assert max(pix.shape[:2]) == 16
 
 
 def test_batch_export_bits16_equals_the_jax_exporter(rng, tmp_path):
