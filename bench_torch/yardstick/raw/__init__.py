@@ -1,0 +1,1 @@
+"""Frozen copies (see ``bench_torch/yardstick/COPIES.json``)."""
