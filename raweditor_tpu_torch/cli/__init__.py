@@ -26,7 +26,9 @@ argparse tree ``cli/_parser.py`` is a copy), over the port:
   doctor   environment self-check (one JSON report)
   bench    the benchmark
 
-``--fast`` selects the fused CUDA kernels (``use_kernel``). Entry points
+``--fast`` selects the fused CUDA kernels (``use_kernel``). The port adds
+one flag of its own to the copied parser: ``export --trace-out PATH``
+writes the export's spans as a Chrome trace. Entry points
 run on the card unless ``RAWEDITOR_TPU_PLATFORM=cpu`` pins the CPU
 (``utils/device.default_device``). What the port does not have yet
 (presets, local adjustments, wide gamut, resize and geometry, 16-bit
@@ -135,10 +137,26 @@ def _missing_port_module(e: ImportError):
     return name
 
 
+def _port_parser():
+    """The JAX CLI's parser (``_parser.py``, a copy) with the port's own
+    flags: ``export --trace-out PATH``."""
+    import argparse
+
+    parser = build_parser()
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    sub.choices["export"].add_argument(
+        "--trace-out", metavar="PATH", default=None,
+        help="write the export's spans as a Chrome trace JSON (threads "
+             "as tid, each span's image id and flush number in args; "
+             "times on torch.profiler's clock)")
+    return parser
+
+
 def main(argv=None) -> int:
     # The device is touched lazily where an engine or the exporter is
     # built: catalog-only commands never need the card.
-    args = build_parser().parse_args(argv)
+    args = _port_parser().parse_args(argv)
     _apply_env_config_defaults(args)
     if getattr(args, "xlat", None):
         from raweditor_tpu_torch.raw import nikon_crypt

@@ -3,6 +3,8 @@
 The JAX CLI's module with these changes: ``--fast`` maps to the
 exporter's ``use_kernel`` (the fused CUDA kernels); ``--num-hosts`` above
 1 and ``--mesh-rows`` raise "not ported yet" (the multi-device export);
+``--trace-out PATH`` writes the call's spans as a Chrome trace (the
+report line carries their totals under ``stages`` either way);
 ``warmup`` builds the CUDA kernel library and launches each develop
 kernel and the finish-extras kernel once at the given shape."""
 
@@ -170,6 +172,10 @@ def cmd_export(args) -> int:
                                            cfg)
     except ValueError as e:
         raise SystemExit(f"export: {e}")
+    trace_out = getattr(args, "trace_out", None)
+    if trace_out:
+        with open(trace_out, "w") as f:
+            json.dump(report.timer.chrome_trace(), f)
     print(json.dumps(report.as_dict()))
     return 0 if not report.failed else 1
 
@@ -200,6 +206,7 @@ def _run_batch_export_checked(run_batch_export, jobs, args, cfg):
         perspective=_parse_perspective(args),
         on_progress=(_progress_printer()
                      if getattr(args, "progress", False) else None),
+        trace_spans=bool(getattr(args, "trace_out", None)),
     )
 
 

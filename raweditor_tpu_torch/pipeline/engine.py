@@ -142,6 +142,7 @@ from raweditor_tpu_torch.params import EditParams
 from raweditor_tpu_torch.pipeline.export import _atomic_write, _record_event
 from raweditor_tpu_torch.raw.types import RawImage
 from raweditor_tpu_torch.utils.device import resolve_device
+from raweditor_tpu_torch.utils.timing import StageTimer
 
 MAX_PREVIEW_WIDTH = 1280
 HISTOGRAM_WIDTH = 128
@@ -524,19 +525,29 @@ class DevelopEngine:
     def preview_jpeg(self, params: EditParams, zoom: float = 1.0,
                      pan: Tuple[float, float] = (0.0, 0.0),
                      quality: int = 80,
-                     frame=None) -> Tuple[bytes, int, int]:
+                     frame=None, stages=None) -> Tuple[bytes, int, int]:
         """The preview as JFIF bytes: (data, width, height). Even
         previews convert to 4:2:0 planes on the device and go through
         the native encoder (which must be present); odd ones go through
         PIL. ``frame`` is an already-proven device preview (the session's
-        ``frame latest``) to encode in place of a new render."""
-        dev = (frame if frame is not None
-               else self.preview_device(params, zoom, pan))
-        h, w = int(dev.shape[0]), int(dev.shape[1])
-        if h % 2 or w % 2:
-            return self._pil_jpeg(dev.cpu().numpy(), quality), w, h
-        planes = _jpeg.rgb_u8_to_ycbcr420(dev)
-        return self._encode_planes(planes, w, h, quality), w, h
+        ``frame latest``) to encode in place of a new render. ``stages``
+        (a ``utils.timing.StageTimer``, the session's) times the render,
+        the fetch of the planes and the encode as ``frame.render``,
+        ``frame.fetch`` and ``frame.encode``."""
+        rec = stages or StageTimer()
+        with rec.span("frame.render"):
+            dev = (frame if frame is not None
+                   else self.preview_device(params, zoom, pan))
+            h, w = int(dev.shape[0]), int(dev.shape[1])
+            odd = bool(h % 2 or w % 2)
+            planes = dev if odd else _jpeg.rgb_u8_to_ycbcr420(dev)
+        with rec.span("frame.fetch"):
+            host = (planes.cpu().numpy() if odd
+                    else tuple(p.cpu() for p in planes))
+        with rec.span("frame.encode"):
+            if odd:
+                return self._pil_jpeg(host, quality), w, h
+            return self._encode_planes(host, w, h, quality), w, h
 
     # -- full resolution -------------------------------------------------
     def scalars(self, params: EditParams) -> torch.Tensor:

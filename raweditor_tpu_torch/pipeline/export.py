@@ -69,6 +69,25 @@ single-device route (``mesh=None``)::
   JPEG. All launches stay on the calling thread. An all-JPEG run
   requires the native encoder before it reads a file; it never hands
   words to PIL in place of the planes.
+- Each call records its stages in one ``utils/timing.StageTimer``: spans
+  on the threads that do the work (``decode``, ``stage.pack``,
+  ``upload``, ``fetch.wait``, ``fetch.copy``, ``encode``; on the calling
+  thread ``export.wait_decode``, ``export.flush`` with its
+  ``export.wait_upload``, ``export.stage`` and ``export.launch``,
+  ``export.wait_fetch``, ``export.hand_off``, ``export.wait_encode``,
+  ``export.trim``), the queue waits ``queue.batch`` (decode end to the
+  image's flush) and ``queue.encode`` (fetch end to the encode), and
+  counters of bytes moved through pinned and pageable memory, of batch
+  slots developed and padded, and of the slots the extras kernel ran
+  over against the images that asked for extras. ``ExportReport``'s
+  seconds are reads of those spans, and ``report.stages`` holds them
+  all (the CLI's one report line). The span log, each span with its
+  thread, image id, flush number and parent on ``torch.profiler``'s
+  clock, is kept with ``trace_spans=True`` or while a profiler is open
+  (the CLI's ``export --trace-out``); the calling thread's waits then
+  also enter ``record_function`` ranges, so a profiler trace names what
+  the host was waiting on. ``LAST_REPORT`` holds the newest finished
+  call's ``as_dict()``.
 - One bad file fails its own job (``report.failed``, ``"decode: ..."``;
   a CFA pattern that is neither a Bayer phase nor a 36-letter grid among
   them). A develop that raises fails its batch (``"develop: ..."``; an
@@ -86,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import os
 import threading
 import time
@@ -113,11 +133,21 @@ from raweditor_tpu_torch.parallel.batch import (
     pack_extras,
     pack_params,
 )
+from raweditor_tpu_torch.utils.timing import StageTimer
 
 
 # The bucket key of LinearRaw frames in place of a CFA phase (the JAX
 # exporter's).
 LINEAR = "__linear__"
+
+# The newest finished ``run_batch_export`` call's ``ExportReport.
+# as_dict()``, or None before the first.
+LAST_REPORT: Optional[dict] = None
+
+# The counters every call reports, 0 where nothing was counted.
+COUNTERS = ("transfer.pinned_bytes", "transfer.pageable_bytes",
+            "slots.developed", "slots.padded", "extras.slots",
+            "extras.asked")
 
 
 @dataclasses.dataclass
@@ -137,27 +167,35 @@ class ExportReport:
     seconds: float = 0.0
     # Sum of per-image codec+metadata time on the decode workers (can
     # exceed wall clock with several threads: it is the host-CPU
-    # budget, not a wall split). decode_megapixels is the matching
-    # numerator for a per-codec MP/s.
+    # budget, not a wall split; the ``decode`` spans). decode_megapixels
+    # is the matching numerator for a per-codec MP/s.
     decode_seconds: float = 0.0
     decode_megapixels: float = 0.0
     # Host staging work split out of decode: the bit-pack and the hand-off
-    # to the upload thread, on the decode workers.
+    # to the upload thread, on the decode workers (``stage.pack``).
     stage_seconds: float = 0.0
-    # Dispatch to retire on the fetch thread (the event recorded after
-    # the flush's launches): an upper bound that includes the card's
-    # wait for the batch's uploads, not pure kernel time.
+    # The fetch thread's wait on the event recorded after each flush's
+    # launches (``fetch.wait``): what the card still had to do when the
+    # fetch thread reached the batch, the batch's uploads included.
     device_seconds: float = 0.0
+    # The calling thread's waits on its encode pool (``export.wait_encode``).
     encode_seconds: float = 0.0
     # Device-to-host copy of the developed batches (padding sliced off
-    # on the card first).
+    # on the card first; ``fetch.copy``).
     fetch_seconds: float = 0.0
     fetch_bytes: int = 0
     # Host-to-device staging: the bytes uploaded, and the host's wait for
     # the upload thread plus the flush-time unpack and stack (0 when the
-    # uploads overlapped the decode).
+    # uploads overlapped the decode; ``export.wait_upload`` and
+    # ``export.stage``).
     upload_seconds: float = 0.0
     upload_bytes: int = 0
+    # Every span's total and count and every counter of the call
+    # (``StageTimer.report()``), and the recorder itself, whose ``log``
+    # holds the spans when the call kept them.
+    stages: dict = dataclasses.field(default_factory=dict)
+    timer: Optional[StageTimer] = dataclasses.field(default=None,
+                                                    repr=False)
 
     @property
     def develops_per_sec(self) -> float:
@@ -192,6 +230,7 @@ class ExportReport:
             "upload_seconds": round(self.upload_seconds, 3),
             "upload_mb": round(self.upload_bytes / 1e6, 1),
             "encode_seconds": round(self.encode_seconds, 3),
+            "stages": self.stages,
         }
 
 
@@ -211,6 +250,10 @@ class _Decoded:
     staged: object = None
     staged_fmt: str = "raw"  # "raw" | "u12" | "u14"
     staged_nbytes: int = 0
+    # The image's id in the call's spans, and the end of its decode
+    # (``perf_counter_ns``), where its wait for a full batch begins.
+    image: object = None
+    decoded_ns: int = 0
     # Export metadata (raw/exif.py): camera provenance and the stored
     # orientation tag, so viewers rotate the output.
     make: str = ""
@@ -233,55 +276,74 @@ _PINNED_DTYPES = {np.dtype(np.uint8): torch.uint8,
 
 
 class _Uploader:
-    """The upload thread. ``submit(host_buf)`` returns a Future of
+    """The upload thread. ``submit(host_buf, image)`` returns a Future of
     ``(tensor, event, pinned)``: on a CUDA device the buffer is copied
     into pinned memory, then to the card with ``non_blocking`` on a
     stream of its own (a copy from pageable memory would be
     synchronous), and ``event`` is recorded after the copy; the flush
     makes its stream wait on it. On the CPU the tensor is the buffer and
-    the event None."""
+    the event None. Each upload is an ``upload`` span of ``rec``."""
 
-    def __init__(self, pool: ThreadPoolExecutor, device: torch.device):
+    def __init__(self, pool: ThreadPoolExecutor, device: torch.device,
+                 rec: Optional[StageTimer] = None):
         self.pool, self.device = pool, device
+        self.rec = rec or StageTimer()
         self.stream = None
         if device.type == "cuda":
             with torch.cuda.device(device):
                 self.stream = torch.cuda.Stream()
 
-    def submit(self, host_buf: np.ndarray) -> Future:
-        return self.pool.submit(self._put, host_buf)
+    def submit(self, host_buf: np.ndarray, image=None) -> Future:
+        return self.pool.submit(self._put, host_buf, image)
 
-    def _put(self, host_buf: np.ndarray):
-        if self.stream is None:
-            return _host_tensor(host_buf), None, None
-        # u16 mosaics travel as their int16 view (the same bytes).
-        src = host_buf.view(np.int16) if host_buf.dtype == np.uint16 \
-            else host_buf
-        pinned = torch.empty(src.shape, dtype=_PINNED_DTYPES[src.dtype],
-                             pin_memory=True)
-        pinned.numpy()[...] = src
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            dev = pinned.to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.stream)
-        if host_buf.dtype == np.uint16:
-            dev = dev.view(torch.uint16)
-        return dev, done, pinned
+    def _put(self, host_buf: np.ndarray, image=None):
+        with self.rec.span("upload", image=image):
+            if self.stream is None:
+                return _host_tensor(host_buf), None, None
+            # u16 mosaics travel as their int16 view (the same bytes).
+            src = host_buf.view(np.int16) if host_buf.dtype == np.uint16 \
+                else host_buf
+            pinned = torch.empty(src.shape, dtype=_PINNED_DTYPES[src.dtype],
+                                 pin_memory=True)
+            pinned.numpy()[...] = src
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self.stream):
+                dev = pinned.to(self.device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+            self.rec.count("transfer.pinned_bytes", src.nbytes)
+            if host_buf.dtype == np.uint16:
+                dev = dev.view(torch.uint16)
+            return dev, done, pinned
 
 
 def _decode_job(job: ExportJob, mode: str, upload_pool=None,
-                color_space: str = "srgb"):
+                color_space: str = "srgb",
+                rec: Optional[StageTimer] = None, image=None):
     """Returns (decoded, decode_seconds, stage_seconds).
 
-    decode_seconds covers the codec and metadata work only; the staging
-    pack is timed separately, so the report's decode split reflects the
+    decode_seconds covers the codec and metadata work only (the
+    ``decode`` span of ``rec``); the staging pack is timed separately
+    (``stage.pack``), so the report's decode split reflects the
     per-codec MP/s. The upload itself runs on ``upload_pool`` (an
     ``_Uploader``: one thread with its own stream), not here: a decode
     worker blocked on a transfer would stall the decode pool. The flush
     resolves the resulting future."""
+    rec = rec or StageTimer()
+    with rec.span("decode", image=image) as dec:
+        decoded = _decode(job, mode, color_space)
+    decoded.image, decoded.decoded_ns = image, dec.end_ns
+    with rec.span("stage.pack", image=image) as pack:
+        if upload_pool is not None:
+            _stage(decoded, upload_pool, image)
+    return decoded, dec.seconds, pack.seconds
+
+
+def _decode(job: ExportJob, mode: str, color_space: str) -> _Decoded:
+    """The job's file decoded, with its levels, CFA bucket key and
+    output matrix."""
     from raweditor_tpu_torch.raw.decode import decode_raw
 
-    t0 = time.perf_counter()
     raw = decode_raw(job.raw_path)
     if mode == "parity":
         # The reference hardcodes 4096 and the RGGB stencil
@@ -301,7 +363,7 @@ def _decode_job(job: ExportJob, mode: str, upload_pool=None,
             phase = raw.cfa_pattern
         else:
             phase = phase_of(raw.cfa_pattern)
-    decoded = _Decoded(
+    return _Decoded(
         job=job,
         mosaic=raw.fold_site_blacks() if mode == "accurate" else raw.mosaic,
         wb=raw.wb_rgb(),
@@ -313,44 +375,46 @@ def _decode_job(job: ExportJob, mode: str, upload_pool=None,
         model=raw.camera_model,
         orientation=raw.orientation,
     )
-    decode_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    if upload_pool is not None:
-        m = decoded.mosaic
-        fmt = "raw"
-        if m.ndim == 2 and m.dtype == np.uint16:
-            peak = m.max(initial=0)
-            if peak < 4096 and m.shape[1] % 2 == 0:
-                fmt = "u12"  # 1.5 B/px (the dominant sensor depth)
-            elif peak < 16384 and m.shape[1] % 4 == 0:
-                fmt = "u14"  # 1.75 B/px
-        nbytes = {"u12": m.nbytes * 3 // 4,
-                  "u14": m.nbytes * 7 // 8}.get(fmt, m.nbytes)
-        # Budget check BEFORE the pack so a pegged budget costs no host
-        # work; a staging failure (e.g. device memory) resolves at flush
-        # time: budget released there, the image uploads at flush.
-        if _stage_budget_acquire(nbytes):
-            try:
-                from raweditor_tpu_torch.ops.staging import (pack12_rows,
-                                                             pack14_rows)
 
-                # `peak` was scanned above to pick the format; passing it
-                # skips the pack's own range re-scan.
-                if fmt == "u12":
-                    host_buf = pack12_rows(m, peak)
-                elif fmt == "u14":
-                    host_buf = pack14_rows(m, peak)
-                else:
-                    host_buf = np.ascontiguousarray(m)
-                decoded.staged = upload_pool.submit(host_buf)
-                decoded.staged_fmt = fmt
-                decoded.staged_nbytes = nbytes
-            except Exception:
-                _stage_budget_release(nbytes)
-                decoded.staged = None
-                decoded.staged_fmt = "raw"
-                decoded.staged_nbytes = 0
-    return decoded, decode_s, time.perf_counter() - t0
+
+def _stage(decoded: _Decoded, upload_pool, image) -> None:
+    """Bit-pack the mosaic and hand it to the upload thread, within the
+    staging budget; over it, the mosaic uploads at flush time."""
+    m = decoded.mosaic
+    fmt = "raw"
+    if m.ndim == 2 and m.dtype == np.uint16:
+        peak = m.max(initial=0)
+        if peak < 4096 and m.shape[1] % 2 == 0:
+            fmt = "u12"  # 1.5 B/px (the dominant sensor depth)
+        elif peak < 16384 and m.shape[1] % 4 == 0:
+            fmt = "u14"  # 1.75 B/px
+    nbytes = {"u12": m.nbytes * 3 // 4,
+              "u14": m.nbytes * 7 // 8}.get(fmt, m.nbytes)
+    # Budget check BEFORE the pack so a pegged budget costs no host
+    # work; a staging failure (e.g. device memory) resolves at flush
+    # time: budget released there, the image uploads at flush.
+    if not _stage_budget_acquire(nbytes):
+        return
+    try:
+        from raweditor_tpu_torch.ops.staging import (pack12_rows,
+                                                     pack14_rows)
+
+        # `peak` was scanned above to pick the format; passing it skips
+        # the pack's own range re-scan.
+        if fmt == "u12":
+            host_buf = pack12_rows(m, peak)
+        elif fmt == "u14":
+            host_buf = pack14_rows(m, peak)
+        else:
+            host_buf = np.ascontiguousarray(m)
+        decoded.staged = upload_pool.submit(host_buf, image)
+        decoded.staged_fmt = fmt
+        decoded.staged_nbytes = nbytes
+    except Exception:
+        _stage_budget_release(nbytes)
+        decoded.staged = None
+        decoded.staged_fmt = "raw"
+        decoded.staged_nbytes = 0
 
 
 # Staged mosaics waiting in the decode window hold device (and pinned
@@ -611,6 +675,7 @@ def run_batch_export(
     perspective=None,
     on_progress=None,
     device=None,
+    trace_spans: bool = False,
 ) -> ExportReport:
     """Develop and encode every job on one device; returns a report with
     throughput and the per-image quarantine list.
@@ -627,7 +692,10 @@ def run_batch_export(
 
     ``device`` is where the develop runs: the card unless the caller
     asks for ``"cpu"`` (the kernels' plain versions); None takes
-    ``utils.device.default_device()``."""
+    ``utils.device.default_device()``.
+
+    ``trace_spans`` keeps the call's span log (``report.timer.log``, and
+    ``report.timer.chrome_trace()``) even with no profiler open."""
     from raweditor_tpu_torch.native import require_rawkit
     from raweditor_tpu_torch.ops.demosaic import DEMOSAIC_METHODS
     from raweditor_tpu_torch.ops.jpeg import (rgba_words_to_ycbcr420,
@@ -678,6 +746,21 @@ def run_batch_export(
     report = ExportReport(total=len(jobs))
     t_start_progress = time.perf_counter()
     _progress_last = [0.0]
+    # The call's recorder: the span log is kept for a trace (the CLI's
+    # --trace-out) or while a profiler is open, whose ranges then name
+    # the calling thread's waits.
+    profiling = bool(getattr(torch.autograd.profiler,
+                             "_is_profiler_enabled", False))
+    rec = StageTimer(keep_log=trace_spans or profiling, profiler=profiling)
+    for name in COUNTERS:
+        rec.count(name, 0)
+    cuda = device.type == "cuda"
+
+    def to_device(t: torch.Tensor) -> torch.Tensor:
+        """A flush-time copy of a host tensor in pageable memory."""
+        if cuda:
+            rec.count("transfer.pageable_bytes", t.numel() * t.element_size())
+        return t.to(device)
 
     def _note_progress(force: bool = False):
         """Rate-limited completion callback (≥1 s apart unless forced);
@@ -694,14 +777,19 @@ def run_batch_export(
         except Exception:  # noqa: BLE001 - observability must not
             pass           # fail the export
 
+    # Each image's id in the spans: its catalog id, else its index in
+    # the call.
+    work = [(job.image_id if job.image_id is not None else i, job)
+            for i, job in enumerate(jobs)]
     if skip_existing:
         remaining = []
-        for job in jobs:
+        for image, job in work:
             if os.path.exists(job.out_path):
                 report.skipped += 1
             else:
-                remaining.append(job)
-        jobs = remaining
+                remaining.append((image, job))
+        work = remaining
+        jobs = [job for _, job in work]
 
     # JPEG planes on the card and the native JFIF encoder whenever every
     # output still to be written is a JPEG (decided after the
@@ -717,7 +805,7 @@ def run_batch_export(
     if jpeg_planes_ok:
         require_rawkit()
     fetch_stream = None
-    if device.type == "cuda":
+    if cuda:
         with torch.cuda.device(device):
             fetch_stream = torch.cuda.Stream()
     t_start = time.perf_counter()
@@ -728,81 +816,96 @@ def run_batch_export(
         # fetch thread pulls results one batch behind, so the card's
         # work, host decode and encode, and both copies overlap.
         inflight: List[tuple] = []
+        flush_numbers = itertools.count()
 
-        def submit_encodes(batch, host, encode_pool):
-            for i, d in enumerate(batch):
-                # Per-image copies: an encode job must not pin the whole
-                # (B, H, W) batch array while it waits in the queue.
-                exif = build_exif(d.make, d.model, d.orientation)
-                if isinstance(host, tuple) and len(host) == 2:
-                    # Kernel planes: Y + NV12-interleaved CbCr. The
-                    # strided de-interleave copies are 2×(H/2·W/2) bytes
-                    # on the host, noise next to the encode.
-                    y, cbcr = host[0][i], host[1][i]
-                    fut = encode_pool.submit(
-                        _encode_one_jpeg420, d.job.out_path, y.copy(),
-                        cbcr[:, 0::2].copy(), cbcr[:, 1::2].copy(),
-                        quality, exif, jpeg_optimize, chroma,
-                        jpeg_restart_rows, icc
-                    )
-                elif isinstance(host, tuple):  # YCbCr plane triple
-                    y, cb, cr = (p[i] for p in host)
-                    fut = encode_pool.submit(
-                        _encode_one_jpeg420, d.job.out_path, y.copy(),
-                        cb.copy(), cr.copy(), quality, exif,
-                        jpeg_optimize, chroma, jpeg_restart_rows, icc
-                    )
-                elif bits == 16:
-                    fut = encode_pool.submit(
-                        _encode_one_tiff16, d.job.out_path,
-                        host[i].copy(), d.make, d.model, d.orientation,
-                        icc
-                    )
-                else:
-                    fut = encode_pool.submit(
-                        _encode_one, d.job.out_path, host[i].copy(),
-                        quality, exif, jpeg_optimize, chroma,
-                        jpeg_restart_rows, icc
-                    )
-                encode_futures.append((fut, d.job))
+        def encode(fn, image, seq, ready_ns, *args):
+            """Runs on an encode worker: the image's wait in the encode
+            queue since its fetch, then the encoder."""
+            rec.interval("queue.encode", ready_ns, time.perf_counter_ns(),
+                         image=image, batch=seq)
+            with rec.span("encode", image=image, batch=seq):
+                fn(*args)
+
+        def wait_encode(fut, job):
+            try:
+                fut.result()
+                report.succeeded += 1
+            except Exception as e:
+                report.failed.append((job.raw_path, f"encode: {e}"))
+
+        def submit_encodes(batch, host, encode_pool, seq, ready_ns):
+            with rec.span("export.hand_off", image=[d.image for d in batch],
+                          batch=seq, profiler=True):
+                for i, d in enumerate(batch):
+                    # Per-image copies: an encode job must not pin the
+                    # whole (B, H, W) batch array while it waits in the
+                    # queue.
+                    exif = build_exif(d.make, d.model, d.orientation)
+                    if isinstance(host, tuple) and len(host) == 2:
+                        # Kernel planes: Y + NV12-interleaved CbCr,
+                        # de-interleaved by two strided copies of
+                        # H/2·W/2 bytes on the host.
+                        y, cbcr = host[0][i], host[1][i]
+                        fn, args = _encode_one_jpeg420, (
+                            y.copy(), cbcr[:, 0::2].copy(),
+                            cbcr[:, 1::2].copy(), quality, exif,
+                            jpeg_optimize, chroma, jpeg_restart_rows, icc)
+                    elif isinstance(host, tuple):  # YCbCr plane triple
+                        y, cb, cr = (p[i] for p in host)
+                        fn, args = _encode_one_jpeg420, (
+                            y.copy(), cb.copy(), cr.copy(), quality, exif,
+                            jpeg_optimize, chroma, jpeg_restart_rows, icc)
+                    elif bits == 16:
+                        fn, args = _encode_one_tiff16, (
+                            host[i].copy(), d.make, d.model, d.orientation,
+                            icc)
+                    else:
+                        fn, args = _encode_one, (
+                            host[i].copy(), quality, exif, jpeg_optimize,
+                            chroma, jpeg_restart_rows, icc)
+                    fut = encode_pool.submit(encode, fn, d.image, seq,
+                                             ready_ns, d.job.out_path, *args)
+                    encode_futures.append((fut, d.job))
             # Backpressure: the card outruns host JPEG encode; without a
             # bound the queue would pin unbounded host buffers.
             max_inflight = 4 * encode_threads
             while len(encode_futures) > max_inflight:
                 fut, job = encode_futures.pop(0)
-                t_enc = time.perf_counter()
-                try:
-                    fut.result()
-                    report.succeeded += 1
-                except Exception as e:
-                    report.failed.append((job.raw_path, f"encode: {e}"))
-                report.encode_seconds += time.perf_counter() - t_enc
+                with rec.span("export.wait_encode", profiler=True):
+                    wait_encode(fut, job)
                 _note_progress()
 
-        def _fetch_batch(out, batch, t0, done):
+        def _fetch_batch(out, batch, done, seq):
             """Runs on the fetch thread: wait for the flush's event, then
             slice the padding off on the card (a drain-time bucket of 1
             would otherwise copy the replayed frames) and copy the rest
-            to the host on the fetch stream."""
-            if done is not None:
-                done.synchronize()
-            dev_s = time.perf_counter() - t0
-            t1 = time.perf_counter()
+            to the host on the fetch stream. Returns the host arrays,
+            their bytes and the copy's end."""
+            images = [d.image for d in batch]
+            with rec.span("fetch.wait", image=images, batch=seq):
+                if done is not None:
+                    done.synchronize()
             n = len(batch)
-            with _on(device, fetch_stream):
+            with rec.span("fetch.copy", image=images, batch=seq) as copy, \
+                    _on(device, fetch_stream):
                 if isinstance(out, tuple):  # YCbCr planes
                     host = tuple(p[:n].cpu().numpy() for p in out)
                     nbytes = sum(p.nbytes for p in host)
                 else:
                     host = out[:n].cpu().numpy()
                     nbytes = host.nbytes
-            return host, dev_s, time.perf_counter() - t1, nbytes
+            if cuda:
+                rec.count("transfer.pageable_bytes", nbytes)
+            return host, nbytes, copy.end_ns
 
         def drain_inflight(encode_pool, depth: int):
             while len(inflight) > depth:
-                fut, batch = inflight.pop(0)
+                fut, batch, seq = inflight.pop(0)
                 try:
-                    host, dev_s, fetch_s, nbytes = fut.result()
+                    with rec.span("export.wait_fetch",
+                                  image=[d.image for d in batch], batch=seq,
+                                  profiler=True):
+                        host, nbytes, ready_ns = fut.result()
                 except Exception as e:  # device failure: the batch
                     # quarantines like any other per-image failure.
                     for d in batch:
@@ -810,12 +913,10 @@ def run_batch_export(
                             (d.job.raw_path, f"device: {e}"))
                     _note_progress()
                     continue
-                report.device_seconds += dev_s
-                report.fetch_seconds += fetch_s
                 report.fetch_bytes += nbytes
-                submit_encodes(batch, host, encode_pool)
+                submit_encodes(batch, host, encode_pool, seq, ready_ns)
 
-        def _stage_batch(batch, padded):
+        def _stage_batch(batch, padded, seq):
             """The (B, H, W) u16 batch on the device: staged buffers
             (waited for on this thread's stream and unpacked), else a
             flush-time upload."""
@@ -826,57 +927,64 @@ def run_batch_export(
             # Resolve the upload futures first: one the upload thread
             # finished costs nothing; one still running is waited for
             # (upload time); a failed one degrades to a flush-time upload.
-            t_res = time.perf_counter()
-            for d in batch:
-                if isinstance(d.staged, Future):
-                    fut, d.staged = d.staged, None
-                    try:
-                        d.staged = fut.result()
-                    except Exception:
-                        _stage_budget_release(d.staged_nbytes)
-                        d.staged_fmt = "raw"
-                        d.staged_nbytes = 0
-            report.upload_seconds += time.perf_counter() - t_res
-            if not any(d.staged is not None for d in batch):
-                return _host_tensor(np.stack(
-                    [d.mosaic for d in padded])).to(device)
-            # Use every staged buffer (an over-budget straggler must not
-            # discard the bytes already copied); items without one upload
-            # here.
-            t_up = time.perf_counter()
-            parts = []
-            late_bytes = 0
-            built = {}  # padding replays batch[0]: upload/unpack once
-            for d in padded:
-                if id(d) not in built:
-                    if d.staged is None:
-                        late = _host_tensor(d.mosaic)
-                        late_bytes += late.numel() * late.element_size()
-                        built[id(d)] = late.to(device)
-                    else:
-                        buf, done, _ = d.staged
-                        if done is not None:
-                            # The copy ran on the upload stream: this
-                            # stream waits for it, and the allocator must
-                            # not hand the buffer back to the upload
-                            # stream while this stream still reads it.
-                            stream = torch.cuda.current_stream(device)
-                            stream.wait_event(done)
-                            buf.record_stream(stream)
-                        built[id(d)] = (unpack[d.staged_fmt](buf)
-                                        if d.staged_fmt != "raw" else buf)
-                parts.append(built[id(d)])
-            mosaics = torch.stack(parts)
-            report.upload_seconds += time.perf_counter() - t_up
+            with rec.span("export.wait_upload", batch=seq,
+                          parent="export.flush", profiler=True):
+                for d in batch:
+                    if isinstance(d.staged, Future):
+                        fut, d.staged = d.staged, None
+                        try:
+                            d.staged = fut.result()
+                        except Exception:
+                            _stage_budget_release(d.staged_nbytes)
+                            d.staged_fmt = "raw"
+                            d.staged_nbytes = 0
+            with rec.span("export.stage", batch=seq, parent="export.flush"):
+                if not any(d.staged is not None for d in batch):
+                    return to_device(_host_tensor(np.stack(
+                        [d.mosaic for d in padded])))
+                # Use every staged buffer (an over-budget straggler must
+                # not discard the bytes already copied); items without
+                # one upload here.
+                parts = []
+                late_bytes = 0
+                built = {}  # padding replays batch[0]: upload/unpack once
+                for d in padded:
+                    if id(d) not in built:
+                        if d.staged is None:
+                            late = _host_tensor(d.mosaic)
+                            late_bytes += late.numel() * late.element_size()
+                            built[id(d)] = to_device(late)
+                        else:
+                            buf, done, _ = d.staged
+                            if done is not None:
+                                # The copy ran on the upload stream: this
+                                # stream waits for it, and the allocator
+                                # must not hand the buffer back to the
+                                # upload stream while this stream still
+                                # reads it.
+                                stream = torch.cuda.current_stream(device)
+                                stream.wait_event(done)
+                                buf.record_stream(stream)
+                            built[id(d)] = (unpack[d.staged_fmt](buf)
+                                            if d.staged_fmt != "raw"
+                                            else buf)
+                    parts.append(built[id(d)])
+                mosaics = torch.stack(parts)
             report.upload_bytes += late_bytes + sum(
                 d.staged_nbytes for d in batch if d.staged is not None)
             return mosaics
 
-        def _flush_dispatch(batch: List[_Decoded]):
+        def _flush_dispatch(batch: List[_Decoded], seq: int):
             # Pad to the fixed batch shape; padding replays item 0 and is
             # dropped before encode.
             padded = batch + [batch[0]] * (batch_size - len(batch))
-            mosaics = _stage_batch(batch, padded)
+            mosaics = _stage_batch(batch, padded, seq)
+            with rec.span("export.launch", batch=seq, parent="export.flush"):
+                rec.count("slots.developed", len(batch))
+                rec.count("slots.padded", batch_size - len(batch))
+                return _launch(batch, padded, mosaics)
+
+        def _launch(batch, padded, mosaics):
             params = [d.job.params for d in padded]
             wbs = np.stack([d.wb for d in padded])
             cms = np.stack([d.cam_matrix for d in padded])
@@ -934,7 +1042,6 @@ def run_batch_export(
                                           ("mixer", ex_on and mixer_on),
                                           ("grading", ex_on and grading_on))
                     if on) or False
-                t0 = time.perf_counter()
                 out = batch_develop_u16(
                     mosaics, params, wbs, cms, whites, blacks,
                     matrix_transpose=matrix_transpose,
@@ -945,7 +1052,7 @@ def run_batch_export(
                     extras=mode16, linear=linear)
                 if shaped:
                     out = shape(out, "u16")
-                return out, t0, _record_event(device)
+                return out, _record_event(device)
             # Point curves ride the plain lane's finish; the develop
             # kernels do not compute them.
             curve_on = bool(batch[0].job.params.point_curve)
@@ -955,7 +1062,6 @@ def run_batch_export(
                     planes = "ycbcr444"
                 elif h_m % 2 == 0 and w_m % 2 == 0:
                     planes = "ycbcr420"
-            t0 = time.perf_counter()
             if linear:
                 # No develop kernel: the plain lane on either route, as
                 # the JAX exporter's XLA lane.
@@ -968,8 +1074,8 @@ def run_batch_export(
                             demosaic=generic_cfa_method(demosaic_method))
                        if xtrans else dict(cfa_phase=phase,
                                            demosaic=demosaic_method))
-                scal = pack_params(params, wbs, cms, whites, blacks,
-                                   matrix_transpose).to(device)
+                scal = to_device(pack_params(params, wbs, cms, whites,
+                                             blacks, matrix_transpose))
                 out = _fused.fused_batch_develop_rgba(
                     mosaics, scal, gamma=gamma,
                     output=("ycbcr420" if planes == "ycbcr420"
@@ -991,9 +1097,13 @@ def run_batch_export(
                         **lane)
             if ex_on:
                 # Extras on every route run the post-pass kernel over the
-                # develop's words (its plain version for CPU tensors).
+                # develop's words (its plain version for CPU tensors),
+                # every slot of the padded batch.
+                rec.count("extras.slots", batch_size)
+                rec.count("extras.asked", sum(
+                    d.job.params.has_finish_extras() for d in batch))
                 out = _fx.fused_finish_extras_rgba(
-                    out, table.to(device), mixer_on=mixer_on,
+                    out, to_device(table), mixer_on=mixer_on,
                     grading_on=grading_on, stencils=stencils,
                     output="ycbcr420" if planes == "ycbcr420" else "rgba")
             if shaped:
@@ -1006,11 +1116,17 @@ def run_batch_export(
             if planes != "rgba_words" and not isinstance(out, tuple):
                 out = (rgba_words_to_ycbcr444(out) if planes == "ycbcr444"
                        else rgba_words_to_ycbcr420(out))
-            return out, t0, _record_event(device)
+            return out, _record_event(device)
 
         def flush(batch: List[_Decoded], encode_pool: ThreadPoolExecutor):
+            seq = next(flush_numbers)
             try:
-                out, t0, done = _flush_dispatch(batch)
+                with rec.span("export.flush", image=[d.image for d in batch],
+                              batch=seq) as span:
+                    for d in batch:
+                        rec.interval("queue.batch", d.decoded_ns,
+                                     span.start_ns, image=d.image, batch=seq)
+                    out, done = _flush_dispatch(batch, seq)
             except Exception as e:  # a develop or kernel failure:
                 # quarantine the batch like any per-image failure instead
                 # of killing a long run; never route around the kernel.
@@ -1027,32 +1143,33 @@ def run_batch_export(
                         d.staged = None
                         d.staged_nbytes = 0
             inflight.append(
-                (fetch_pool.submit(_fetch_batch, out, batch, t0, done),
-                 batch))
+                (fetch_pool.submit(_fetch_batch, out, batch, done, seq),
+                 batch, seq))
             drain_inflight(encode_pool, depth=1)
             if _arena_cap:
                 # The batch's host buffers were just freed; hand the pages
                 # back instead of letting arenas retain them.
-                trim_malloc()
+                with rec.span("export.trim", batch=seq, profiler=True):
+                    trim_malloc()
 
         with ThreadPoolExecutor(decode_threads) as decode_pool, \
                 ThreadPoolExecutor(encode_threads) as encode_pool, \
                 ThreadPoolExecutor(1) as fetch_pool, \
                 ThreadPoolExecutor(1) as upload_pool, \
                 _on(device):
-            uploader = _Uploader(upload_pool, device)
+            uploader = _Uploader(upload_pool, device, rec)
             batcher = _Batcher(batch_size)
             window = max(2 * batch_size, decode_threads * 2)
-            pending: List[Tuple[Future, ExportJob]] = []
-            job_iter = iter(jobs)
+            pending: List[Tuple[Future, ExportJob, object]] = []
+            job_iter = iter(work)
 
             def submit_next() -> bool:
-                job = next(job_iter, None)
+                image, job = next(job_iter, (None, None))
                 if job is None:
                     return False
                 pending.append(
                     (decode_pool.submit(_decode_job, job, mode, uploader,
-                                        color_space), job)
+                                        color_space, rec, image), job, image)
                 )
                 return True
 
@@ -1061,17 +1178,15 @@ def run_batch_export(
                     break
 
             while pending:
-                fut, job = pending.pop(0)
+                fut, job, image = pending.pop(0)
                 try:
-                    decoded, decode_s, stage_s = fut.result()
+                    with rec.span("export.wait_decode", image=image,
+                                  profiler=True):
+                        decoded = fut.result()[0]
                 except Exception as e:
                     report.failed.append((job.raw_path, f"decode: {e}"))
                     _note_progress()
                 else:
-                    # Sum of worker time (can exceed wall clock with
-                    # several decode threads: the host-CPU budget).
-                    report.decode_seconds += decode_s
-                    report.stage_seconds += stage_s
                     report.decode_megapixels += (
                         decoded.mosaic.shape[0] * decoded.mosaic.shape[1]
                         / 1e6)
@@ -1084,15 +1199,10 @@ def run_batch_export(
                 flush(bucket, encode_pool)
             drain_inflight(encode_pool, depth=0)
 
-            t0 = time.perf_counter()
-            for fut, job in encode_futures:
-                try:
-                    fut.result()
-                    report.succeeded += 1
-                except Exception as e:
-                    report.failed.append((job.raw_path, f"encode: {e}"))
-                _note_progress()
-            report.encode_seconds += time.perf_counter() - t0
+            with rec.span("export.wait_encode", profiler=True):
+                for fut, job in encode_futures:
+                    wait_encode(fut, job)
+                    _note_progress()
             _note_progress(force=True)
 
     finally:
@@ -1101,6 +1211,21 @@ def run_batch_export(
         # disable the leaked-budget self-healing in _stage_run_begin).
         _stage_run_end()
     report.seconds = time.perf_counter() - t_start
+
+    def total(*names):
+        return sum(rec.totals.get(n, 0.0) for n in names)
+
+    # One measurement per boundary: the report's seconds are the spans'.
+    report.decode_seconds = total("decode")
+    report.stage_seconds = total("stage.pack")
+    report.device_seconds = total("fetch.wait")
+    report.fetch_seconds = total("fetch.copy")
+    report.upload_seconds = total("export.wait_upload", "export.stage")
+    report.encode_seconds = total("export.wait_encode")
+    report.stages = rec.report()
+    report.timer = rec
+    global LAST_REPORT
+    LAST_REPORT = report.as_dict()
     return report
 
 

@@ -27,7 +27,10 @@ verb answers one JSON object with the JAX session's keys:
                              (x, y) through the temperature/tint sliders
     before <path>            preview with default params
     reset                    defaults (deletes stored edits)
-    stats                    latency percentiles of this session
+    stats                    latency percentiles of this session, and
+                             the server side of its verbs: `set` as
+                             persist and tick, `frame` as render, fetch
+                             and encode, `histogram` (totals and counts)
     local ... | preset ...   not ported yet: answer {"ok": false}
     quit
 
@@ -52,7 +55,7 @@ from typing import Optional
 from raweditor_tpu_torch.params import EditParams
 from raweditor_tpu_torch.pipeline.engine import DevelopEngine
 from raweditor_tpu_torch.utils.config import Config
-from raweditor_tpu_torch.utils.timing import LatencyStats
+from raweditor_tpu_torch.utils.timing import LatencyStats, StageTimer
 
 _NOT_PORTED = {
     "local": "not ported yet: local adjustments "
@@ -80,6 +83,9 @@ class DevelopSession:
         self.zoom = 1.0
         self.pan = (0.0, 0.0)
         self.latency = LatencyStats()
+        # The server side of the verbs (``stats``): set.persist,
+        # set.tick, frame.render, frame.fetch, frame.encode, histogram.
+        self.verbs = StageTimer()
         # (path, thread, box, kwargs) of the background prefetch, or None.
         self._prefetch = None
         # After a checkpoint the newest edits row is frozen: the next
@@ -96,8 +102,10 @@ class DevelopSession:
         if not math.isfinite(value):
             raise ValueError(f"{name} must be finite, got {value}")
         self.params = self.params.replace(**{name: value})
-        self._persist_params()
-        ms = self._timed_tick()
+        with self.verbs.span("set.persist"):
+            self._persist_params()
+        with self.verbs.span("set.tick"):
+            ms = self._timed_tick()
         return {"ok": True, "slider": name, "value": float(value),
                 "render_ms": round(ms, 3)}
 
@@ -217,7 +225,7 @@ class DevelopSession:
             self._flush_pipeline()
         data, w, h = self.engine.preview_jpeg(
             params or self.params, self.zoom, self.pan,
-            quality=int(quality), frame=dev)
+            quality=int(quality), frame=dev, stages=self.verbs)
         return {"ok": True, "size": [w, h],
                 "quality": int(quality), "bytes": len(data),
                 "lagged": dev is not None,
@@ -231,8 +239,9 @@ class DevelopSession:
                     long_edge=int(long_edge) or None)}
 
     def histogram(self) -> dict:
-        self._flush_pipeline()
-        hist = self.engine.histogram(self.params, self.zoom, self.pan)
+        with self.verbs.span("histogram"):
+            self._flush_pipeline()
+            hist = self.engine.histogram(self.params, self.zoom, self.pan)
         return {"ok": True, "r": hist[0].tolist(), "g": hist[1].tolist(),
                 "b": hist[2].tolist()}
 
@@ -411,7 +420,8 @@ class DevelopSession:
                 "rating": cur_rating, "flag": cur_flag}
 
     def stats(self) -> dict:
-        return {"ok": True, "latency": self.latency.summary()}
+        return {"ok": True, "latency": dict(self.latency.summary(),
+                                            verbs=self.verbs.report())}
 
     def close(self) -> None:
         """Session teardown: drop the prefetch slot and retire the

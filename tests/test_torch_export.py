@@ -129,7 +129,8 @@ def _same_report(rep, ref):
         ref.total, ref.succeeded, ref.skipped)
     assert [(p, m.split(":")[0]) for p, m in rep.failed] == [
         (p, m.split(":")[0]) for p, m in ref.failed]
-    assert set(rep.as_dict()) == set(ref.as_dict())
+    # The port's report adds its stages (spans and counters).
+    assert set(rep.as_dict()) == set(ref.as_dict()) | {"stages"}
     assert rep.upload_bytes == ref.upload_bytes
     assert rep.fetch_bytes == ref.fetch_bytes
 
@@ -532,12 +533,12 @@ def test_invalid_arguments_and_device(tmp_path, monkeypatch):
     sig = inspect.signature(pex.run_batch_export).parameters
     ref = inspect.signature(jex.run_batch_export).parameters
     assert list(sig) == [("use_kernel" if n == "use_pallas" else n)
-                         for n in ref] + ["device"]
+                         for n in ref] + ["device", "trace_spans"]
     # None: utils.device.default_device(), the card unless the caller
     # pinned the CPU (RAWEDITOR_TPU_PLATFORM=cpu).
     assert sig["device"].default is None
     assert list(pex.ExportReport().as_dict()) == list(
-        jex.ExportReport().as_dict())
+        jex.ExportReport().as_dict()) + ["stages"]
 
 
 @pytest.mark.parametrize("setup", SETUPS[:3], ids=lambda s: f"{s[0]}-{s[1]}")

@@ -519,6 +519,34 @@ def test_session_pipeline_default_and_synchronous_ticks(tmp_path):
     DevelopSession(None).close()
 
 
+@pytest.mark.parametrize("depth", [0, 2])
+def test_stats_split_the_verbs_as_they_were_sent(tmp_path, depth):
+    """``stats`` carries the server side of the verbs under ``latency``:
+    a ``set`` as its catalog write and its tick, a ``frame`` as render,
+    fetch and encode, and ``histogram``; each count follows the verbs
+    sent, pipelined or not."""
+    path = _write(tmp_path / "a.nef", 3, 24, 32)
+    lib = Library(tmp_path / "c.db")
+    image_id = lib.import_image(path, "a.nef")
+    sess = DevelopSession(DevelopEngine.open(path, device="cpu"), lib,
+                          image_id,
+                          config=Config(session_pipeline_depth=depth))
+    for line in ("set exposure 0.3", "frame 80", "set contrast 5", "zoom 2",
+                 "set shadows 10", "histogram", "frame 75 latest",
+                 "histogram", "pan 0.1 0"):
+        assert sess.handle(line)["ok"], line
+    latency = sess.handle("stats")["latency"]
+    assert latency["count"] == 3
+    verbs = latency["verbs"]
+    assert {k: v["count"] for k, v in verbs["spans"].items()} == {
+        "set.persist": 3, "set.tick": 3, "frame.render": 2,
+        "frame.fetch": 2, "frame.encode": 2, "histogram": 2}
+    assert all(v["total_s"] >= 0 for v in verbs["spans"].values())
+    assert verbs["counters"] == {}
+    assert lib.load_edit_params(image_id).shadows == 10
+    sess.close()
+
+
 # -- the two verbs of modules not ported yet, and the long edge ----------
 
 def test_unported_verbs_answer_without_ending_the_session(tmp_path):

@@ -4,6 +4,7 @@ has no jax, and importing any ``raweditor_tpu`` module imports jax."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -58,7 +59,7 @@ COPIES = [
     # the ICC profiles of the wide-gamut exports
     "icc.py",
     # the batch exporter's helpers
-    "utils/config.py", "utils/memory.py", "utils/timing.py",
+    "utils/config.py", "utils/memory.py",
     "catalog/__init__.py", "catalog/data.py", "catalog/library.py",
     # containers and bit-level codecs
     "raw/exif.py", "raw/tiff.py", "raw/bitpack.py", "raw/packing.py",
@@ -118,6 +119,23 @@ def test_raw_image_fields_equal_the_jax_ones():
                    [512, 256, 384, -1]):
         assert (RawImage.normalize_wb(coeffs).tobytes()
                 == JaxRaw.normalize_wb(coeffs).tobytes())
+
+
+def test_latency_summary_equals_the_jax_one():
+    """``utils/timing.py`` is the port's own (its ``StageTimer`` is the
+    exporter's and the session's span recorder); the session's ``stats``
+    percentiles stay the JAX ``LatencyStats``'s, number for number."""
+    from raweditor_tpu.utils.timing import LatencyStats as JaxStats
+    from raweditor_tpu_torch.utils.timing import LatencyStats
+
+    samples = np.random.default_rng(3).exponential(0.01, 300)
+    for cap in (10_000, 50):
+        ours, theirs = LatencyStats(cap), JaxStats(cap)
+        assert ours.summary() == theirs.summary() == {"count": 0}
+        for s in samples:
+            ours.record(float(s))
+            theirs.record(float(s))
+        assert ours.summary() == theirs.summary()
 
 
 def test_xtrans_pattern_equals_the_jax_constant():
