@@ -4,10 +4,18 @@
     python3 chip_smoke.py [--profile-export]
 
 Builds the CUDA kernels from ``raweditor_tpu_torch/csrc`` (one nvcc per
-source, four sources started together), makes seeded 24 MP 12-bit frames
-(4016x6016 Bayer, 4000x6000 X-Trans), and drives four paths through the
-entry points a user calls, each with the launch counts set to 0 just
-before it and read just after:
+source, five sources started together), holds the staging kernel against
+its plain version (``staging()``: seeded packed bytes of 4016x6016 u12
+and 4000x6000 u14 frames, and of frames whose packed rows are no multiple
+of 16, into one, three and eight slots, the padding replaying the first
+source, once with the sources copied on a stream of their own; a u16
+copy of a 3-D frame; every byte equal, one launch a call) and times it
+for one and eight slots beside the plain chain the exporter ran before it
+and its bound (``kernel_ab.time_staging``; these calls are counted in no
+reported launch count), makes seeded 24 MP 12-bit frames (4016x6016 Bayer,
+4000x6000 X-Trans), and drives four paths through the entry points a
+user calls, each with the launch counts set to 0 just before it and read
+just after:
 
 - the parity path: ``DevelopEngine`` slider ticks with histogram, the
   full-resolution kernel develop for the four transfers, JPEG export,
@@ -53,7 +61,9 @@ before it and read just after:
   expected successes, skips and the one ``"decode: ..."`` failure and
   launch exactly its kernels (A: B4 planes twice, B4 words and B8 planes
   once each, B7 planes once; B: B2 planes three times, B1 words and B8
-  planes once each; C: nothing), and every JPEG must equal, byte for
+  planes once each; A and B: the staging kernel once a flush, four
+  times, unpacking all 16 slots; C: nothing), and every JPEG must equal,
+  byte for
   byte, ``DevelopEngine.open(...).export(...)`` of the same file and edit
   with the same flags. It prints each run's ``ExportReport``. With
   ``--profile-export`` it repeats run A once under ``torch.profiler``
@@ -82,7 +92,8 @@ before it and read just after:
   ``export(".jpg")`` that launches no develop kernel and carries its
   profile; ``export(".tif")`` of the DNG (P3) and the RAF; run D of
   ``run_batch_export`` (Display P3, recovery 0 and 60 mixed, JPEG, the
-  launches of run A) and run E (``bits=16`` on four files, no kernel);
+  launches of run A) and run E (``bits=16`` on four files, no develop
+  kernel); the staging kernel once each flush, seven times;
   the CLI's ``develop --mode accurate --color-space display-p3 --fast``
   in a child process (B2 planes alone). Outside the counted phase every
   P3 develop, the B4 develop of the recovered mosaic and the B8 pass
@@ -103,7 +114,8 @@ before it and read just after:
   (B7 RGBA a JPEG) and the LinearRaw DNG; run F of ``run_batch_export``
   (the export catalog and two LinearRaw files, accurate grad,
   ``long_edge=2048``, ``rotate=2.0``: B4 RGBA three times, B7 RGBA once,
-  B8 RGBA twice). Outside the counted phase B8 over the LinearRaw words
+  B8 RGBA twice, the staging kernel once a flush that staged anything, the
+  LinearRaw frames' slots as u16 copies). Outside the counted phase B8 over the LinearRaw words
   equals its plain version (0 LSB, both outputs), the LinearRaw develop
   and every resize and geometry form on the card are within 1 LSB of the
   CPU's, each export has its expected size, and every output of run F
@@ -437,6 +449,21 @@ def reset(launches):
         launches[k] = 0
 
 
+def staged_flushes(rep):
+    """The flushes of a ``run_batch_export`` report that filled their
+    batch through the staging kernel, from its counters: every flush but
+    those with nothing staged, which upload their batch whole and count no
+    slot. Checks that such a flush's slots are the only ones left out."""
+    c = rep.stages["counters"]
+    flushes = rep.stages["spans"].get("export.stage", {}).get("count", 0)
+    missed = (c["slots.developed"] + c["slots.padded"]
+              - c["staging.slots_unpacked"] - c["staging.slots_copied"]
+              - c["staging.slots_uploaded"])
+    check(missed >= 0 and missed % EXPORT_BATCH == 0,
+          f"staging counters {c} over {flushes} flushes")
+    return flushes - missed // EXPORT_BATCH
+
+
 def host_once(fn):
     """(result, host-clock ms) of ``fn`` with a device sync before and
     after."""
@@ -476,6 +503,7 @@ def file_path(tmpdir, mosaic, edit, xedit, smi):
     from raweditor_tpu_torch.native import get_rawkit
     from raweditor_tpu_torch.ops import fused_develop as fused
     from raweditor_tpu_torch.ops import fused_extras as fx
+    from raweditor_tpu_torch.ops import staging as st
     from raweditor_tpu_torch.raw import raf, synth
 
     rk = get_rawkit()
@@ -550,10 +578,11 @@ def file_path(tmpdir, mosaic, edit, xedit, smi):
     def launching(want, fn, *args):
         """``fn(*args)``, which must add one launch to each key of
         ``want`` and to no other key."""
-        before = {**fused.LAUNCHES, **fx.LAUNCHES}
+        before = {**fused.LAUNCHES, **fx.LAUNCHES, **st.LAUNCHES}
         out = fn(*args)
         moved = {k: v - before[k] for k, v in {**fused.LAUNCHES,
-                                               **fx.LAUNCHES}.items()
+                                               **fx.LAUNCHES,
+                                               **st.LAUNCHES}.items()
                  if v != before[k]}
         check(moved == {k: 1 for k in want},
               f"{fn.__name__} launched {moved}, expected one each of "
@@ -566,6 +595,7 @@ def file_path(tmpdir, mosaic, edit, xedit, smi):
     # -- the counted path: counts reset just before, read just after ------
     reset(fused.LAUNCHES)
     reset(fx.LAUNCHES)
+    reset(st.LAUNCHES)
     t0 = time.perf_counter()
     lib = Library(os.path.join(tmpdir, "catalog.db"))
     first = lib.import_folder(files)
@@ -605,8 +635,8 @@ def file_path(tmpdir, mosaic, edit, xedit, smi):
     loaded_words = launching(["develop_rgba", "extras_rgba"],
                              kept.full_rgba_device, loaded)
     torch.cuda.synchronize()
-    path_launches = {k: v for k, v in {**fused.LAUNCHES,
-                                       **fx.LAUNCHES}.items() if v}
+    path_launches = {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES,
+                                       **st.LAUNCHES}.items() if v}
     log(f"file path: {time.perf_counter() - t0:.2f} s, launches "
         f"{path_launches}; files {sizes} bytes")
 
@@ -711,6 +741,7 @@ def batch_export(tmpdir, edit, xedit, smi, profile=False):
     from raweditor_tpu_torch.native import get_rawkit
     from raweditor_tpu_torch.ops import fused_develop as fused
     from raweditor_tpu_torch.ops import fused_extras as fx
+    from raweditor_tpu_torch.ops import staging as st
     from raweditor_tpu_torch.pipeline.export import (jobs_from_catalog,
                                                      run_batch_export)
     from raweditor_tpu_torch.raw import raf, synth
@@ -777,12 +808,15 @@ def batch_export(tmpdir, edit, xedit, smi, profile=False):
         "C": dict(mode="accurate", demosaic_method="grad",
                   skip_existing=True),
     }
+    # Every flush fills its batch in one staging launch: all twelve
+    # files stage packed within the budget (458 MB of 512).
     want = {
         "A": {fused.launch_key("ycbcr420", "grad"): 2,
               fused.launch_key("rgba", "grad"): 1, "extras_ycbcr420": 1,
-              fused.launch_key("ycbcr420", "grad", xtrans): 1},
+              fused.launch_key("ycbcr420", "grad", xtrans): 1,
+              "unpack_slots": 4},
         "B": {"develop_ycbcr420": 3, "develop_rgba": 1,
-              "extras_ycbcr420": 1},
+              "extras_ycbcr420": 1, "unpack_slots": 4},
         "C": {},
     }
     n_ok = len(paths)
@@ -794,11 +828,12 @@ def batch_export(tmpdir, edit, xedit, smi, profile=False):
         # -- the counted run: counts reset just before, read just after --
         reset(fused.LAUNCHES)
         reset(fx.LAUNCHES)
+        reset(st.LAUNCHES)
         rep = run_batch_export(jobs, batch_size=EXPORT_BATCH, use_kernel=True,
                                quality=95, **kw)
         torch.cuda.synchronize()
-        launched[name] = {k: v for k, v in {**fused.LAUNCHES,
-                                            **fx.LAUNCHES}.items() if v}
+        launched[name] = {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES,
+                                            **st.LAUNCHES}.items() if v}
         log(f"batch export run {name} {json.dumps(kw)}: "
             f"{json.dumps(rep.as_dict())}; develops_per_sec "
             f"{rep.develops_per_sec!r}; launches {launched[name]}; host "
@@ -814,6 +849,11 @@ def batch_export(tmpdir, edit, xedit, smi, profile=False):
               f"run {name}: failures {rep.failed}")
         check(launched[name] == want[name],
               f"run {name} launched {launched[name]}, expected {want[name]}")
+        counters = rep.stages["counters"]
+        check(staged_flushes(rep) == want[name].get("unpack_slots", 0)
+              and counters["staging.slots_unpacked"]
+              == EXPORT_BATCH * want[name].get("unpack_slots", 0),
+              f"run {name}: staging counters {counters}")
         jobs_of[name] = jobs
         if name == "A":
             timed_seconds = rep.seconds
@@ -847,6 +887,102 @@ def batch_export(tmpdir, edit, xedit, smi, profile=False):
     return launched
 
 
+# The staging kernel's frames: the main path's 12-bit Bayer and 14-bit
+# X-Trans mosaics, and frames whose packed rows (1503 and 1757 bytes) are
+# no multiple of 16 and whose slots start off a 16-byte boundary.
+STAGING_FRAMES = {"u12": ((H, W), (37, 1002)), "u14": ((XH, XW), (7, 1004))}
+STAGING_SRC = "raweditor_tpu_torch/csrc/staging.cu"
+
+
+def staging(smi):
+    """The staging kernel (``ops/staging.unpack_into_batch``,
+    ``csrc/staging.cu``) on the card against its plain version: seeded
+    packed bytes (any byte pattern decodes) of each frame into one slot,
+    three slots and eight slots from five sources (the padding replaying
+    the first, as the exporter's flush does), once more with the sources
+    copied on a stream of their own that the batch's stream waits for, and
+    a u16 copy of a LinearRaw-shaped frame; one launch a call, every byte
+    equal. Times the kernel at the main path's frames for one and eight
+    slots beside the plain chain the exporter ran before it (an unpack a
+    source, then ``torch.stack``) and the bound (each distinct source's
+    bytes read once and every slot's written, over 3.35 TB/s), through
+    ``kernel_ab.time_staging``. Returns the kernels line's entry but the
+    launch counts, which the main-path phases give."""
+    from raweditor_tpu_torch.ops import _build
+    from raweditor_tpu_torch.ops import staging as st
+    from raweditor_tpu_torch.tools.kernel_ab import (STAGING_CASES,
+                                                      time_staging)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = 0
+
+    def packed(fmt, h, w):
+        per, size = st._GROUPS[fmt]
+        return torch.randint(0, 256, (h, w // per * size), generator=gen,
+                             dtype=torch.uint8, device=dev)
+
+    def launch(out, srcs, fmts):
+        nonlocal worst
+        before = st.LAUNCHES["unpack_slots"]
+        st.unpack_into_batch(out, srcs, fmts)
+        check(st.LAUNCHES["unpack_slots"] == before + 1,
+              "staging: one launch a call")
+        want = st.unpack_into_batch_plain(torch.empty_like(out), srcs, fmts)
+        err = int((out.to(torch.int32) - want.to(torch.int32)).abs().max())
+        check(err == 0, f"staging: {fmts[0]} {tuple(out.shape)} differs "
+              f"from plain by {err}")
+        worst = max(worst, err)
+
+    for fmt, frames in STAGING_FRAMES.items():
+        for h, w in frames:
+            bufs = [packed(fmt, h, w) for _ in range(5)]
+            for slots in (1, 3, 8):
+                srcs = (bufs + [bufs[0]] * 3)[:slots]
+                out = torch.empty((slots, h, w), dtype=torch.uint16,
+                                  device=dev)
+                launch(out, srcs, [fmt] * slots)
+            side = torch.cuda.Stream()
+            with torch.cuda.stream(side):
+                moved = [b.clone() for b in bufs]
+                done = torch.cuda.Event()
+                done.record(side)
+            torch.cuda.current_stream().wait_event(done)
+            for b in moved:
+                b.record_stream(torch.cuda.current_stream())
+            launch(torch.empty((8, h, w), dtype=torch.uint16, device=dev),
+                   moved + [moved[0]] * 3, [fmt] * 8)
+    frame = torch.randint(0, 65536, (64, 96, 3), generator=gen,
+                          dtype=torch.int32, device=dev).to(torch.uint16)
+    launch(torch.empty((3, 64, 96, 3), dtype=torch.uint16, device=dev),
+           [frame, frame, frame], ["u16"] * 3)
+    del bufs, moved, out, frame
+    torch.cuda.empty_cache()
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for name, case in STAGING_CASES.items():
+        res = time_staging(case, {"kernel": lib}, stream, 2,
+                           TIMING_REPS // 2)
+        check(res["kernel"]["equal_to_plain"],
+              f"staging: {name} differs from the plain chain")
+        times[name] = dict(frame=list(case["frame"]), slots=case["slots"],
+                           sources=case["sources"],
+                           ms=res["kernel"]["median"],
+                           plain_ms=res["plain"]["median"],
+                           bound_ms=res["kernel"]["bound_ms"])
+    log(f"staging kernel: every slot byte-equal to the plain version; "
+        f"times (ms, medians; bound: distinct sources read once, every "
+        f"slot written, over 3.35 TB/s; the plain chain is the unpack a "
+        f"source and the batch stack): {json.dumps(times)} [{smi}]")
+    head = times["S_u12_1"]
+    return {"name": "unpack_slots", "route": "cuda", "source": STAGING_SRC,
+            "replaces": None, "max_abs_err": worst, "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "frames": 1,
+            "times": times}
+
+
 def session(tmpdir, smi):
     """The interactive session, the TCP server and the CLI over the files
     ``file_path()`` wrote (the 4016x6016 DNG and the 4000x6000 X-Trans
@@ -878,6 +1014,7 @@ def session(tmpdir, smi):
     from raweditor_tpu_torch import DevelopEngine, EditParams, Library
     from raweditor_tpu_torch.ops import fused_develop as fused
     from raweditor_tpu_torch.ops import fused_extras as fx
+    from raweditor_tpu_torch.ops import staging as st
     from raweditor_tpu_torch.pipeline.serve import DevelopServer
     from raweditor_tpu_torch.pipeline.session import DevelopSession
     from raweditor_tpu_torch.utils.config import Config
@@ -902,8 +1039,8 @@ def session(tmpdir, smi):
         return out
 
     def launched():
-        return {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES}.items()
-                if v}
+        return {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES,
+                                  **st.LAUNCHES}.items() if v}
 
     def full(sess, path, src, want):
         """``full`` of ``path`` on the session's image ``src``, which must
@@ -921,6 +1058,7 @@ def session(tmpdir, smi):
     # -- the counted phase: counts reset just before, read just after -----
     reset(fused.LAUNCHES)
     reset(fx.LAUNCHES)
+    reset(st.LAUNCHES)
     t0 = time.perf_counter()
     eng, times["open_dng_first_ms"] = host_once(
         lambda: DevelopEngine.open(dng, **kw))
@@ -1097,8 +1235,9 @@ def gamut(tmpdir, edit, xedit, smi):
     - run D of ``run_batch_export`` over the catalog: Display P3, accurate
       grad, recovery 0 and 60 alternating within each kind of file (so
       mixed in every batch of more than one), JPEG; it launches what run
-      A launches;
-    - run E: ``bits=16`` on four of its files, no kernel;
+      A launches, the staging kernel once a flush;
+    - run E: ``bits=16`` on four of its files, no develop kernel, the
+      staging kernel once for each of its three flushes;
     - ``python -m raweditor_tpu_torch develop <dng> --mode accurate
       --color-space display-p3 --fast`` in a child process (B2 planes
       alone, counted in the child).
@@ -1123,6 +1262,7 @@ def gamut(tmpdir, edit, xedit, smi):
     from raweditor_tpu_torch.ops import fused_develop as fused
     from raweditor_tpu_torch.ops import fused_extras as fx
     from raweditor_tpu_torch.ops import highlights as hl
+    from raweditor_tpu_torch.ops import staging as st
     from raweditor_tpu_torch.ops.develop import develop_u16, develop_xtrans
     from raweditor_tpu_torch.pipeline.export import (jobs_from_catalog,
                                                      run_batch_export)
@@ -1157,8 +1297,8 @@ def gamut(tmpdir, edit, xedit, smi):
     del m, noise, site, disc
 
     def launched():
-        return {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES}.items()
-                if v}
+        return {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES,
+                                  **st.LAUNCHES}.items() if v}
 
     def launching(want, fn, *args):
         """``fn(*args)``, which must add one launch to each key of
@@ -1183,6 +1323,7 @@ def gamut(tmpdir, edit, xedit, smi):
     # -- the counted phase: counts reset just before, read just after -----
     reset(fused.LAUNCHES)
     reset(fx.LAUNCHES)
+    reset(st.LAUNCHES)
     t0 = time.perf_counter()
     # Display P3 through every develop kernel, and B8 after B4.
     eng, times["open_dng_p3_ms"] = host_once(lambda: DevelopEngine.open(
@@ -1260,11 +1401,15 @@ def gamut(tmpdir, edit, xedit, smi):
     jobs_e = jobs_from_catalog(lib, os.path.join(tmpdir, "export_E"),
                                image_ids=ids, ext="tif")
     jobs_e[0].params = jobs_e[0].params.replace(highlight_recovery=amount)
+    # Every flush stages within the budget and fills its batch in one
+    # staging launch: run D as run A, run E's three buckets (the 12-bit
+    # pair, the 14-bit file, the RAF) drained once each.
     want_runs = {
         "D": {fused.launch_key("ycbcr420", "grad"): 2,
               fused.launch_key("rgba", "grad"): 1, "extras_ycbcr420": 1,
-              fused.launch_key("ycbcr420", "grad", xtrans): 1},
-        "E": {}}
+              fused.launch_key("ycbcr420", "grad", xtrans): 1,
+              "unpack_slots": 4},
+        "E": {"unpack_slots": 3}}
     for name, jobs in (("D", jobs_d), ("E", jobs_e)):
         before = launched()
         rep = run_batch_export(jobs, batch_size=EXPORT_BATCH, quality=95,
@@ -1280,6 +1425,10 @@ def gamut(tmpdir, edit, xedit, smi):
               f"run {name}: {rep.as_dict()}, failures {rep.failed}")
         check(moved == want_runs[name], f"run {name} launched {moved}, "
               f"expected {want_runs[name]}")
+        check(staged_flushes(rep) == want_runs[name]["unpack_slots"]
+              and rep.stages["counters"]["staging.slots_unpacked"]
+              == EXPORT_BATCH * want_runs[name]["unpack_slots"],
+              f"run {name}: staging counters {rep.stages['counters']}")
     lib.close()
     torch.cuda.synchronize()
     phase_launches = launched()
@@ -1485,7 +1634,10 @@ def linear_geometry(tmpdir, edit, xedit, smi):
       ``develop_tiers``;
     - run F of ``run_batch_export`` over the export catalog and two more
       LinearRaw files (one with the extras edit): accurate grad,
-      ``use_kernel``, ``long_edge=2048``, ``rotate=2.0``.
+      ``use_kernel``, ``long_edge=2048``, ``rotate=2.0``; one staging
+      launch a flush that staged anything (as many as the run's counters
+      give), the LinearRaw batches' slots copied as u16 samples or
+      uploaded, never unpacked.
 
     Outside the counted phase: B8 over the LinearRaw words at 0 LSB from
     ``finish_extras_plain`` in both outputs; the LinearRaw develop on the
@@ -1495,7 +1647,7 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     f32); their device times by CUDA events; each JPEG's size from its
     SOF; every output of run F byte-equal to the engine's export of the
     same job. Returns (the phase's launches, the largest LSB of each
-    kernel from its plain version)."""
+    kernel from its plain version, run F's staging launches)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from raweditor_tpu_torch import DevelopEngine, Library
@@ -1503,6 +1655,7 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     from raweditor_tpu_torch.ops import fused_develop as fused
     from raweditor_tpu_torch.ops import fused_extras as fx
     from raweditor_tpu_torch.ops import geometry, resize
+    from raweditor_tpu_torch.ops import staging as st
     from raweditor_tpu_torch.ops.develop import develop_linear
     from raweditor_tpu_torch.pipeline.export import (jobs_from_catalog,
                                                      run_batch_export)
@@ -1576,8 +1729,8 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     xt_rgba = fused.launch_key("rgba", "grad", xtrans)
 
     def launched():
-        return {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES}.items()
-                if v}
+        return {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES,
+                                  **st.LAUNCHES}.items() if v}
 
     def launching(want, fn, *args, **kw):
         """``fn(*args, **kw)``, which must add one launch to each key of
@@ -1595,6 +1748,7 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     # -- the counted phase: counts reset just before, read just after -----
     reset(fused.LAUNCHES)
     reset(fx.LAUNCHES)
+    reset(st.LAUNCHES)
     t0 = time.perf_counter()
     lin, times["open_linear_ms"] = host_once(
         lambda: DevelopEngine.open(lin_path, **acc))
@@ -1649,9 +1803,21 @@ def linear_geometry(tmpdir, edit, xedit, smi):
         shapes[name] = resize.long_edge_shape(oh, ow, LONG_EDGE)
         tiers[src], times[f"{src}_develop_tiers_ms"] = host_once(
             lambda: launching([], e.develop_tiers, edit))
+    # The staging kernel's fills in run F: (batch shape, slot formats).
+    fills = []
+    real_fill = st.unpack_into_batch
+
+    def counted_fill(out, sources, fmts):
+        fills.append((tuple(out.shape), list(fmts)))
+        return real_fill(out, sources, fmts)
+
     before = launched()
-    rep = run_batch_export(jobs_f, batch_size=EXPORT_BATCH, quality=95,
-                           use_kernel=True, **run_f)
+    st.unpack_into_batch = counted_fill
+    try:
+        rep = run_batch_export(jobs_f, batch_size=EXPORT_BATCH, quality=95,
+                               use_kernel=True, **run_f)
+    finally:
+        st.unpack_into_batch = real_fill
     torch.cuda.synchronize()
     run_launches = {k: v - before.get(k, 0) for k, v in launched().items()
                     if v != before.get(k, 0)}
@@ -1663,9 +1829,26 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     n_ok = sum(1 for j in jobs_f if not j.raw_path.endswith("9999.dng"))
     check(rep.succeeded == n_ok and len(rep.failed) == len(jobs_f) - n_ok,
           f"run F: {rep.as_dict()}, failures {rep.failed}")
-    want_f = {grad_rgba: 3, xt_rgba: 1, "extras_rgba": 2}
-    check(run_launches == want_f, f"run F launched {run_launches}, expected "
-          f"{want_f}")
+    # One staging launch a flush that staged anything; how many did
+    # depends on when the budget freed (the LinearRaw frames take 145 MB
+    # each), so the count is the one the run's counters give.
+    f_staged = staged_flushes(rep)
+    want_f = {grad_rgba: 3, xt_rgba: 1, "extras_rgba": 2,
+              "unpack_slots": f_staged}
+    check(run_launches == want_f and len(fills) == f_staged,
+          f"run F launched {run_launches}, expected {want_f}; fills "
+          f"{fills}")
+    # The LinearRaw frames' batches, (4, H, W, 3): every slot copied from
+    # u16 samples (a staged frame, or a replay of one uploaded into its
+    # slot) or uploaded, never unpacked.
+    linear_fills = [f for shape, f in fills if len(shape) == 4]
+    check(linear_fills and all(set(f) <= {"u16", None}
+                               for f in linear_fills),
+          f"run F: LinearRaw fills {fills}")
+    log(f"run F: staging launches {f_staged} of "
+        f"{rep.stages['spans']['export.stage']['count']} flushes, LinearRaw "
+        f"slots copied as u16 {sum(f.count('u16') for f in linear_fills)} "
+        f"of {EXPORT_BATCH * len(linear_fills)} [{smi}]")
 
     # -- checks outside the counted phase ----------------------------------
     errs = {}
@@ -1815,7 +1998,7 @@ def linear_geometry(tmpdir, edit, xedit, smi):
         f"({size_mb:.1f} MB each); {seconds:.2f} s counted; launches "
         f"{phase_launches}; times (host clock, one call each, device synced)"
         f" {json.dumps(times)} [{smi}]")
-    return phase_launches, errs
+    return phase_launches, errs, f_staged
 
 
 def main():
@@ -1861,6 +2044,8 @@ def main():
     _build.load()
     log(f"build: {time.perf_counter() - t0:.2f} s")
     lap("build")
+    staging_entry = staging(smi)
+    lap("staging kernel")
 
     # -- inputs -----------------------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -2160,18 +2345,23 @@ def main():
         "extras_ycbcr420": 1,
         fused.launch_key("ycbcr420", "grad", xtrans): 1,
         # the CLI child's P3 develop --fast (nearest planes)
-        "develop_ycbcr420": 1}
+        "develop_ycbcr420": 1,
+        # run D's four flushes and run E's three, one staging launch each
+        "unpack_slots": 4 + 3}
     check(gamut_launches == gamut_want,
           f"gamut phase launched {gamut_launches}, expected {gamut_want}")
     lap("wide gamut, recovery and 16-bit")
 
     # -- LinearRaw, resize and geometry (counts reset and read inside) -----
-    lg_launches, lg_errs = linear_geometry(tmpdir, edit, xedit, smi)
+    lg_launches, lg_errs, f_staged = linear_geometry(tmpdir, edit, xedit,
+                                                     smi)
     lg_want = {
         # the DNG's and the RAF's five geometry exports, + run F's flushes
         grad: 5 + 3, fused.launch_key("rgba", "grad", xtrans): 5 + 1,
         # B8 over the LinearRaw words, + run F's two extras flushes
-        "extras_rgba": 1 + 2, "extras_ycbcr420": 1}
+        "extras_rgba": 1 + 2, "extras_ycbcr420": 1,
+        # run F's flushes that staged (checked in the phase)
+        "unpack_slots": f_staged}
     check(lg_launches == lg_want, f"linear/geometry phase launched "
           f"{lg_launches}, expected {lg_want}")
     lap("LinearRaw, resize and geometry")
@@ -2942,6 +3132,14 @@ def main():
             "session_launches": session_launches.get(key, 0),
             "gamut_launches": gamut_launches.get(key, 0),
             "linear_geometry_launches": lg_launches.get(key, 0)})
+    kernels.append({
+        **staging_entry, "launches": export_launches["A"]["unpack_slots"],
+        "file_path_launches": file_launches.get("unpack_slots", 0),
+        "export_launches": {run: n.get("unpack_slots", 0)
+                            for run, n in export_launches.items()},
+        "session_launches": session_launches.get("unpack_slots", 0),
+        "gamut_launches": gamut_launches.get("unpack_slots", 0),
+        "linear_geometry_launches": lg_launches.get("unpack_slots", 0)})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
         f"build included; seconds by phase {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))

@@ -99,6 +99,7 @@ def build(verbose: bool = False) -> Path:
 
 def _signatures():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i64 = ctypes.c_longlong
     tables = ctypes.c_char_p  # the packed CfaTables bytes on the host
     return {
         # (mosaics, scal, out0, out1, n, h, w, py, px, output, [demosaic,]
@@ -115,6 +116,9 @@ def _signatures():
         # (words, table, out0, out1, n, h, w, mixer_on, grading_on,
         #  stencils, output, cy, cx, icy, icx, stream)
         "rtt_extras_launch": [ptr] * 4 + [i32] * 7 + [f32] * 4 + [ptr],
+        # (srcs, dsts, fmts: host arrays of the slots' source pointers,
+        #  slot pointers and formats, nslots, samples a slot, stream)
+        "rtt_unpack_slots_launch": [ptr] * 3 + [i32, i64, ptr],
     }
 
 

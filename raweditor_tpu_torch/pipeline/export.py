@@ -14,7 +14,9 @@ single-device route (``mesh=None``)::
   bytes a pixel, 14-bit at 1.75) and handed to one upload thread, which
   copies it into pinned memory and on to the card with ``non_blocking``
   on a CUDA stream of its own and records an event. The flush makes the
-  compute stream wait on that event, then unpacks and stacks the batch.
+  compute stream wait on that event, then fills the (B, H, W) u16 batch
+  from the staged buffers in one launch of the staging kernel
+  (``ops/staging.unpack_into_batch``).
   The staged bytes are held under a budget (``_STAGE_BUDGET``); over it,
   a mosaic uploads at flush time instead.
 - Mosaics are bucketed by shape, CFA, extras, locals structure and
@@ -78,7 +80,9 @@ single-device route (``mesh=None``)::
   ``export.trim``), the queue waits ``queue.batch`` (decode end to the
   image's flush) and ``queue.encode`` (fetch end to the encode), and
   counters of bytes moved through pinned and pageable memory, of batch
-  slots developed and padded, and of the slots the extras kernel ran
+  slots developed and padded, of the slots the staging kernel unpacked
+  from packed bytes and copied from u16 samples and of those uploaded at
+  flush straight into the batch, and of the slots the extras kernel ran
   over against the images that asked for extras. ``ExportReport``'s
   seconds are reads of those spans, and ``report.stages`` holds them
   all (the CLI's one report line). The span log, each span with its
@@ -147,7 +151,8 @@ LAST_REPORT: Optional[dict] = None
 # The counters every call reports, 0 where nothing was counted.
 COUNTERS = ("transfer.pinned_bytes", "transfer.pageable_bytes",
             "slots.developed", "slots.padded", "extras.slots",
-            "extras.asked")
+            "extras.asked", "staging.slots_unpacked", "staging.slots_copied",
+            "staging.slots_uploaded")
 
 
 @dataclasses.dataclass
@@ -185,7 +190,7 @@ class ExportReport:
     fetch_seconds: float = 0.0
     fetch_bytes: int = 0
     # Host-to-device staging: the bytes uploaded, and the host's wait for
-    # the upload thread plus the flush-time unpack and stack (0 when the
+    # the upload thread plus the flush-time fill of the batch (0 when the
     # uploads overlapped the decode; ``export.wait_upload`` and
     # ``export.stage``).
     upload_seconds: float = 0.0
@@ -756,11 +761,12 @@ def run_batch_export(
         rec.count(name, 0)
     cuda = device.type == "cuda"
 
-    def to_device(t: torch.Tensor) -> torch.Tensor:
-        """A flush-time copy of a host tensor in pageable memory."""
+    def to_device(t: torch.Tensor, out=None) -> torch.Tensor:
+        """A flush-time copy of a host tensor in pageable memory, into
+        ``out`` where given."""
         if cuda:
             rec.count("transfer.pageable_bytes", t.numel() * t.element_size())
-        return t.to(device)
+        return t.to(device) if out is None else out.copy_(t)
 
     def _note_progress(force: bool = False):
         """Rate-limited completion callback (≥1 s apart unless forced);
@@ -917,13 +923,12 @@ def run_batch_export(
                 submit_encodes(batch, host, encode_pool, seq, ready_ns)
 
         def _stage_batch(batch, padded, seq):
-            """The (B, H, W) u16 batch on the device: staged buffers
-            (waited for on this thread's stream and unpacked), else a
-            flush-time upload."""
-            from raweditor_tpu_torch.ops.staging import (unpack12_rows,
-                                                         unpack14_rows)
+            """The (B, H, W) u16 batch on the device: the staged buffers
+            (waited for on this thread's stream) unpacked or copied into
+            their slots in one launch, a mosaic with none uploaded into
+            its slot; else, with nothing staged, one flush-time upload."""
+            from raweditor_tpu_torch.ops.staging import unpack_into_batch
 
-            unpack = {"u12": unpack12_rows, "u14": unpack14_rows}
             # Resolve the upload futures first: one the upload thread
             # finished costs nothing; one still running is waited for
             # (upload time); a failed one degrades to a flush-time upload.
@@ -944,32 +949,42 @@ def run_batch_export(
                         [d.mosaic for d in padded])))
                 # Use every staged buffer (an over-budget straggler must
                 # not discard the bytes already copied); items without
-                # one upload here.
-                parts = []
+                # one upload into their slot here, before the launch.
+                mosaics = torch.empty(
+                    (len(padded),) + batch[0].mosaic.shape,
+                    dtype=torch.uint16, device=device)
+                sources, fmts = [], []
                 late_bytes = 0
-                built = {}  # padding replays batch[0]: upload/unpack once
-                for d in padded:
-                    if id(d) not in built:
-                        if d.staged is None:
-                            late = _host_tensor(d.mosaic)
-                            late_bytes += late.numel() * late.element_size()
-                            built[id(d)] = to_device(late)
-                        else:
-                            buf, done, _ = d.staged
-                            if done is not None:
-                                # The copy ran on the upload stream: this
-                                # stream waits for it, and the allocator
-                                # must not hand the buffer back to the
-                                # upload stream while this stream still
-                                # reads it.
-                                stream = torch.cuda.current_stream(device)
-                                stream.wait_event(done)
-                                buf.record_stream(stream)
-                            built[id(d)] = (unpack[d.staged_fmt](buf)
-                                            if d.staged_fmt != "raw"
-                                            else buf)
-                    parts.append(built[id(d)])
-                mosaics = torch.stack(parts)
+                slot_of = {}  # padding replays batch[0]: its first slot
+                for i, d in enumerate(padded):
+                    src, fmt = None, None
+                    if d.staged is not None:
+                        buf, done, _ = d.staged
+                        if done is not None and id(d) not in slot_of:
+                            # The copy ran on the upload stream: this
+                            # stream waits for it, and the allocator
+                            # must not hand the buffer back to the
+                            # upload stream while this stream still
+                            # reads it.
+                            stream = torch.cuda.current_stream(device)
+                            stream.wait_event(done)
+                            buf.record_stream(stream)
+                        src = buf
+                        fmt = "u16" if d.staged_fmt == "raw" else d.staged_fmt
+                    elif id(d) in slot_of:  # a replay of an uploaded item
+                        src, fmt = mosaics[slot_of[id(d)]], "u16"
+                    else:
+                        late = _host_tensor(d.mosaic)
+                        late_bytes += late.numel() * late.element_size()
+                        to_device(late, mosaics[i])
+                    slot_of.setdefault(id(d), i)
+                    sources.append(src)
+                    fmts.append(fmt)
+                unpack_into_batch(mosaics, sources, fmts)
+                rec.count("staging.slots_unpacked",
+                          sum(f in ("u12", "u14") for f in fmts))
+                rec.count("staging.slots_copied", fmts.count("u16"))
+                rec.count("staging.slots_uploaded", fmts.count(None))
             report.upload_bytes += late_bytes + sum(
                 d.staged_nbytes for d in batch if d.staged is not None)
             return mosaics

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time variants of the hand-written develop and extras kernels against
-each other on the card, in turns inside one process.
+"""Time variants of the hand-written develop, extras and staging kernels
+against each other on the card, in turns inside one process.
 
     python3 -m raweditor_tpu_torch.tools.kernel_ab \
         --variant parent=build/parent/raweditor_tpu_torch/csrc \
         --variant new=raweditor_tpu_torch/csrc [--variant NAME=DIR,-DX=1 ...] \
-        [--cases B8,B5,B6] [--sass NAME ...] [--rounds 4] [--reps 5] [--out DIR]
+        [--cases B8,B5,B6,S] [--sass NAME ...] [--rounds 4] [--reps 5] [--out DIR]
 
 Each ``--variant`` names a directory that holds the kernel sources and
 their headers (for an earlier commit:
@@ -15,7 +15,8 @@ variant take the transfer's quantiser table on the device (the current
 interface, ``_build.SIGNATURES``; the table is derived once per transfer)
 or, in sources from before that interface, the transfer's code
 (``CODE_SIGNATURES``); ``takes_table`` reads which from ``develop.cu``. ``--cases`` picks the cases of
-``CASES`` whose names start with one of the given prefixes (default: all).
+``CASES`` and ``STAGING_CASES`` whose names start with one of the given
+prefixes (default: all).
 For every variant only the sources those cases launch are built, with the
 package's flags plus ``-Xptxas -v``, into a library of its own under
 ``build/kernel_ab/`` (all ``nvcc`` processes started together), loaded with
@@ -31,7 +32,19 @@ package's flags plus ``-Xptxas -v``, into a library of its own under
 - B8 (finish extras) on seeded 24-bit words with alpha 255 at 4016x6016:
   one frame to RGBA words with all three flags on, with the stencils only,
   with the mixer only and in its pointwise form (mixer and grading, no
-  stencils), and four frames with per-image amounts to planes.
+  stencils), and four frames with per-image amounts to planes;
+- the staging kernel (``csrc/staging.cu``, ``STAGING_CASES``): seeded
+  packed bytes of 4016x6016 u12 and 4000x6000 u14 frames into one slot,
+  and into eight slots from five sources (the padding replays the first,
+  as the exporter's flush does), against the plain chain the exporter ran
+  before the kernel (``unpack12_rows`` or ``unpack14_rows`` a source, then
+  ``torch.stack``), timed as one more variant, ``plain``, each call queued
+  behind a sleeping kernel so that the host's launch time does not enter
+  (``time_staging``, which ``chip_smoke.py`` calls too). The plain chain
+  is the parent of these cases: give them only variants whose directory
+  holds ``staging.cu``. Printed beside the medians: the bound, each
+  distinct source's bytes read once and every slot's written, over
+  3.35 TB/s.
 
 Device times move by up to 13% between runs, so variants are only compared
 inside one run: each round times every variant (CUDA events, ``--reps``
@@ -68,7 +81,8 @@ SOURCES = {"rtt_develop_launch": "develop.cu",
            "rtt_develop_grad_launch": "develop_grad.cu",
            "rtt_develop_grad_cfa_launch": "develop_grad_generic.cu",
            "rtt_develop_cfa_launch": "develop.cu",
-           "rtt_extras_launch": "extras.cu"}
+           "rtt_extras_launch": "extras.cu",
+           "rtt_unpack_slots_launch": "staging.cu"}
 # Mangled template arguments of the instantiations the RGBA cases launch,
 # per source: output to words, and before the quantiser table the
 # transfer too (sRGB; the Bayer quad kernel's nearest: the power
@@ -78,7 +92,8 @@ INSTANCES = {"develop_grad.cu": ("bandsILb0E", "Li2ELb0E"),
              "develop.cu": ("cfaILb0E", "quadsILb0ELi", "cfaILi2ELb0E",
                             "quadsILi0ELb0ELi0E", "quadsILi2ELb0ELi1E",
                             "quadsILi2ELb0ELi2E"),
-             "extras.cu": ("ILb1ELb1ELb1ELb0E", "bandsILb1ELb1ELb0E")}
+             "extras.cu": ("ILb1ELb1ELb1ELb0E", "bandsILb1ELb1ELb0E"),
+             "staging.cu": ("unpack_slots",)}
 # name: launcher, frames, output (0 words, 1 planes), then per kind the
 # transfer (``gamma``, the C interface's code; default 2, sRGB), the
 # demosaic (Bayer quad kernel: 0 nearest, 1 bilinear, 2 Malvar;
@@ -122,6 +137,20 @@ CASES = {
     "B8_planes": dict(launcher="rtt_extras_launch", frames=4, output=1,
                       flags=(1, 1, 1)),
 }
+# The staging kernel's cases: the source format, the frame, the slots
+# filled and the distinct sources they are filled from (the rest replay
+# the first).
+STAGING_CASES = {
+    "S_u12_1": dict(launcher="rtt_unpack_slots_launch", fmt="u12",
+                    frame=(H, W), slots=1, sources=1),
+    "S_u12_8": dict(launcher="rtt_unpack_slots_launch", fmt="u12",
+                    frame=(H, W), slots=8, sources=5),
+    "S_u14_1": dict(launcher="rtt_unpack_slots_launch", fmt="u14",
+                    frame=(XH, XW), slots=1, sources=1),
+    "S_u14_8": dict(launcher="rtt_unpack_slots_launch", fmt="u14",
+                    frame=(XH, XW), slots=8, sources=5),
+}
+HBM_BYTES_PER_S = 3.35e12
 # The develop launchers' C signatures before they took the quantiser
 # table (the transfer's code in its place: 0 pow, 1 poly, 2 srgb,
 # 3 srgb_poly), for a variant built from an earlier commit.
@@ -151,17 +180,23 @@ MIXER_ONLY = dict(hue_red=25.0, hue_orange=-15.0, sat_yellow=30.0,
 
 def pick_cases(prefixes):
     """The cases whose names start with one of ``prefixes`` (all of them
-    for none), in the table's order."""
-    names = [c for c in CASES
+    for none), in the tables' order."""
+    known = list(CASES) + list(STAGING_CASES)
+    names = [c for c in known
              if not prefixes or any(c.startswith(p) for p in prefixes)]
     if not names:
-        raise SystemExit(f"no case matches {prefixes}; known: {list(CASES)}")
+        raise SystemExit(f"no case matches {prefixes}; known: {known}")
     return names
+
+
+def spec_of(name):
+    """The case ``name`` of ``CASES`` or ``STAGING_CASES``."""
+    return CASES[name] if name in CASES else STAGING_CASES[name]
 
 
 def sources_for(case_names):
     """The sources that define the launchers of ``case_names``, sorted."""
-    return sorted({SOURCES[CASES[c]["launcher"]] for c in case_names})
+    return sorted({SOURCES[spec_of(c)["launcher"]] for c in case_names})
 
 
 def build_all(variants, sources):
@@ -308,6 +343,26 @@ def cuda_ms(fn, reps):
     return out
 
 
+def queued_ms(fn, reps, loop=20):
+    """Per-call milliseconds (CUDA events) of ``fn`` after one warm-up,
+    ``loop`` calls queued behind a sleeping kernel: the host's time to
+    launch them does not enter a kernel shorter than it."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        torch.cuda._sleep(100_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(loop):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / loop)
+    return out
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append", required=True,
@@ -431,6 +486,90 @@ def runner(lib, case, inputs, stream, table=True):
     return go, (out0, out1)
 
 
+def staging_runner(lib, case, bufs, out, stream):
+    """(launch closure, outputs) of a staging case on a library that
+    holds the staging kernel: every slot of ``out`` from ``bufs``, the
+    padding slots from the first."""
+    from raweditor_tpu_torch.ops import staging
+
+    n = case["slots"]
+    srcs = [bufs[i] if i < len(bufs) else bufs[0] for i in range(n)]
+    args = staging.slot_args(out, staging._check_slots(
+        out, srcs, [case["fmt"]] * n))
+
+    def go():
+        code = lib.rtt_unpack_slots_launch(*args, stream)
+        if code:
+            raise RuntimeError(f"rtt_unpack_slots_launch: CUDA error {code}")
+    return go, (out,)
+
+
+def staging_inputs(case):
+    """Seeded packed bytes of the case's distinct sources on the card (any
+    byte pattern decodes), and its batch."""
+    from raweditor_tpu_torch.ops import staging
+
+    h, w = case["frame"]
+    per, size = staging._GROUPS[case["fmt"]]
+    gen = torch.Generator(device="cuda").manual_seed(20261016)
+    bufs = [torch.randint(0, 256, (h, w // per * size), generator=gen,
+                          dtype=torch.uint8, device="cuda")
+            for _ in range(case["sources"])]
+    out = torch.empty((case["slots"], h, w), dtype=torch.uint16,
+                      device="cuda")
+    return bufs, out
+
+
+def staging_bound_ms(case):
+    """Bytes over the H100's 3.35 TB/s: each distinct source's packed
+    bytes read once and every slot's u16 samples written."""
+    from raweditor_tpu_torch.ops import staging
+
+    h, w = case["frame"]
+    per, size = staging._GROUPS[case["fmt"]]
+    read = case["sources"] * h * (w // per * size)
+    return 1e3 * (read + case["slots"] * 2 * h * w) / HBM_BYTES_PER_S
+
+
+def time_staging(case, libs, stream, rounds, reps):
+    """A staging case (a ``STAGING_CASES`` entry) on each library of
+    ``libs`` (name: a library that holds the staging kernel) and on the
+    plain chain the exporter ran before the kernel (``plain``: an unpack a
+    source, then ``torch.stack``), in turns, each call queued behind a
+    sleeping kernel; each library's batch against the plain chain's.
+    Returns ``{name: {median, min, max, equal_to_plain, bound_ms}}``."""
+    from raweditor_tpu_torch.ops import staging
+
+    bufs, out = staging_inputs(case)
+    unpack = staging._UNPACK[case["fmt"]]
+    plain_out = []
+
+    def plain():
+        parts = [unpack(b) for b in bufs]
+        plain_out[:] = [torch.stack(
+            parts + [parts[0]] * (case["slots"] - len(parts)))]
+    runs = {"plain": (plain, None)}
+    for name, lib in libs.items():
+        runs[name] = staging_runner(lib, case, bufs, torch.empty_like(out),
+                                    stream)
+    order = list(runs)
+    ms = {name: [] for name in order}
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            ms[name] += queued_ms(runs[name][0], reps,
+                                  4 if name == "plain" else 20)
+    torch.cuda.synchronize()
+    bound = staging_bound_ms(case)
+    res = {name: dict(median=statistics.median(ms[name]), min=min(ms[name]),
+                      max=max(ms[name]), bound_ms=bound,
+                      equal_to_plain=name == "plain" or torch.equal(
+                          runs[name][1][0], plain_out[0]))
+           for name in order}
+    del runs, plain_out, bufs, out
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None):
     if not torch.cuda.is_available():
         print("kernel_ab: torch.cuda.is_available() is False", file=sys.stderr)
@@ -443,7 +582,7 @@ def main(argv=None):
         capture_output=True, text=True, check=True).stdout.strip()
     print("card:", smi, flush=True)
     sources = sources_for(args.cases)
-    launchers = sorted({CASES[c]["launcher"] for c in args.cases})
+    launchers = sorted({spec_of(c)["launcher"] for c in args.cases})
     t0 = time.perf_counter()
     build_all(variants, sources)
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
@@ -465,11 +604,23 @@ def main(argv=None):
         v["table"] = takes_table(os.path.join(ROOT, v["dir"]))
         v["lib"] = declare(ctypes.CDLL(v["so"]), launchers, v["table"])
 
-    inputs = make_inputs(args.cases)
+    inputs = make_inputs([c for c in args.cases if c in CASES])
     stream = torch.cuda.current_stream().cuda_stream
     rounds, reps = args.rounds, args.reps
     table = {}
     for cname in args.cases:
+        if cname in STAGING_CASES:
+            res = time_staging(STAGING_CASES[cname],
+                               {v["name"]: v["lib"] for v in variants},
+                               stream, rounds, reps)
+            for name, row in res.items():
+                table.setdefault(name, {})[cname] = row
+            print(f"-- {cname}: " + ", ".join(
+                f"{n} {r['median']:.4f}{'' if r['equal_to_plain'] else '*'}"
+                for n, r in res.items())
+                + f"; bound {res['plain']['bound_ms']:.4f} ms  [{smi}]",
+                flush=True)
+            continue
         runs = {v["name"]: runner(v["lib"], CASES[cname], inputs, stream,
                                   v["table"]) for v in variants}
         ms = {v["name"]: [] for v in variants}

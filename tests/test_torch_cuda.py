@@ -969,3 +969,208 @@ def test_linear_frame_stages_unpacked_and_bit_exact(cuda, rng, tmp_path):
     assert t.dtype == torch.uint16 and tuple(t.shape) == frame.shape
     got = t.view(torch.int16).cpu().numpy().view(np.uint16)
     np.testing.assert_array_equal(got, frame)
+
+
+# -- the staging kernel (csrc/staging.cu) ----------------------------------------
+
+# (format, frame): the main path's 12-bit Bayer and 14-bit X-Trans frames,
+# and frames whose packed rows (1503 and 1757 bytes) are no multiple of 16
+# and whose slots start off a 16-byte boundary.
+STAGING_FRAMES = [("u12", (4016, 6016)), ("u14", (4000, 6000)),
+                  ("u12", (37, 1002)), ("u14", (7, 1004)), ("u12", (3, 6))]
+
+
+def _packed_rows(gen, fmt, h, w, dev):
+    from raweditor_tpu_torch.ops import staging as st
+
+    per, size = st._GROUPS[fmt]
+    return torch.randint(0, 256, (h, w // per * size), generator=gen,
+                         dtype=torch.uint8, device=dev)
+
+
+def _fill_both(out, sources, fmts):
+    """The kernel's fill of ``out`` (one launch) and the plain version's."""
+    from raweditor_tpu_torch.ops import staging as st
+
+    want = st.unpack_into_batch_plain(out.clone(), sources, fmts)
+    before = st.LAUNCHES["unpack_slots"]
+    st.unpack_into_batch(out, sources, fmts)
+    assert st.LAUNCHES["unpack_slots"] == before + 1
+    torch.cuda.synchronize()
+    return out, want
+
+
+@pytest.mark.parametrize("slots", [1, 3, 8])
+@pytest.mark.parametrize("fmt,frame", STAGING_FRAMES,
+                         ids=lambda v: v if isinstance(v, str)
+                         else "x".join(map(str, v)))
+def test_staging_kernel_equals_plain(cuda, fmt, frame, slots):
+    """Every byte of the batch equals the plain version, the padding
+    slots of a batch of eight replaying the first of its five sources."""
+    gen = torch.Generator(device="cuda").manual_seed(slots)
+    bufs = [_packed_rows(gen, fmt, *frame, cuda) for _ in range(min(slots, 5))]
+    sources = bufs + [bufs[0]] * (slots - len(bufs))
+    out = torch.zeros((slots,) + frame, dtype=torch.uint16, device=cuda)
+    got, want = _fill_both(out, sources, [fmt] * slots)
+    assert torch.equal(got, want)
+
+
+def test_staging_kernel_takes_sources_from_the_upload_stream(cuda):
+    """Sources copied on a stream of their own, waited for by an event as
+    the flush does: the batch equals the plain version's and the CPU's."""
+    from raweditor_tpu_torch.ops import staging as st
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    host = [torch.randint(0, 256, (64, 96 * 3 // 2), generator=gen,
+                          dtype=torch.uint8, device=cuda).cpu().pin_memory()
+            for _ in range(3)]
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        bufs = [h.to(cuda, non_blocking=True) for h in host]
+        done = torch.cuda.Event()
+        done.record(side)
+    stream = torch.cuda.current_stream()
+    stream.wait_event(done)
+    for b in bufs:
+        b.record_stream(stream)
+    out = torch.empty((4, 64, 96), dtype=torch.uint16, device=cuda)
+    got, want = _fill_both(out, bufs + [bufs[0]], ["u12"] * 4)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), torch.stack(
+        [st.unpack12_rows(h) for h in host + [host[0]]]))
+
+
+def test_staging_kernel_mixed_slots_and_alignments(cuda):
+    """u12, u14 and u16 sources in one launch, a slot the caller filled
+    (left as it is) and a u16 replay that reads it, a packed source that
+    starts one byte off any vector boundary, and a 3-D frame copied."""
+    from raweditor_tpu_torch.ops import staging as st
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    h, w = 6, 40
+    big = torch.randint(0, 256, (h * w * 3 // 2 + 1,), generator=gen,
+                        dtype=torch.uint8, device=cuda)
+    odd = big[1:].view(h, w * 3 // 2)  # contiguous, 1 byte off
+    out = torch.zeros((6, h, w), dtype=torch.uint16, device=cuda)
+    out[0] = torch.randint(0, 4096, (h, w), generator=gen, dtype=torch.int32,
+                           device=cuda).to(torch.uint16)
+    sources = [None, _packed_rows(gen, "u12", h, w, cuda),
+               _packed_rows(gen, "u14", h, w, cuda), out[0], odd,
+               torch.randint(0, 65536, (h, w), generator=gen,
+                             dtype=torch.int32, device=cuda).to(torch.uint16)]
+    fmts = [None, "u12", "u14", "u16", "u12", "u16"]
+    got, want = _fill_both(out, sources, fmts)
+    assert torch.equal(got, want)
+    assert torch.equal(got[3], got[0])
+    frames = torch.randint(0, 65536, (2, 9, 14, 3), generator=gen,
+                           dtype=torch.int32, device=cuda).to(torch.uint16)
+    out3 = torch.zeros((3, 9, 14, 3), dtype=torch.uint16, device=cuda)
+    got, want = _fill_both(out3, [frames[0], frames[1], frames[0]],
+                           ["u16"] * 3)
+    assert torch.equal(got, want) and torch.equal(got[2], frames[0])
+    with pytest.raises(ValueError):  # a source on another device
+        st.unpack_into_batch(out, [odd.cpu()] + [None] * 5,
+                             ["u12"] + [None] * 5)
+
+
+def test_staging_kernel_launches_once_a_flush(cuda, tmp_path, rng):
+    """A small ``run_batch_export`` on the card: the staging kernel
+    launches once a flush and unpacks every slot (padding included); the
+    develop reads the same batch as the CPU's."""
+    from raweditor_tpu_torch.ops import staging as st
+    from raweditor_tpu_torch.pipeline import export as pex
+    from raweditor_tpu_torch.raw import synth
+
+    jobs = []
+    for i in range(5):
+        p = tmp_path / f"f{i}.dng"
+        synth.write_synthetic_raw(
+            p, rng.integers(0, 4096, size=(16, 24), dtype=np.uint16),
+            black_level=150, white_level=4095, preview_jpeg=b"")
+        jobs.append(pex.ExportJob(str(p), str(tmp_path / f"f{i}.jpg"),
+                                  EditParams(exposure=0.1 * i)))
+    before = st.LAUNCHES["unpack_slots"]
+    rep = pex.run_batch_export(jobs, batch_size=2, use_kernel=True,
+                               mode="accurate", demosaic_method="grad",
+                               device=cuda)
+    assert rep.succeeded == 5 and not rep.failed
+    flushes = rep.timer.counts["export.flush"]
+    assert flushes == 3
+    assert st.LAUNCHES["unpack_slots"] - before == flushes
+    counters = rep.stages["counters"]
+    assert counters["staging.slots_unpacked"] == flushes * 2
+    assert counters["staging.slots_copied"] == 0
+    assert counters["staging.slots_uploaded"] == 0
+
+
+def test_staging_kernel_splits_a_batch_over_its_slot_limit(cuda):
+    """More slots than one launch takes (``MAX_SLOTS``): u12, u14 and u16
+    sources, padding slots that replay the first, a slot the caller
+    filled and a u16 replay that reads it, in two launches; every byte
+    equal to the plain version."""
+    from raweditor_tpu_torch.ops import staging as st
+
+    gen = torch.Generator(device="cuda").manual_seed(65)
+    h, w = 5, 24
+    n = st.MAX_SLOTS + 6
+    out = torch.zeros((n, h, w), dtype=torch.uint16, device=cuda)
+    out[n - 1] = torch.randint(0, 65536, (h, w), generator=gen,
+                               dtype=torch.int32, device=cuda).to(torch.uint16)
+    kinds = ("u12", "u14", "u16")
+    sources, fmts = [], []
+    for i in range(40):
+        fmt = kinds[i % 3]
+        fmts.append(fmt)
+        sources.append(torch.randint(0, 65536, (h, w), generator=gen,
+                                     dtype=torch.int32, device=cuda)
+                       .to(torch.uint16) if fmt == "u16"
+                       else _packed_rows(gen, fmt, h, w, cuda))
+    sources += [sources[0]] * (n - 42) + [out[n - 1], None]
+    fmts += [fmts[0]] * (n - 42) + ["u16", None]
+    want = st.unpack_into_batch_plain(out.clone(), sources, fmts)
+    before = st.LAUNCHES["unpack_slots"]
+    st.unpack_into_batch(out, sources, fmts)
+    assert st.LAUNCHES["unpack_slots"] - before == 2
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(out[n - 2], out[n - 1])
+
+
+def test_staging_late_uploads_go_straight_into_their_slots(cuda, tmp_path,
+                                                           rng, monkeypatch):
+    """A flush whose first item missed the staging budget beside a staged
+    u12 one, on the card: the first uploads into its slot, the padding
+    replays that slot through the kernel, the second unpacks, in one
+    launch; the files equal an unstaged run's."""
+    from raweditor_tpu_torch.ops import staging as st
+    from raweditor_tpu_torch.pipeline import export as pex
+    from raweditor_tpu_torch.raw import synth
+
+    mosaics = [rng.integers(16384, 65536, size=(16, 24), dtype=np.uint16),
+               rng.integers(0, 4096, size=(16, 24), dtype=np.uint16)]
+    outs = {}
+    for budget in (0, 16 * 24 * 2 * 3 // 4):  # room for the u12 one only
+        monkeypatch.setattr(pex, "_STAGE_BUDGET", budget)
+        jobs = []
+        for i, m in enumerate(mosaics):
+            p = tmp_path / f"l{i}.dng"
+            synth.write_synthetic_raw(p, m, bpp=12 if i else 16,
+                                      preview_jpeg=b"")
+            jobs.append(pex.ExportJob(str(p), str(tmp_path / f"l{budget}_{i}"
+                                                  ".jpg")))
+        before = st.LAUNCHES["unpack_slots"]
+        rep = pex.run_batch_export(jobs, batch_size=3, decode_threads=1,
+                                   device=cuda)
+        assert rep.succeeded == 2 and not rep.failed
+        counters = rep.stages["counters"]
+        got = (counters["staging.slots_unpacked"],
+               counters["staging.slots_copied"],
+               counters["staging.slots_uploaded"])
+        if budget:
+            assert got == (1, 1, 1)
+            assert st.LAUNCHES["unpack_slots"] - before == 1
+        else:  # nothing staged: one upload of the stacked batch
+            assert got == (0, 0, 0)
+            assert st.LAUNCHES["unpack_slots"] == before
+        outs[budget] = [open(j.out_path, "rb").read() for j in jobs]
+    assert outs[0] == outs[16 * 24 * 2 * 3 // 4]

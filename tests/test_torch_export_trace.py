@@ -33,7 +33,9 @@ SPANS = WAITS + LAUNCHING + (
     "export.hand_off", "decode", "stage.pack", "upload", "fetch.wait",
     "fetch.copy", "encode", "queue.batch", "queue.encode")
 COUNTERS = ("transfer.pinned_bytes", "transfer.pageable_bytes",
-            "slots.developed", "slots.padded", "extras.slots", "extras.asked")
+            "slots.developed", "slots.padded", "extras.slots", "extras.asked",
+            "staging.slots_unpacked", "staging.slots_copied",
+            "staging.slots_uploaded")
 # (name, output extension, run_batch_export keywords, files already
 # written before the call)
 CASES = [
@@ -162,6 +164,11 @@ def test_counts_are_exact_across_threads(traced):
     # Extras images batch apart from plain ones: B8 runs over the extras
     # buckets' slots only.
     assert counters["extras.slots"] == batch * -(-len(extras) // batch)
+    # Every mosaic stages packed (12-bit, even width, within the budget):
+    # the staging kernel's plain version unpacks every slot, padding too.
+    assert counters["staging.slots_unpacked"] == flushes * batch
+    assert counters["staging.slots_copied"] == 0
+    assert counters["staging.slots_uploaded"] == 0
 
 
 def test_every_written_image_carries_its_id(traced):

@@ -43,7 +43,7 @@ def test_parse_args_variant_specs_with_defines():
 
 def test_parse_args_defaults_to_every_case():
     args, _ = kernel_ab.parse_args(["--variant", "new=raweditor_tpu_torch/csrc"])
-    assert args.cases == list(kernel_ab.CASES)
+    assert args.cases == list(kernel_ab.CASES) + list(kernel_ab.STAGING_CASES)
     with pytest.raises(SystemExit):
         kernel_ab.parse_args(["--variant", "a=b", "--cases", "B9"])
 
@@ -99,8 +99,46 @@ def test_sources_for_builds_only_what_the_cases_launch():
     assert kernel_ab.sources_for(kernel_ab.pick_cases(["B8"])) == ["extras.cu"]
     assert kernel_ab.sources_for(kernel_ab.pick_cases(["B5", "B6"])) == [
         "develop.cu"]
-    assert kernel_ab.sources_for(list(kernel_ab.CASES)) == sorted(
+    assert kernel_ab.sources_for(kernel_ab.pick_cases(["S"])) == [
+        "staging.cu"]
+    assert kernel_ab.sources_for(kernel_ab.pick_cases([])) == sorted(
         set(kernel_ab.SOURCES.values()))
+
+
+@pytest.mark.parametrize("case", sorted(kernel_ab.STAGING_CASES))
+def test_every_staging_case_launches_the_staging_kernel(case):
+    """A staging case names the staging launcher, builds ``staging.cu``
+    alone, passes the launcher's arguments (the slots' sources, the
+    padding replaying the first, their slots, u12 or u14) and states the
+    bound of its bytes: each distinct source read once, every slot
+    written."""
+    spec = kernel_ab.STAGING_CASES[case]
+    assert spec["launcher"] == "rtt_unpack_slots_launch"
+    assert kernel_ab.sources_for([case]) == ["staging.cu"]
+    assert f'extern "C" int {spec["launcher"]}(' in (
+        _build.CSRC / "staging.cu").read_text()
+    h, w = spec["frame"]
+    small = dict(spec, frame=(4, 8))
+    bufs = [torch.zeros((4, 12 if spec["fmt"] == "u12" else 14),
+                        dtype=torch.uint8) + i
+            for i in range(spec["sources"])]
+    out = torch.empty((spec["slots"], 4, 8), dtype=torch.uint16)
+    lib = _Recorder()
+    go, outs = kernel_ab.staging_runner(lib, small, bufs, out, 0)
+    go()
+    (name, args), = lib.calls
+    assert name == spec["launcher"]
+    assert len(args) == len(_build.SIGNATURES[name])
+    srcs, dsts, fmts, n, samples, _ = args
+    assert n == spec["slots"] and samples == 32 and outs == (out,)
+    want = [bufs[i if i < len(bufs) else 0].data_ptr() for i in range(n)]
+    assert list(srcs) == want
+    assert list(dsts) == [out[i].data_ptr() for i in range(n)]
+    assert list(fmts) == [0 if spec["fmt"] == "u12" else 1] * n
+    packed = h * w * (3 if spec["fmt"] == "u12" else 7) // (
+        2 if spec["fmt"] == "u12" else 4)
+    assert kernel_ab.staging_bound_ms(spec) == pytest.approx(
+        1e3 * (spec["sources"] * packed + n * h * w * 2) / 3.35e12)
 
 
 def test_build_signatures_cover_the_c_interface():

@@ -173,3 +173,172 @@ def test_staging_budget_under_contention(tmp_path, rng, monkeypatch):
     for a, b in zip(jobs, plain_jobs):
         np.testing.assert_array_equal(np.asarray(Image.open(a.out_path)),
                                       np.asarray(Image.open(b.out_path)))
+
+
+# -- the batch fill (unpack_into_batch): its plain version on the CPU ----------
+
+def _packed(rng, fmt, h, w):
+    """(mosaic, its packed rows as a tensor) of a seeded frame."""
+    bits, pack = (12, st.pack12_rows) if fmt == "u12" else (14,
+                                                            st.pack14_rows)
+    m = rng.integers(0, 1 << bits, size=(h, w), dtype=np.uint16)
+    return m, torch.from_numpy(pack(m).copy())
+
+
+def _raw(rng, shape):
+    m = rng.integers(0, 1 << 16, size=shape, dtype=np.uint16)
+    return m, torch.from_numpy(m.copy())
+
+
+# name: the slots' formats (None: a late upload the caller writes into
+# its slot, or the replay of one, which reads that slot as u16 samples),
+# the distinct items (the rest replay the first, as the flush's padding
+# does) and the frame.
+FILLS = {
+    "u12": (["u12"] * 3, 3, (6, 10)),
+    "u14": (["u14"] * 2, 2, (5, 12)),
+    "u16": (["u16"] * 2, 2, (4, 6)),
+    "mixed": (["u12", "u14", "u16", None], 4, (4, 8)),
+    "pad-packed": (["u12"] * 4, 2, (3, 8)),
+    "pad-raw": (["u16"] * 3, 1, (3, 8)),
+    "pad-late": ([None, "u12", None, None], 2, (2, 4)),
+    "frame-3d": (["u16"] * 3, 2, (4, 6, 3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FILLS))
+def test_batch_fill_equals_the_stack_of_unpacks(case, rng):
+    """Each slot holds what the flush's ``torch.stack`` of ``unpack12_rows``
+    / ``unpack14_rows`` (or the u16 frame) held, padding slots replaying
+    the first item; a slot without a source keeps what the caller wrote,
+    and a u16 source may be a slot of the batch itself."""
+    fmts, distinct, frame = FILLS[case]
+    items = [(fmt,) + (_packed(rng, fmt, *frame) if fmt in ("u12", "u14")
+                       else _raw(rng, frame))
+             for fmt in fmts[:distinct]]
+    items += [items[0]] * (len(fmts) - distinct)
+    out = torch.zeros((len(fmts),) + frame, dtype=torch.uint16)
+    sources, kinds = [], []
+    for i, (fmt, m, src) in enumerate(items):
+        if fmt is not None:
+            sources.append(src)
+            kinds.append(fmt)
+        elif i < distinct:  # the late upload, before the launch
+            out[i].copy_(src)
+            sources.append(None)
+            kinds.append(None)
+        else:  # a replay of the uploaded first item: its slot
+            sources.append(out[0])
+            kinds.append("u16")
+    before = st.LAUNCHES["unpack_slots"]
+    assert st.unpack_into_batch(out, sources, kinds) is out
+    assert st.LAUNCHES["unpack_slots"] == before  # the plain version
+    np.testing.assert_array_equal(
+        out.numpy(), np.stack([m for _, m, _ in items]))
+
+
+def _bad(name):
+    """(batch, sources, formats) the fill must refuse, and the error."""
+    u8 = torch.zeros((4, 9), dtype=torch.uint8)
+    out = torch.zeros((2, 4, 6), dtype=torch.uint16)
+    return {
+        "batch-dtype": (out.to(torch.int32), [u8, u8], ["u12"] * 2,
+                        TypeError),
+        "batch-2d": (out[0], [u8] * 4, ["u12"] * 4, ValueError),
+        "batch-strided": (out.transpose(1, 2), [u8, u8], ["u12"] * 2,
+                          ValueError),
+        "source-dtype": (out, [u8.to(torch.int16), u8], ["u12"] * 2,
+                         TypeError),
+        "u16-dtype": (out, [torch.zeros((4, 6), dtype=torch.int16), None],
+                      ["u16", None], TypeError),
+        "odd-width": (torch.zeros((2, 4, 7), dtype=torch.uint16),
+                      [u8, u8], ["u12"] * 2, ValueError),
+        "misaligned-width": (out, [torch.zeros((4, 10), dtype=torch.uint8),
+                                   None], ["u14", None], ValueError),
+        "packed-shape": (out, [torch.zeros((4, 12), dtype=torch.uint8),
+                               None], ["u12", None], ValueError),
+        "u16-shape": (out, [torch.zeros((4, 8), dtype=torch.uint16), None],
+                      ["u16", None], ValueError),
+        "packed-3d-frame": (torch.zeros((2, 4, 6, 3), dtype=torch.uint16),
+                            [u8, None], ["u12", None], ValueError),
+        "unknown-format": (out, [u8, u8], ["u10", "u12"], ValueError),
+        "count": (out, [u8], ["u12"], ValueError),
+        "source-strided": (out, [torch.zeros((4, 18), dtype=torch.uint8)
+                                 [:, ::2], None], ["u12", None], ValueError),
+        "not-a-tensor": (out, [u8.numpy(), None], ["u12", None], TypeError),
+        "device": (out, [torch.zeros((4, 9), dtype=torch.uint8,
+                                     device="meta"), None], ["u12", None],
+                   ValueError),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["batch-dtype", "batch-2d", "batch-strided",
+                                  "source-dtype", "u16-dtype", "odd-width",
+                                  "misaligned-width", "packed-shape",
+                                  "u16-shape", "packed-3d-frame",
+                                  "unknown-format", "count",
+                                  "source-strided", "not-a-tensor",
+                                  "device"])
+def test_batch_fill_refuses_what_the_kernel_does_not_take(name):
+    """Wrong dtypes, an odd or misaligned width, shapes that do not match
+    the slot, an unknown format, a strided tensor, a source elsewhere
+    than the batch: raised before any slot is written."""
+    out, sources, fmts, err = _bad(name)
+    before = out.clone() if out.device.type == "cpu" else None
+    with pytest.raises(err):
+        st.unpack_into_batch(out, sources, fmts)
+    if before is not None:
+        assert torch.equal(out, before)
+
+
+def test_flush_fills_late_uploads_and_their_replays(tmp_path, rng,
+                                                    monkeypatch):
+    """A batch whose first item missed the staging budget (a 16-bit
+    mosaic, staged as u16 samples) beside a staged u12 one: the first
+    uploads into its slot, the padding replays that slot, the second
+    unpacks; the files equal an unstaged run's and the staging counters
+    count one slot of each kind."""
+    from PIL import Image
+
+    mosaics = [rng.integers(16384, 65536, size=(16, 24), dtype=np.uint16),
+               rng.integers(0, 4096, size=(16, 24), dtype=np.uint16)]
+    outs = {}
+    for budget in (0, 16 * 24 * 2 * 3 // 4):  # room for the u12 one only
+        monkeypatch.setattr(pex, "_STAGE_BUDGET", budget)
+        jobs = []
+        for i, m in enumerate(mosaics):
+            p = tmp_path / f"l{i}.dng"
+            write_synthetic_raw(p, m, bpp=12 if i else 16, preview_jpeg=b"")
+            jobs.append(pex.ExportJob(str(p), str(tmp_path / f"l{budget}_{i}"
+                                                  ".png")))
+        rep = pex.run_batch_export(jobs, batch_size=3, decode_threads=1,
+                                   device="cpu")
+        assert rep.succeeded == 2 and not rep.failed
+        counters = rep.stages["counters"]
+        if budget:
+            assert rep.upload_bytes == 16 * 24 * 2 + 16 * 24 * 2 * 3 // 4
+            assert (counters["staging.slots_unpacked"],
+                    counters["staging.slots_copied"],
+                    counters["staging.slots_uploaded"]) == (1, 1, 1)
+        else:  # nothing staged: one upload of the stacked batch
+            assert rep.upload_bytes == 0
+            assert (counters["staging.slots_unpacked"],
+                    counters["staging.slots_copied"],
+                    counters["staging.slots_uploaded"]) == (0, 0, 0)
+        outs[budget] = [np.asarray(Image.open(j.out_path)) for j in jobs]
+    for a, b in zip(*outs.values()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_slot_limit_is_the_kernels():
+    """The wrapper splits a batch into launches of at most the slots the
+    kernel's parameter table holds, and the formats are its codes."""
+    import re
+
+    from raweditor_tpu_torch.ops import _build
+
+    text = (_build.CSRC / "staging.cu").read_text()
+    assert int(re.search(r"constexpr int kMaxSlots = (\d+);", text)
+               .group(1)) == st.MAX_SLOTS
+    assert st.FORMATS == {"u12": 0, "u14": 1, "u16": 2}
+    assert "fmt 0, u12" in text and "fmt 1, u14" in text and "fmt 2, u16" in text
