@@ -82,15 +82,20 @@ single-device route (``mesh=None``)::
   counters of bytes moved through pinned and pageable memory, of batch
   slots developed and padded, of the slots the staging kernel unpacked
   from packed bytes and copied from u16 samples and of those uploaded at
-  flush straight into the batch, and of the slots the extras kernel ran
-  over against the images that asked for extras. ``ExportReport``'s
-  seconds are reads of those spans, and ``report.stages`` holds them
-  all (the CLI's one report line). The span log, each span with its
-  thread, image id, flush number and parent on ``torch.profiler``'s
-  clock, is kept with ``trace_spans=True`` or while a profiler is open
-  (the CLI's ``export --trace-out``); the calling thread's waits then
-  also enter ``record_function`` ranges, so a profiler trace names what
-  the host was waiting on. ``LAST_REPORT`` holds the newest finished
+  flush straight into the batch, of the slots the extras kernel ran
+  over against the images that asked for extras, and of the slots each
+  develop route ran over, padding included (``develop.slots.<route>``:
+  the kernel's demosaic and output, as ``grad.planes`` or
+  ``cfa_grad.rgba``, or the plain lane's ``plain`` and ``linear``; one
+  counter a route that ran, summing to the slots developed and padded).
+  ``ExportReport``'s seconds are reads of those spans, and
+  ``report.stages`` holds them all (the CLI's one report line). The
+  span log, each span with its thread, image id, flush number and
+  parent on ``torch.profiler``'s clock, is kept with
+  ``trace_spans=True`` or while a profiler is open (the CLI's ``export
+  --trace-out``); the calling thread's waits then also enter
+  ``record_function`` ranges, so a profiler trace names what the host
+  was waiting on. ``LAST_REPORT`` holds the newest finished
   call's ``as_dict()``.
 - One bad file fails its own job (``report.failed``, ``"decode: ..."``;
   a CFA pattern that is neither a Bayer phase nor a 36-letter grid among
@@ -1049,9 +1054,13 @@ def run_batch_export(
                     img, kind, long_edge, rotate, crop, lens, perspective)
                     for img in out[:len(batch)]])
 
+            def route(name):
+                rec.count("develop.slots." + name, batch_size)
+
             if bits == 16:
                 # The 16-bit lane: extras in the chain (the words pass is
                 # 8-bit), the exact transfer.
+                route("linear" if linear else "plain")
                 mode16 = "+".join(
                     part for part, on in (("base", ex_on and stencils),
                                           ("mixer", ex_on and mixer_on),
@@ -1080,6 +1089,7 @@ def run_batch_export(
             if linear:
                 # No develop kernel: the plain lane on either route, as
                 # the JAX exporter's XLA lane.
+                route("linear")
                 out = batch_develop_linear_rgba(
                     mosaics, params, wbs, cms, whites, blacks,
                     matrix_transpose=matrix_transpose, transfer=transfer,
@@ -1091,11 +1101,14 @@ def run_batch_export(
                                            demosaic=demosaic_method))
                 scal = to_device(pack_params(params, wbs, cms, whites,
                                              blacks, matrix_transpose))
+                output = ("ycbcr420" if planes == "ycbcr420" and not ex_on
+                          else "rgba")
+                route(("cfa_" if xtrans else "") + cfa["demosaic"] + (
+                    ".planes" if output == "ycbcr420" else ".rgba"))
                 out = _fused.fused_batch_develop_rgba(
-                    mosaics, scal, gamma=gamma,
-                    output=("ycbcr420" if planes == "ycbcr420"
-                            and not ex_on else "rgba"), **cfa)
+                    mosaics, scal, gamma=gamma, output=output, **cfa)
             else:
+                route("plain")
                 lane = dict(matrix_transpose=matrix_transpose,
                             transfer=transfer,
                             output="rgba_words" if ex_on else planes)
