@@ -2731,11 +2731,17 @@ def main():
             for pat, ph in grad_cases:
                 kw = dict(cfa_phase=ph, gamma="srgb", output=out,
                           demosaic="grad", pattern=pat)
+                key = fused.launch_key(out, "grad", pat)
+                six = fused.PERIOD6_LAUNCHES.get(key, 0)
                 got = fused.fused_batch_develop_rgba(small_b, edge_sc, **kw)
+                # The X-Trans grid on the period-6 march, the rest not.
+                check(fused.PERIOD6_LAUNCHES.get(key, 0) - six
+                      == (pat == xtrans),
+                      f"{key} period {pat and int(len(pat) ** 0.5)}: "
+                      "wrong march")
                 want = fused.develop_rgba_folded_plain(small_b, edge_sc, **kw)
                 mx = (lsb_diff(got, want)[0] if out == "rgba"
                       else planes_diff(got, want))
-                key = fused.launch_key(out, "grad", pat)
                 check(mx == 0, f"{key} {h}x{w} phase {ph} period "
                       f"{pat and int(len(pat) ** 0.5)}: {mx} LSB from plain")
                 note(key, mx, f"{key} {h}x{w}")

@@ -40,7 +40,18 @@
 // differences) and in how a position's channel is found: a Site type
 // gives green(), red_blue() and chan(). The refinements and the finish
 // tail are the same and live here (the TPU kernel's _chroma_refine,
-// then _finish_block).
+// then _finish_block). The march asks nothing else of a Site, so the
+// X-Trans kernel's two sites need no hook here: its generic site derives
+// the pattern per lane and row from shifted channel bits, votes and
+// table lookups (and was, at 0.464 ms a 24 MP planes frame against the
+// Bayer kernel's 0.313 on an H100, mostly that derivation and stage 2's
+// IEEE divisions); on a 6x6 period its period-6 site reads one
+// precomputed entry a step, rotated with the rows, and divides stage 2
+// by exact reciprocals (develop_grad_generic.cu says how, and why the
+// shorter periods keep the generic site). What is left between the two
+// kernels on the 6x6 grid is the X-Trans arithmetic itself: a second G
+// interpolation in two rows of six, the masked 3x3 tent and four
+// quotients of stage 2.
 //
 // Clamp-to-edge: every stage reads the stage below at coordinates
 // clamped to the image; band_march.cuh, which holds the march's lanes,

@@ -111,6 +111,9 @@ def _signatures():
         "rtt_develop_cfa_launch": [ptr] * 4 + [i32] * 5 + [tables, ptr, ptr],
         "rtt_develop_grad_cfa_launch": [ptr] * 4 + [i32] * 4 + [tables, ptr,
                                                                  ptr],
+        # (packed tables): 1 where the grad launcher takes its period-6
+        #  march, else 0 (not an error code)
+        "rtt_develop_grad_cfa_period6": [tables],
         # (quant, values, out, n, stream): the table quantiser's check
         "rtt_quant_sweep_launch": [ptr, ptr, ptr, i32, ptr],
         # (words, table, out0, out1, n, h, w, mixer_on, grading_on,
@@ -122,7 +125,8 @@ def _signatures():
     }
 
 
-#: The launchers' C argument types; each returns a CUDA error code.
+#: The C interface's argument types; each returns an int, the launchers a
+#: CUDA error code.
 SIGNATURES = _signatures()
 
 

@@ -55,7 +55,9 @@ All are CUDA C++ for sm_90a, built by ``ops/_build.py``. Beside them:
   output and demosaic (``develop_rgba``, ``develop_ycbcr420`` for
   nearest; ``develop_rgba_malvar``, ``develop_ycbcr420_grad``, ...; the
   generic-CFA kernels ``develop_rgba_cfa_nearest``,
-  ``develop_ycbcr420_cfa_smooth``, ...).
+  ``develop_ycbcr420_cfa_smooth``, ...); ``PERIOD6_LAUNCHES`` how many
+  of the generic-CFA grad launches took that kernel's period-6 march
+  (``period6_march``: the X-Trans grid does, periods 1-5 never).
 
 For a CUDA tensor the wrappers launch the kernel or raise; nothing falls
 back to the plain version there.
@@ -64,6 +66,7 @@ back to the plain version there.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -109,6 +112,13 @@ def launch_key(output: str, demosaic: str, pattern: str = None) -> str:
 LAUNCHES = {launch_key(o, d): 0 for o in OUTPUTS for d in DEMOSAICS}
 LAUNCHES.update({launch_key(o, d, cfa_generic.XTRANS_PATTERN): 0 for o in OUTPUTS
                  for d in CFA_DEMOSAICS})
+# Of the generic-CFA grad launches, those that took the period-6 march.
+PERIOD6_LAUNCHES = {launch_key(o, "grad", cfa_generic.XTRANS_PATTERN): 0
+                    for o in OUTPUTS}
+# The stage-2 denominators other than powers of two that the period-6
+# march divides by exactly (``kExactQuotientDens`` in
+# ``csrc/exact_quotient.cuh``).
+EXACT_QUOTIENT_DENS = (3.0, 5.0)
 
 
 # The byte layout of ``struct CfaTables`` in csrc/cfa_tables.cuh.
@@ -179,6 +189,28 @@ def _cfa_tables(pattern: str) -> CfaTables:
 def cfa_tables(pattern: str) -> CfaTables:
     """The kernels' tables of a square repeating-CFA pattern string."""
     return _cfa_tables(pattern.upper())
+
+
+def _normal_pow2(d: float) -> bool:
+    return 2.0 ** -126 <= d <= 2.0 ** 126 and math.frexp(d)[0] == 0.5
+
+
+@functools.lru_cache(maxsize=16)
+def period6_march(pattern: str) -> bool:
+    """Whether the grad kernel develops ``pattern`` on its period-6 march
+    (``build_period6`` in ``csrc/develop_grad_generic.cu``, which decides
+    from the same tables): a 6x6 period whose G denominators at the R/B
+    sites are powers of two and whose R and B 2-D denominators are powers
+    of two or in ``EXACT_QUOTIENT_DENS``. Any other pattern takes the
+    kernel's generic march."""
+    t = cfa_tables(pattern)
+    if t.side != 6:
+        return False
+    rb = t.grid != cfa_generic._CHAN["G"]
+    return (all(_normal_pow2(float(d))
+                for d in np.concatenate([t.den_h[rb], t.den_v[rb]]))
+            and all(_normal_pow2(float(d)) or float(d) in EXACT_QUOTIENT_DENS
+                    for d in t.den2[[0, 2]].ravel()))
 
 
 def check_demosaic(demosaic: str, pattern: str = None) -> None:
@@ -778,7 +810,11 @@ def fused_batch_develop_rgba(mosaics: torch.Tensor, scal: torch.Tensor,
                                           DEMOSAICS[demosaic], quant, stream)
     what = "develop kernel" if pattern is None else "generic-CFA develop kernel"
     _build.check(lib, code, f"{what} ({output}, {gamma}, {demosaic})")
-    LAUNCHES[launch_key(output, demosaic, pattern)] += 1
+    key = launch_key(output, demosaic, pattern)
+    LAUNCHES[key] += 1
+    if (pattern is not None and demosaic == "grad"
+            and lib.rtt_develop_grad_cfa_period6(packed)):
+        PERIOD6_LAUNCHES[key] += 1
     return out0 if output == "rgba" else (out0, out1)
 
 

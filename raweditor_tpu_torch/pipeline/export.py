@@ -87,7 +87,9 @@ single-device route (``mesh=None``)::
   develop route ran over, padding included (``develop.slots.<route>``:
   the kernel's demosaic and output, as ``grad.planes`` or
   ``cfa_grad.rgba``, or the plain lane's ``plain`` and ``linear``; one
-  counter a route that ran, summing to the slots developed and padded).
+  counter a route that ran, summing to the slots developed and padded;
+  of the ``cfa_grad`` slots, those on the X-Trans grad kernel's period-6
+  march also as ``cfa_grad.period6_slots``).
   ``ExportReport``'s seconds are reads of those spans, and
   ``report.stages`` holds them all (the CLI's one report line). The
   span log, each span with its thread, image id, flush number and
@@ -1105,6 +1107,9 @@ def run_batch_export(
                           else "rgba")
                 route(("cfa_" if xtrans else "") + cfa["demosaic"] + (
                     ".planes" if output == "ycbcr420" else ".rgba"))
+                if (xtrans and cfa["demosaic"] == "grad"
+                        and _fused.period6_march(phase)):
+                    rec.count("cfa_grad.period6_slots", batch_size)
                 out = _fused.fused_batch_develop_rgba(
                     mosaics, scal, gamma=gamma, output=output, **cfa)
             else:

@@ -400,9 +400,12 @@ def test_cfa_ycbcr420_kernel_matches_plain(cuda, demosaic, gamma, shape, rng):
 
 @pytest.mark.parametrize("pattern", ["RGGB", "GBRG", "RGBGBRBRG"])
 def test_cfa_kernels_take_other_periods(cuda, pattern, rng):
-    """Periods 2 and 3 through the same kernels and tables; on a 2x2
-    pattern the smooth tier is the Bayer bilinear kernel's result."""
+    """Periods 2 and 3 through the same kernels and tables, the grad
+    kernel on its generic march; on a 2x2 pattern the smooth tier is the
+    Bayer bilinear kernel's result."""
     assert fd.cfa_tables("RGBGBRBRG").taps is not None
+    assert not fd.period6_march(pattern)
+    six = dict(fd.PERIOD6_LAUNCHES)
     mos, scal = _inputs(rng, 2, 37, 53, cuda)
     for demosaic in CFA:
         if demosaic == "nearest" and fd.cfa_tables(pattern).taps is None:
@@ -418,6 +421,7 @@ def test_cfa_kernels_take_other_periods(cuda, pattern, rng):
                                             demosaic=demosaic,
                                             pattern=pattern)
         assert _words_diff(got, want) <= 1
+    assert fd.PERIOD6_LAUNCHES == six
     if len(pattern) == 4:
         from raweditor_tpu_torch.ops.demosaic import phase_of
 
@@ -500,17 +504,42 @@ def test_xtrans_engine_on_card_matches_cpu(cuda, method, rng):
 # A warp of the grad kernels marches down a strip of 56 output columns (64
 # with its halo) in bands of 64 rows. Sizes one below, at and one above
 # each edge and their doubles, and frames narrower or shorter than one
-# strip or band; always a batch of three with per-image scalars.
+# strip or band; always a batch of three with per-image scalars. The
+# 400x172 frame has interior bands (neither image edge) starting at rows
+# 64, 128, 192, 256 and 320, at cell rows 4, 2, 0, 4, 2 of a 6x6 period,
+# and interior strips; the X-Trans grid shifted by a row and a column
+# puts those starts at the odd cell rows.
 GRAD_EDGE_RGBA = [(63, 55), (64, 56), (65, 57), (127, 111), (128, 112),
                   (129, 113), (9, 7), (64, 113), (129, 56), (65, 7), (1, 57),
-                  (128, 1)]
+                  (128, 1), (400, 172)]
 GRAD_EDGE_PLANES = [(2, 2), (62, 54), (64, 56), (66, 58), (128, 112),
-                    (130, 114)]
-# Bayer at the four phases; the generic-CFA kernel at periods 6, 2 and 3.
+                    (130, 114), (400, 172)]
+
+
+def _shifted(pattern, dy, dx):
+    side = int(len(pattern) ** 0.5)
+    return "".join(pattern[((y + dy) % side) * side + (x + dx) % side]
+                   for y in range(side) for x in range(side))
+
+
+# 6x6 patterns beside the X-Trans grid: one the period-6 march takes (a
+# stage-2 denominator of 5), one it leaves to the generic march (6 and 7).
+P6_MARCH = "GBGGRBRGRBGGGBGGRGGRGGBGBGBRGRGRGGBG"
+P6_GENERIC = "GBGGRGRGBGGBGRGGRBGRGGBGBGBRGRGRGGBG"
+# Bayer at the four phases; the generic-CFA kernel at period 6 on both
+# marches (the X-Trans grid at two phases) and at periods 2 and 3.
 GRAD_KERNELS = {
     "bayer": [dict(cfa_phase=ph) for ph in ((0, 0), (0, 1), (1, 0), (1, 1))],
-    "cfa": [dict(pattern=p) for p in (XTRANS, "GRBG", "RGBGBRBRG")],
+    "cfa": [dict(pattern=p) for p in (XTRANS, _shifted(XTRANS, 1, 1),
+                                      P6_MARCH, P6_GENERIC, "GRBG",
+                                      "RGBGBRBRG")],
 }
+
+
+def _period6_after(before, key, pattern):
+    """``fd.PERIOD6_LAUNCHES`` after one launch of ``key`` on ``pattern``."""
+    six = pattern is not None and fd.period6_march(pattern)
+    return {k: n + (k == key and six) for k, n in before.items()}
 
 
 @pytest.mark.parametrize("kernel", sorted(GRAD_KERNELS))
@@ -524,10 +553,12 @@ def test_grad_rgba_equals_plain_at_strip_and_band_edges(cuda, kernel, gamma,
     mos, scal = _inputs(rng, 3, *shape, cuda)
     for kw in GRAD_KERNELS[kernel]:
         key = fd.launch_key("rgba", "grad", kw.get("pattern"))
-        before = fd.LAUNCHES[key]
+        before, six = fd.LAUNCHES[key], dict(fd.PERIOD6_LAUNCHES)
         got = fd.fused_batch_develop_rgba(mos, scal, gamma=gamma,
                                           demosaic="grad", **kw)
         assert fd.LAUNCHES[key] == before + 1
+        assert fd.PERIOD6_LAUNCHES == _period6_after(six, key,
+                                                     kw.get("pattern"))
         want = fd.develop_rgba_folded_plain(mos, scal, gamma=gamma,
                                             demosaic="grad", **kw)
         torch.cuda.synchronize()
@@ -545,16 +576,69 @@ def test_grad_planes_equal_plain_at_strip_and_band_edges(cuda, kernel, gamma,
     mos, scal = _inputs(rng, 3, *shape, cuda)
     for kw in GRAD_KERNELS[kernel]:
         key = fd.launch_key("ycbcr420", "grad", kw.get("pattern"))
-        before = fd.LAUNCHES[key]
+        before, six = fd.LAUNCHES[key], dict(fd.PERIOD6_LAUNCHES)
         y, cbcr = fd.fused_batch_develop_rgba(
             mos, scal, gamma=gamma, output="ycbcr420", demosaic="grad", **kw)
         assert fd.LAUNCHES[key] == before + 1
+        assert fd.PERIOD6_LAUNCHES == _period6_after(six, key,
+                                                     kw.get("pattern"))
         wy, wc = fd.develop_rgba_folded_plain(
             mos, scal, gamma=gamma, output="ycbcr420", demosaic="grad", **kw)
         torch.cuda.synchronize()
         h, w = shape
         assert y.shape == (3, h, w) and cbcr.shape == (3, h // 2, w)
         assert torch.equal(y, wy) and torch.equal(cbcr, wc), kw
+
+
+@pytest.mark.parametrize("pattern", [
+    XTRANS, _shifted(XTRANS, 1, 1), _shifted(XTRANS, 3, 2), P6_MARCH,
+    P6_GENERIC, "GRBG", "RGBGBRBRG"])
+def test_grad_cfa_launcher_takes_the_period6_march_where_the_wrapper_says(
+        cuda, pattern):
+    """The launcher's choice (``rtt_develop_grad_cfa_period6``, from the
+    packed tables) is ``fd.period6_march``: every phase of the X-Trans
+    grid and the other 6x6 pattern with exact denominators take the
+    period-6 march, the 6x6 pattern with a 6 or a 7 and periods 2 and 3
+    the generic one."""
+    lib = _build.load()
+    six = bool(lib.rtt_develop_grad_cfa_period6(fd.cfa_tables(pattern).packed))
+    assert six == fd.period6_march(pattern)
+    assert six == (pattern not in (P6_GENERIC, "GRBG", "RGBGBRBRG"))
+
+
+def test_exact_quotient_on_every_f32_on_the_card(cuda, tmp_path):
+    """The period-6 march's stage-2 division (``csrc/exact_quotient.cuh``)
+    against the card's IEEE division on all 2^32 f32 numerators: no
+    difference for the denominators the kernel takes (the listed ones and
+    the powers of two), some for the even ones it leaves out (6 and 10:
+    subnormal ties, as the CPU test finds)."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parent / "exact_quotient_check.cu"
+    so = tmp_path / "libexact_quotient_check.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                    "-shared", str(src), "-o", str(so)], check=True)
+    lib = ctypes.CDLL(str(so))
+    lib.rtt_exact_quotient_check.argtypes = [ctypes.c_float] + [
+        ctypes.c_void_p] * 3
+    lib.rtt_exact_quotient_check.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    taken = list(fd.EXACT_QUOTIENT_DENS) + [1.0, 2.0, 4.0, 8.0, 16.0]
+    for d in taken + [6.0, 10.0]:
+        counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+        first = torch.zeros(1, dtype=torch.int32, device=cuda)
+        assert lib.rtt_exact_quotient_check(d, counts.data_ptr(),
+                                            first.data_ptr(), stream) == 0
+        bad, nan_bits = counts.tolist()
+        x = np.array([first.item()], np.int32).view(np.float32)[0]
+        print(f"d={d}: {bad} of 2^32 differ (e.g. x={x!r}), "
+              f"{nan_bits} NaN pairs differ in payload")
+        if d in taken:
+            assert bad == 0, f"d={d}: {bad} differ, e.g. x={x!r}"
+        else:
+            assert bad > 0
 
 
 # -- the extras kernel's strips and bands (B8) ---------------------------------

@@ -89,6 +89,7 @@ def test_xtrans_export_agrees_with_the_plain_reference(tmp_path, captured):
     c = rep.stages["counters"]
     assert (c["slots.developed"], c["slots.padded"]) == (5, 3)
     assert _routes(rep) == {"cfa_grad.planes": 4, "cfa_grad.rgba": 4}
+    assert c["cfa_grad.period6_slots"] == 8
     flags = dict(cfg["flags"])
     worst = 0
     for job, (_, frame), e in zip(jobs, files, edits):
@@ -135,8 +136,32 @@ def test_route_counters_split_bayer_from_xtrans(case, over, ext, want,
     c = rep.stages["counters"]
     assert _routes(rep) == want
     assert sum(want.values()) == c["slots.developed"] + c["slots.padded"]
+    cfa_grad = sum(n for k, n in want.items() if k.startswith("cfa_grad."))
+    assert c.get("cfa_grad.period6_slots", 0) == cfa_grad
     assert pex.LAST_REPORT["stages"]["counters"] == json.loads(
         json.dumps(c))
+
+
+@pytest.mark.parametrize("config", ["xt2_raf", "d3300_dng"])
+def test_period6_slots_count_the_xtrans_grad_slots(config, tmp_path):
+    """``cfa_grad.period6_slots``: on an X-Trans export every slot of the
+    grad kernel, padding included (the X-Trans grid takes the kernel's
+    period-6 march), the sum of ``develop.slots.cfa_grad.*``; absent on a
+    Bayer export, which never runs that kernel."""
+    files = _write(config, tmp_path / "raw", 3, 2**31 + 53)
+    jobs = [pex.ExportJob(p, str(tmp_path / f"p{i}.jpg"),
+                          EditParams(**_edit(i, i == 1)))
+            for i, (p, _) in enumerate(files)]
+    rep = pex.run_batch_export(jobs, **_kwargs(_cfg(config), batch_size=2))
+    assert rep.succeeded == 3 and not rep.failed
+    c = rep.stages["counters"]
+    cfa_grad = {k: n for k, n in _routes(rep).items()
+                if k.startswith("cfa_grad.")}
+    if config == "xt2_raf":
+        assert cfa_grad and c["cfa_grad.period6_slots"] == sum(
+            cfa_grad.values()) == c["slots.developed"] + c["slots.padded"]
+    else:
+        assert not cfa_grad and "cfa_grad.period6_slots" not in c
 
 
 def _read(name, record):
