@@ -124,9 +124,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from raweditor_tpu_torch.color import (COLOR_SPACES,
-                                       KERNEL_GAMMA_BY_TRANSFER,
-                                       TRANSFER_BY_SPACE,
+from raweditor_tpu_torch.color import (COLOR_SPACES, TRANSFER_BY_SPACE,
                                        cam_to_output_matrix, kernel_gamma_for,
                                        transfer16_for)
 from raweditor_tpu_torch.ops import develop as _develop
@@ -135,13 +133,13 @@ from raweditor_tpu_torch.ops import fused_extras as _fx
 from raweditor_tpu_torch.ops import geometry as _geometry
 from raweditor_tpu_torch.ops import jpeg as _jpeg
 from raweditor_tpu_torch.ops import resize as _resize
-from raweditor_tpu_torch.ops.cfa_generic import generic_cfa_method, is_xtrans
-from raweditor_tpu_torch.ops.demosaic import DEMOSAIC_METHODS, phase_of
+from raweditor_tpu_torch.ops.demosaic import DEMOSAIC_METHODS
 from raweditor_tpu_torch.ops.sampling import histogram_shape, preview_shape
 from raweditor_tpu_torch.params import EditParams
-from raweditor_tpu_torch.pipeline.export import _atomic_write, _record_event
+from raweditor_tpu_torch.pipeline.frame import classify, kernel_route
 from raweditor_tpu_torch.raw.types import RawImage
 from raweditor_tpu_torch.utils.device import resolve_device
+from raweditor_tpu_torch.utils.shared import _atomic_write, _record_event
 from raweditor_tpu_torch.utils.timing import StageTimer
 
 MAX_PREVIEW_WIDTH = 1280
@@ -213,23 +211,12 @@ class DevelopEngine:
         self.cam_matrix = cam_to_output_matrix(raw.xyz_to_cam, mode=mode,
                                                color_space=color_space)
         self.matrix_transpose = mode == "parity"
-        self.xtrans_pattern = None  # set for 6x6 CFAs in accurate mode
-        self.linear = raw.is_linear  # LinearRaw: already demosaiced
-        if mode == "parity":
-            self.white_level, self.black_level = 4096.0, 0.0
-            self.cfa_phase = (0, 0)
-        else:
-            self.white_level = float(raw.white_level)
-            self.black_level = float(raw.black_level)
-            if self.linear:
-                self.cfa_phase = (0, 0)
-            elif is_xtrans(raw.cfa_pattern):
-                self.xtrans_pattern = raw.cfa_pattern
-                self.cfa_phase = (0, 0)
-            else:
-                # Raises the JAX engine's ValueError for a pattern that is
-                # neither a Bayer phase nor a 36-letter grid.
-                self.cfa_phase = phase_of(raw.cfa_pattern)
+        # The frame's kind (pipeline/frame.py), kept also as the JAX
+        # engine's three attributes.
+        self.kind, self.white_level, self.black_level = classify(raw, mode)
+        self.cfa_phase = self.kind.cfa_phase
+        self.xtrans_pattern = self.kind.xtrans_pattern
+        self.linear = self.kind.linear
         if (demosaic_method == "smooth" and self.xtrans_pattern is None
                 and not self.linear):
             raise ValueError("'smooth' is the generic-CFA tier; Bayer uses "
@@ -558,9 +545,7 @@ class DevelopEngine:
 
     def _kernel_demosaic(self):
         """``demosaic=`` and ``pattern=`` of the fused kernels."""
-        if self.xtrans_pattern is None:
-            return dict(demosaic=self.demosaic_method)
-        return dict(demosaic=generic_cfa_method(self.demosaic_method),
+        return dict(demosaic=self.kind.demosaic(self.demosaic_method),
                     pattern=self.xtrans_pattern)
 
     def _plain_develop(self, params: EditParams, rgba: bool):
@@ -578,7 +563,7 @@ class DevelopEngine:
             return _develop.develop_xtrans(
                 self._render_mosaic(params), params, self.wb,
                 self.cam_matrix, pattern=self.xtrans_pattern, rgba=rgba,
-                demosaic_method=generic_cfa_method(self.demosaic_method),
+                demosaic_method=self.kind.demosaic(self.demosaic_method),
                 **levels)
         develop = _develop.develop_rgba if rgba else _develop.develop
         return develop(self._render_mosaic(params), params, self.wb,
@@ -586,14 +571,10 @@ class DevelopEngine:
                        cfa_phase=self.cfa_phase, **levels)
 
     def _kernel_route(self, params: EditParams) -> bool:
-        """Whether the develop runs a fused kernel: ``use_kernel``, a
-        mosaic (not a LinearRaw frame), no point curve and a transfer the
-        kernels compute. A LinearRaw frame, a point curve and the Adobe
-        RGB transfer take the plain lane (which computes them) even with
-        ``use_kernel``; the develop kernels never do."""
-        return (self.use_kernel and not self.linear
-                and not params.point_curve
-                and self.transfer in KERNEL_GAMMA_BY_TRANSFER)
+        """Whether the develop runs a fused kernel
+        (``pipeline/frame.kernel_route``)."""
+        return kernel_route(self.use_kernel, self.kind, self.transfer,
+                            params)
 
     def _develop_words(self, params: EditParams):
         """The develop before the extras post-pass, (H, W) u32 words: the
@@ -898,7 +879,7 @@ class DevelopEngine:
             rgb = _develop.develop_xtrans(
                 mosaic, params, self.wb, self.cam_matrix,
                 pattern=self.xtrans_pattern, bits=16,
-                demosaic_method=generic_cfa_method(self.demosaic_method),
+                demosaic_method=self.kind.demosaic(self.demosaic_method),
                 **levels)
         else:
             rgb = _develop.develop_u16(

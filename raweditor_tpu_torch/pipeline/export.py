@@ -17,13 +17,16 @@ single-device route (``mesh=None``)::
   compute stream wait on that event, then fills the (B, H, W) u16 batch
   from the staged buffers in one launch of the staging kernel
   (``ops/staging.unpack_into_batch``).
-  The staged bytes are held under a budget (``_STAGE_BUDGET``); over it,
-  a mosaic uploads at flush time instead.
-- Mosaics are bucketed by shape, CFA, extras, locals structure and
-  point-curve length (``_Batcher``) and each batch is padded to a fixed
-  size by replaying its first frame, whose copies are never encoded.
+  The staged bytes are held under the call's budget (``_StageBudget``
+  of ``_STAGE_BUDGET`` bytes); over it, a mosaic uploads at flush time
+  instead.
+- Mosaics are bucketed by shape, CFA kind (``pipeline/frame.FrameKind``),
+  extras, locals structure and point-curve length (``_Batcher``) and
+  each batch is padded to a fixed size by replaying its first frame,
+  whose copies are never encoded.
 - Each flush launches one develop. With ``use_kernel`` and no point
-  curve in the bucket it is the fused batch kernel
+  curve in the bucket (``pipeline/frame.kernel_route``, the engine's
+  rule too) it is the fused batch kernel
   (``ops/fused_develop.fused_batch_develop_rgba``, B1-B7), which emits
   JPEG 4:2:0 planes for an all-JPEG run of even frames without extras,
   else RGBA words. A bucket with finish extras then runs the
@@ -39,11 +42,11 @@ single-device route (``mesh=None``)::
   the plain lane (a route by transfer, as the JAX exporter's
   ``pallas_ok``), and its extras still run B8.
 - LinearRaw files (DNG photometric 34892, (H, W, 3) u16 frames already
-  demosaiced) form buckets of their own (the JAX ``"__linear__"`` key),
-  stage unpacked, and develop through the plain lane's
-  ``parallel/batch.batch_develop_linear_rgba`` on either route (the JAX
-  exporter runs XLA there too); their extras take the B8 post-pass like
-  any other bucket's.
+  demosaiced) form buckets of their own (``FrameKind(linear=True)``, the
+  JAX ``"__linear__"`` key), stage unpacked, and develop through the
+  plain lane's ``parallel/batch.batch_develop_linear_rgba`` on either
+  route (the JAX exporter runs XLA there too); their extras take the B8
+  post-pass like any other bucket's.
 - A flush with any non-zero ``highlight_recovery`` first reconstructs
   the clipped sites of its stacked mosaics
   (``ops/highlights.batch_reconstruct_mosaic``, or
@@ -71,6 +74,7 @@ single-device route (``mesh=None``)::
   JPEG. All launches stay on the calling thread. An all-JPEG run
   requires the native encoder before it reads a file; it never hands
   words to PIL in place of the planes.
+- Each call is one ``_ExportRun``, whose methods are the stages below.
 - Each call records its stages in one ``utils/timing.StageTimer``: spans
   on the threads that do the work (``decode``, ``stage.pack``,
   ``upload``, ``fetch.wait``, ``fetch.copy``, ``encode``; on the calling
@@ -114,7 +118,6 @@ dehaze, grain or local adjustments.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import itertools
 import os
@@ -126,16 +129,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from raweditor_tpu_torch.color import (COLOR_SPACES,
-                                       KERNEL_GAMMA_BY_TRANSFER,
-                                       TRANSFER_BY_SPACE,
+from raweditor_tpu_torch.color import (COLOR_SPACES, TRANSFER_BY_SPACE,
                                        cam_to_output_matrix, encoder_for,
                                        kernel_gamma_for, transfer16_for)
 from raweditor_tpu_torch.ops import fused_develop as _fused
 from raweditor_tpu_torch.ops import fused_extras as _fx
-from raweditor_tpu_torch.ops.cfa_generic import generic_cfa_method
-from raweditor_tpu_torch.params import EditParams
 from raweditor_tpu_torch.ops import geometry as _geometry
+from raweditor_tpu_torch.ops import jpeg as _jpeg
+from raweditor_tpu_torch.params import EditParams
 from raweditor_tpu_torch.parallel.batch import (
     batch_develop_linear_rgba,
     batch_develop_rgba,
@@ -144,12 +145,12 @@ from raweditor_tpu_torch.parallel.batch import (
     pack_extras,
     pack_params,
 )
+from raweditor_tpu_torch.pipeline.frame import (FrameKind, classify,
+                                                kernel_route)
+from raweditor_tpu_torch.utils.shared import (_atomic_write, _on,
+                                              _record_event)
 from raweditor_tpu_torch.utils.timing import StageTimer
 
-
-# The bucket key of LinearRaw frames in place of a CFA phase (the JAX
-# exporter's).
-LINEAR = "__linear__"
 
 # The newest finished ``run_batch_export`` call's ``ExportReport.
 # as_dict()``, or None before the first.
@@ -246,6 +247,7 @@ class ExportReport:
         }
 
 
+
 @dataclasses.dataclass
 class _Decoded:
     job: ExportJob
@@ -254,7 +256,8 @@ class _Decoded:
     cam_matrix: np.ndarray
     white_level: float
     black_level: float
-    cfa_phase: tuple = (0, 0)
+    # The frame's CFA kind (pipeline/frame.py), part of the bucket key.
+    kind: FrameKind
     # Staging started from the decode worker (a Future of the upload
     # thread's ``(tensor, event, pinned)``), so the upload overlaps the
     # next file's decode. 12- and 14-bit mosaics stage bit-packed
@@ -329,52 +332,32 @@ class _Uploader:
             return dev, done, pinned
 
 
-def _decode_job(job: ExportJob, mode: str, upload_pool=None,
+def _decode_job(job: ExportJob, mode: str, upload_pool=None, budget=None,
                 color_space: str = "srgb",
-                rec: Optional[StageTimer] = None, image=None):
-    """Returns (decoded, decode_seconds, stage_seconds).
-
-    decode_seconds covers the codec and metadata work only (the
-    ``decode`` span of ``rec``); the staging pack is timed separately
-    (``stage.pack``), so the report's decode split reflects the
-    per-codec MP/s. The upload itself runs on ``upload_pool`` (an
-    ``_Uploader``: one thread with its own stream), not here: a decode
-    worker blocked on a transfer would stall the decode pool. The flush
-    resolves the resulting future."""
+                rec: Optional[StageTimer] = None, image=None) -> _Decoded:
+    """The job's file decoded (the ``decode`` span of ``rec``: the codec
+    and metadata work only, so the report's decode split reflects the
+    per-codec MP/s), then, with an ``upload_pool``, staged within
+    ``budget`` (``stage.pack``). The upload itself runs on
+    ``upload_pool`` (an ``_Uploader``: one thread with its own stream),
+    not here: a decode worker blocked on a transfer would stall the
+    decode pool. The flush resolves the resulting future."""
     rec = rec or StageTimer()
     with rec.span("decode", image=image) as dec:
         decoded = _decode(job, mode, color_space)
     decoded.image, decoded.decoded_ns = image, dec.end_ns
-    with rec.span("stage.pack", image=image) as pack:
+    with rec.span("stage.pack", image=image):
         if upload_pool is not None:
-            _stage(decoded, upload_pool, image)
-    return decoded, dec.seconds, pack.seconds
+            _stage(decoded, upload_pool, image, budget)
+    return decoded
 
 
 def _decode(job: ExportJob, mode: str, color_space: str) -> _Decoded:
-    """The job's file decoded, with its levels, CFA bucket key and
-    output matrix."""
+    """The job's file decoded, with its kind, levels and output matrix."""
     from raweditor_tpu_torch.raw.decode import decode_raw
 
     raw = decode_raw(job.raw_path)
-    if mode == "parity":
-        # The reference hardcodes 4096 and the RGGB stencil
-        # (gpu/shaders.rs:110-125). LinearRaw still skips the demosaic.
-        white, black = 4096.0, 0.0
-        phase = LINEAR if raw.is_linear else (0, 0)
-    else:
-        from raweditor_tpu_torch.ops.cfa_generic import is_xtrans
-        from raweditor_tpu_torch.ops.demosaic import phase_of
-
-        white, black = float(raw.white_level), float(raw.black_level)
-        if raw.is_linear:
-            phase = LINEAR
-        elif is_xtrans(raw.cfa_pattern):
-            # X-Trans buckets carry the pattern string instead of a
-            # Bayer phase; flush routes them to the generic-CFA develop.
-            phase = raw.cfa_pattern
-        else:
-            phase = phase_of(raw.cfa_pattern)
+    kind, white, black = classify(raw, mode)
     return _Decoded(
         job=job,
         mosaic=raw.fold_site_blacks() if mode == "accurate" else raw.mosaic,
@@ -382,14 +365,15 @@ def _decode(job: ExportJob, mode: str, color_space: str) -> _Decoded:
         cam_matrix=cam_to_output_matrix(raw.xyz_to_cam, mode, color_space),
         white_level=white,
         black_level=black,
-        cfa_phase=phase,
+        kind=kind,
         make=raw.camera_make,
         model=raw.camera_model,
         orientation=raw.orientation,
     )
 
 
-def _stage(decoded: _Decoded, upload_pool, image) -> None:
+def _stage(decoded: _Decoded, upload_pool, image,
+           budget: "_StageBudget") -> None:
     """Bit-pack the mosaic and hand it to the upload thread, within the
     staging budget; over it, the mosaic uploads at flush time."""
     m = decoded.mosaic
@@ -405,7 +389,7 @@ def _stage(decoded: _Decoded, upload_pool, image) -> None:
     # Budget check BEFORE the pack so a pegged budget costs no host
     # work; a staging failure (e.g. device memory) resolves at flush
     # time: budget released there, the image uploads at flush.
-    if not _stage_budget_acquire(nbytes):
+    if not budget.acquire(nbytes):
         return
     try:
         from raweditor_tpu_torch.ops.staging import (pack12_rows,
@@ -423,70 +407,39 @@ def _stage(decoded: _Decoded, upload_pool, image) -> None:
         decoded.staged_fmt = fmt
         decoded.staged_nbytes = nbytes
     except Exception:
-        _stage_budget_release(nbytes)
+        budget.release(nbytes)
         decoded.staged = None
         decoded.staged_fmt = "raw"
         decoded.staged_nbytes = 0
 
 
 # Staged mosaics waiting in the decode window hold device (and pinned
-# host) memory; cap them so deep windows on big images cannot exhaust
-# it. Over budget, images upload at flush time instead; the result is
-# the same. The default fits one default batch of packed 24 MP mosaics
-# (8 x 36 MB) with headroom.
-_STAGE_BUDGET = int(os.environ.get(
-    "RAWEDITOR_TPU_STAGE_BUDGET_MB", "512")) * 1_000_000
-# Module-level construction: a lazily built lock would itself need a lock.
-_stage_lock = threading.Lock()
-_stage_used = 0
-_stage_runs = 0  # active run_batch_export calls (leak self-healing)
+# host) memory; each call caps them at this many bytes so deep windows on
+# big images cannot exhaust it. Over budget, images upload at flush time
+# instead; the result is the same. It fits one default batch of packed
+# 24 MP mosaics (8 x 36 MB) with headroom.
+_STAGE_BUDGET = 512_000_000
 
 
-def _stage_run_begin() -> None:
-    """Mark a run active; if no other run holds staging, clear any
-    budget leaked by an aborted previous run (its buffers are long
-    garbage-collected — only the counter survived)."""
-    global _stage_runs, _stage_used
-    with _stage_lock:
-        if _stage_runs == 0:
-            _stage_used = 0
-        _stage_runs += 1
+class _StageBudget:
+    """The staged bytes one call holds, up to ``limit``: the decode
+    workers acquire, the flush releases."""
 
+    def __init__(self, limit: int):
+        self.limit = limit
+        self.used = 0
+        self._lock = threading.Lock()
 
-def _stage_run_end() -> None:
-    global _stage_runs
-    with _stage_lock:
-        _stage_runs = max(0, _stage_runs - 1)
+    def acquire(self, nbytes: int) -> bool:
+        with self._lock:
+            if self.used + nbytes > self.limit:
+                return False
+            self.used += nbytes
+            return True
 
-
-def _stage_budget_acquire(nbytes: int) -> bool:
-    global _stage_used
-    with _stage_lock:
-        if _stage_used + nbytes > _STAGE_BUDGET:
-            return False
-        _stage_used += nbytes
-        return True
-
-
-def _stage_budget_release(nbytes: int) -> None:
-    global _stage_used
-    with _stage_lock:
-        _stage_used = max(0, _stage_used - nbytes)
-
-
-def _atomic_write(out_path: str, write_fn) -> None:
-    """Write via a temp name + rename so an interrupted run never
-    leaves a partial file that ``skip_existing`` would later trust.
-    ``write_fn(tmp_path)`` produces the file."""
-    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
-    tmp_path = (f"{out_path}.{os.getpid()}."
-                f"{threading.get_ident()}.tmp")
-    try:
-        write_fn(tmp_path)
-        os.replace(tmp_path, out_path)
-    finally:
-        if os.path.exists(tmp_path):
-            os.unlink(tmp_path)
+    def release(self, nbytes: int) -> None:
+        with self._lock:
+            self.used -= nbytes
 
 
 def _encode_one(out_path: str, rgba_words: np.ndarray, quality: int,
@@ -543,7 +496,7 @@ class _Batcher:
         # image's bytes depend on which jobs share its batch. Locals and
         # the point-curve length split it too: their structure is uniform
         # per batch in the JAX package's programs.
-        key = (item.mosaic.shape, item.cfa_phase,
+        key = (item.mosaic.shape, item.kind,
                item.job.params.has_finish_extras(),
                tuple(m.kind for m in item.job.params.locals),
                len(item.job.params.point_curve))
@@ -638,27 +591,501 @@ def _refuse_unported(mesh, bits, color_space, mode, jobs) -> None:
         require_ported(job.params)
 
 
-@contextlib.contextmanager
-def _on(device: torch.device, stream=None):
-    """The CUDA device (and ``stream``) current for a thread's work; a
-    no-op on the CPU."""
-    if device.type != "cuda":
-        yield
-        return
-    with torch.cuda.device(device), (torch.cuda.stream(stream)
-                                     if stream is not None
-                                     else contextlib.nullcontext()):
-        yield
+class _ExportRun:
+    """One ``run_batch_export`` call: its resolved settings, recorder,
+    report and staging budget, its pools and streams, the batches in
+    flight and the encodes queued. Its methods are the stages the spans
+    name: ``run`` (the decode window, ``export.wait_decode``), ``flush``
+    (``export.flush``: ``stage_batch``, then ``develop`` under
+    ``export.launch``), ``fetch_batch`` (the fetch thread's
+    ``fetch.wait`` and ``fetch.copy``), ``drain_inflight``
+    (``export.wait_fetch``), ``hand_off`` (``export.hand_off``),
+    ``encode`` (an encode worker's ``encode``) and ``wait_encode``
+    (``export.wait_encode``)."""
 
+    def __init__(self, work, report: ExportReport, rec: StageTimer,
+                 device: torch.device, *, batch_size, decode_threads,
+                 encode_threads, quality, mode, matrix_transpose, transfer,
+                 demosaic_method, use_kernel, bits, jpeg_optimize, chroma,
+                 jpeg_restart_rows, color_space, shaping, icc,
+                 jpeg_planes_ok, arena_cap, on_progress):
+        self.report, self.rec = report, rec
+        self.device, self.cuda = device, device.type == "cuda"
+        self.batch_size, self.bits = batch_size, bits
+        self.mode, self.color_space = mode, color_space
+        self.matrix_transpose, self.transfer = matrix_transpose, transfer
+        self.demosaic_method, self.use_kernel = demosaic_method, use_kernel
+        # The output stage's arguments, in ``shape_output``'s order:
+        # long_edge, rotate, crop, lens, perspective.
+        self.shaping = shaping
+        self.quality, self.chroma, self.icc = quality, chroma, icc
+        self.jpeg_optimize = jpeg_optimize
+        self.jpeg_restart_rows = jpeg_restart_rows
+        self.jpeg_planes_ok = jpeg_planes_ok
+        self.arena_cap = arena_cap
+        self.on_progress = on_progress
+        self.budget = _StageBudget(_STAGE_BUDGET)
+        self.fetch_stream = None
+        if self.cuda:
+            with torch.cuda.device(device):
+                self.fetch_stream = torch.cuda.Stream()
+        self.t_start = time.perf_counter()
+        self.progress_last = 0.0
+        self.decode_pool = ThreadPoolExecutor(decode_threads)
+        self.encode_pool = ThreadPoolExecutor(encode_threads)
+        self.fetch_pool = ThreadPoolExecutor(1)
+        self.upload_pool = ThreadPoolExecutor(1)
+        self.uploader = _Uploader(self.upload_pool, device, rec)
+        self.window = max(2 * batch_size, decode_threads * 2)
+        # Backpressure: the card outruns host JPEG encode; without a
+        # bound the queue would pin unbounded host buffers.
+        self.max_encodes = 4 * encode_threads
+        self.jobs = iter(work)
+        self.pending: List[Tuple[Future, ExportJob, object]] = []
+        # Batches in flight: the develop is launched asynchronously; the
+        # fetch thread pulls results one batch behind, so the card's
+        # work, host decode and encode, and both copies overlap.
+        self.inflight: List[tuple] = []
+        self.encode_futures: List[Tuple[Future, ExportJob]] = []
+        self.flush_numbers = itertools.count()
 
-def _record_event(device: torch.device):
-    """An event recorded on the device's current stream, or None on the
-    CPU (where every op has finished when it returns)."""
-    if device.type != "cuda":
-        return None
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(device))
-    return done
+    def run(self) -> ExportReport:
+        """Decode through a bounded window, flush each full bucket and
+        then the rest, fetch every batch and wait for every encode."""
+        rec, report = self.rec, self.report
+        with self.decode_pool, self.encode_pool, self.fetch_pool, \
+                self.upload_pool, _on(self.device):
+            for _ in range(self.window):
+                if not self.submit_decode():
+                    break
+            batcher = _Batcher(self.batch_size)
+            while self.pending:
+                fut, job, image = self.pending.pop(0)
+                try:
+                    with rec.span("export.wait_decode", image=image,
+                                  profiler=True):
+                        decoded = fut.result()
+                except Exception as e:
+                    report.failed.append((job.raw_path, f"decode: {e}"))
+                    self.note_progress()
+                else:
+                    report.decode_megapixels += (
+                        decoded.mosaic.shape[0] * decoded.mosaic.shape[1]
+                        / 1e6)
+                    full = batcher.add(decoded)
+                    if full is not None:
+                        self.flush(full)
+                self.submit_decode()
+            for bucket in batcher.drain():
+                self.flush(bucket)
+            self.drain_inflight(depth=0)
+            with rec.span("export.wait_encode", profiler=True):
+                for fut, job in self.encode_futures:
+                    self.wait_encode(fut, job)
+                    self.note_progress()
+            self.note_progress(force=True)
+        report.seconds = time.perf_counter() - self.t_start
+        # One measurement per boundary: the report's seconds are the
+        # spans'.
+        total = rec.totals.get
+        report.decode_seconds = total("decode", 0.0)
+        report.stage_seconds = total("stage.pack", 0.0)
+        report.device_seconds = total("fetch.wait", 0.0)
+        report.fetch_seconds = total("fetch.copy", 0.0)
+        report.upload_seconds = (total("export.wait_upload", 0.0)
+                                 + total("export.stage", 0.0))
+        report.encode_seconds = total("export.wait_encode", 0.0)
+        report.stages = rec.report()
+        report.timer = rec
+        return report
+
+    def submit_decode(self) -> bool:
+        """Start the next job's decode; False when none is left."""
+        image, job = next(self.jobs, (None, None))
+        if job is None:
+            return False
+        self.pending.append((self.decode_pool.submit(
+            _decode_job, job, self.mode, self.uploader, self.budget,
+            self.color_space, self.rec, image), job, image))
+        return True
+
+    def note_progress(self, force: bool = False) -> None:
+        """Rate-limited completion callback (≥1 s apart unless forced);
+        never raises into the run."""
+        if self.on_progress is None:
+            return
+        now = time.perf_counter()
+        if not force and now - self.progress_last < 1.0:
+            return
+        self.progress_last = now
+        try:
+            self.on_progress(self.report.succeeded, len(self.report.failed),
+                             self.report.total, now - self.t_start)
+        except Exception:  # noqa: BLE001 - observability must not
+            pass           # fail the export
+
+    def to_device(self, t: torch.Tensor, out=None) -> torch.Tensor:
+        """A flush-time copy of a host tensor in pageable memory, into
+        ``out`` where given."""
+        if self.cuda:
+            self.rec.count("transfer.pageable_bytes",
+                           t.numel() * t.element_size())
+        return t.to(self.device) if out is None else out.copy_(t)
+
+    def flush(self, batch: List[_Decoded]) -> None:
+        """``export.flush``: the batch padded to the fixed batch shape
+        (padding replays item 0 and is dropped before encode), staged and
+        developed, then handed to the fetch thread; results are taken one
+        batch behind."""
+        rec, seq = self.rec, next(self.flush_numbers)
+        try:
+            with rec.span("export.flush", image=[d.image for d in batch],
+                          batch=seq) as span:
+                for d in batch:
+                    rec.interval("queue.batch", d.decoded_ns, span.start_ns,
+                                 image=d.image, batch=seq)
+                padded = batch + [batch[0]] * (self.batch_size - len(batch))
+                mosaics = self.stage_batch(batch, padded, seq)
+                with rec.span("export.launch", batch=seq,
+                              parent="export.flush"):
+                    rec.count("slots.developed", len(batch))
+                    rec.count("slots.padded", self.batch_size - len(batch))
+                    out, done = self.develop(batch, padded, mosaics)
+        except Exception as e:  # a develop or kernel failure:
+            # quarantine the batch like any per-image failure instead of
+            # killing a long run; never route around the kernel.
+            for d in batch:
+                self.report.failed.append((d.job.raw_path, f"develop: {e}"))
+                self.note_progress()
+            return
+        finally:
+            # Release the staging budget only now: until dispatch the
+            # staged buffers were the live copies.
+            for d in batch:
+                if d.staged is not None:
+                    self.budget.release(d.staged_nbytes)
+                    d.staged = None
+                    d.staged_nbytes = 0
+        self.inflight.append((self.fetch_pool.submit(
+            self.fetch_batch, out, batch, done, seq), batch, seq))
+        self.drain_inflight(depth=1)
+        if self.arena_cap:
+            from raweditor_tpu_torch.utils.memory import trim_malloc
+
+            # The batch's host buffers were just freed; hand the pages
+            # back instead of letting arenas retain them.
+            with rec.span("export.trim", batch=seq, profiler=True):
+                trim_malloc()
+
+    def stage_batch(self, batch, padded, seq) -> torch.Tensor:
+        """The (B, H, W) u16 batch on the device: the staged buffers
+        (waited for on this thread's stream) unpacked or copied into
+        their slots in one launch, a mosaic with none uploaded into its
+        slot; else, with nothing staged, one flush-time upload."""
+        from raweditor_tpu_torch.ops.staging import unpack_into_batch
+
+        # Resolve the upload futures first: one the upload thread
+        # finished costs nothing; one still running is waited for
+        # (upload time); a failed one degrades to a flush-time upload.
+        with self.rec.span("export.wait_upload", batch=seq,
+                      parent="export.flush", profiler=True):
+            for d in batch:
+                if isinstance(d.staged, Future):
+                    fut, d.staged = d.staged, None
+                    try:
+                        d.staged = fut.result()
+                    except Exception:
+                        self.budget.release(d.staged_nbytes)
+                        d.staged_fmt = "raw"
+                        d.staged_nbytes = 0
+        with self.rec.span("export.stage", batch=seq, parent="export.flush"):
+            if not any(d.staged is not None for d in batch):
+                return self.to_device(_host_tensor(np.stack(
+                    [d.mosaic for d in padded])))
+            # Use every staged buffer (an over-budget straggler must not
+            # discard the bytes already copied); items without one upload
+            # into their slot here, before the launch.
+            mosaics = torch.empty((len(padded),) + batch[0].mosaic.shape,
+                                  dtype=torch.uint16, device=self.device)
+            sources, fmts = [], []
+            late_bytes = 0
+            slot_of = {}  # padding replays batch[0]: its first slot
+            for i, d in enumerate(padded):
+                src, fmt = None, None
+                if d.staged is not None:
+                    buf, done, _ = d.staged
+                    if done is not None and id(d) not in slot_of:
+                        # The copy ran on the upload stream: this stream
+                        # waits for it, and the allocator must not hand
+                        # the buffer back to the upload stream while this
+                        # stream still reads it.
+                        stream = torch.cuda.current_stream(self.device)
+                        stream.wait_event(done)
+                        buf.record_stream(stream)
+                    src = buf
+                    fmt = "u16" if d.staged_fmt == "raw" else d.staged_fmt
+                elif id(d) in slot_of:  # a replay of an uploaded item
+                    src, fmt = mosaics[slot_of[id(d)]], "u16"
+                else:
+                    late = _host_tensor(d.mosaic)
+                    late_bytes += late.numel() * late.element_size()
+                    self.to_device(late, mosaics[i])
+                slot_of.setdefault(id(d), i)
+                sources.append(src)
+                fmts.append(fmt)
+            unpack_into_batch(mosaics, sources, fmts)
+            self.rec.count("staging.slots_unpacked",
+                      sum(f in ("u12", "u14") for f in fmts))
+            self.rec.count("staging.slots_copied", fmts.count("u16"))
+            self.rec.count("staging.slots_uploaded", fmts.count(None))
+        self.report.upload_bytes += late_bytes + sum(
+            d.staged_nbytes for d in batch if d.staged is not None)
+        return mosaics
+
+    def develop(self, batch, padded, mosaics):
+        """``export.launch``: the flush's develop on its route (module
+        docstring), the extras post-pass, the output stage and the JPEG
+        planes. Returns the output and an event recorded after it."""
+        kind = batch[0].kind
+        params = [d.job.params for d in padded]
+        wbs = np.stack([d.wb for d in padded])
+        whites = np.array([d.white_level for d in padded], np.float32)
+        blacks = np.array([d.black_level for d in padded], np.float32)
+        # Clipped-highlight reconstruction, gated on the flush: the
+        # per-image amounts keep zero-amount images bit-exact, so a mixed
+        # batch needs no split. Every route below sees a plain u16 batch.
+        if any(float(d.job.params.highlight_recovery) != 0.0
+               for d in batch):
+            mosaics = self.reconstruct(kind, padded, mosaics, wbs, whites,
+                                       blacks)
+        # The per-image inputs every develop lane takes after the mosaics.
+        inputs = (params, wbs, np.stack([d.cam_matrix for d in padded]),
+                  whites, blacks)
+        # Finish extras: the batch's static flags, ORed over its images
+        # (zero-amount images inside such a batch develop within 1 LSB
+        # of their extras-off render).
+        ex_on = any(d.job.params.has_finish_extras() for d in batch)
+        if ex_on:
+            table, mixer_on, grading_on, stencils = pack_extras(params)
+            ex_on = mixer_on or grading_on or stencils
+        # The output stage (geometry, then resize) takes words, or the
+        # 16-bit frames, image by image.
+        shaped = _geometry.reshapes(tuple(mosaics.shape[1:3]), *self.shaping)
+        if self.bits == 16:
+            # The 16-bit lane: extras in the chain (the words pass is
+            # 8-bit), the exact transfer.
+            self.route("linear" if kind.linear else "plain")
+            mode16 = "+".join(
+                part for part, on in (("base", ex_on and stencils),
+                                      ("mixer", ex_on and mixer_on),
+                                      ("grading", ex_on and grading_on))
+                if on) or False
+            out = batch_develop_u16(
+                mosaics, *inputs, matrix_transpose=self.matrix_transpose,
+                cfa_phase=kind.cfa_phase, pattern=kind.xtrans_pattern,
+                transfer=transfer16_for(self.transfer),
+                demosaic_method=kind.demosaic(self.demosaic_method),
+                extras=mode16, linear=kind.linear)
+            if shaped:
+                out = self.shape(out, "u16", len(batch))
+            return out, _record_event(self.device)
+        planes = ("rgba_words" if shaped
+                  else self.planes_for(*mosaics.shape[1:3]))
+        # The fused kernel where it computes the edit and the frame;
+        # point curves, LinearRaw frames and the Adobe RGB transfer ride
+        # the plain lane.
+        if kernel_route(self.use_kernel, kind, self.transfer,
+                        batch[0].job.params):
+            out = self.develop_kernel(kind, mosaics, inputs, (
+                "ycbcr420" if planes == "ycbcr420" and not ex_on
+                else "rgba"))
+        else:
+            out = self.develop_plain(kind, mosaics, inputs,
+                                     "rgba_words" if ex_on else planes)
+        if ex_on:
+            # Extras on every route run the post-pass kernel over the
+            # develop's words (its plain version for CPU tensors), every
+            # slot of the padded batch.
+            self.rec.count("extras.slots", self.batch_size)
+            self.rec.count("extras.asked", sum(
+                d.job.params.has_finish_extras() for d in batch))
+            out = _fx.fused_finish_extras_rgba(
+                out, self.to_device(table), mixer_on=mixer_on,
+                grading_on=grading_on, stencils=stencils,
+                output="ycbcr420" if planes == "ycbcr420" else "rgba")
+        if shaped:
+            out = self.shape(out, "words", len(batch))
+            planes = self.planes_for(*out.shape[1:3])
+        if planes != "rgba_words" and not isinstance(out, tuple):
+            out = (_jpeg.rgba_words_to_ycbcr444(out) if planes == "ycbcr444"
+                   else _jpeg.rgba_words_to_ycbcr420(out))
+        return out, _record_event(self.device)
+
+    def reconstruct(self, kind: FrameKind, padded, mosaics, wbs, whites,
+                    blacks) -> torch.Tensor:
+        """The flush's mosaics with their clipped highlights
+        reconstructed at each image's amount (``ops/highlights.py``)."""
+        from raweditor_tpu_torch.ops import highlights as _hl
+
+        amounts = np.array([float(d.job.params.highlight_recovery)
+                            for d in padded], np.float32)
+        if kind.linear:
+            return _hl.batch_reconstruct_linear(mosaics, wbs, amounts,
+                                                whites, blacks)
+        return _hl.batch_reconstruct_mosaic(
+            mosaics, wbs, amounts, whites, blacks, cfa_phase=kind.cfa_phase,
+            xtrans_pattern=kind.xtrans_pattern)
+
+    def develop_kernel(self, kind: FrameKind, mosaics, inputs, output: str):
+        """The fused batch kernel (B1-B7) over the flush, to RGBA words
+        or 4:2:0 planes."""
+        demosaic = kind.demosaic(self.demosaic_method)
+        scal = self.to_device(pack_params(*inputs, self.matrix_transpose))
+        self.route(_fused.variant(demosaic, kind.xtrans_pattern) + (
+            ".planes" if output == "ycbcr420" else ".rgba"))
+        if (kind.xtrans_pattern is not None and demosaic == "grad"
+                and _fused.period6_march(kind.xtrans_pattern)):
+            self.rec.count("cfa_grad.period6_slots", self.batch_size)
+        return _fused.fused_batch_develop_rgba(
+            mosaics, scal, cfa_phase=kind.cfa_phase,
+            gamma=kernel_gamma_for(self.transfer), output=output,
+            demosaic=demosaic, pattern=kind.xtrans_pattern)
+
+    def develop_plain(self, kind: FrameKind, mosaics, inputs, output: str):
+        """The plain lane (``parallel/batch.py``) over the flush. A
+        LinearRaw flush always takes it: no develop kernel exists for it,
+        as the JAX exporter's XLA lane."""
+        lane = dict(matrix_transpose=self.matrix_transpose,
+                    transfer=self.transfer, output=output)
+        if kind.linear:
+            self.route("linear")
+            return batch_develop_linear_rgba(mosaics, *inputs, **lane)
+        self.route("plain")
+        if kind.xtrans_pattern is not None:
+            return batch_develop_xtrans_rgba(
+                mosaics, *inputs, pattern=kind.xtrans_pattern,
+                demosaic_method=kind.demosaic(self.demosaic_method), **lane)
+        return batch_develop_rgba(
+            mosaics, *inputs, cfa_phase=kind.cfa_phase,
+            demosaic_method=self.demosaic_method, **lane)
+
+    def route(self, name: str) -> None:
+        """Count the flush's slots, padding included, under its develop
+        route (``develop.slots.<route>``)."""
+        self.rec.count("develop.slots." + name, self.batch_size)
+
+    def planes_for(self, h: int, w: int) -> str:
+        """What an h x w output leaves the card as: the JPEG planes of an
+        all-JPEG run (4:4:4, or 4:2:0 of an even frame), else RGBA
+        words."""
+        if self.jpeg_planes_ok and self.chroma == "444":
+            return "ycbcr444"
+        if self.jpeg_planes_ok and h % 2 == 0 and w % 2 == 0:
+            return "ycbcr420"
+        return "rgba_words"
+
+    def shape(self, out, kind: str, n: int) -> torch.Tensor:
+        """The output stage (``ops/geometry.shape_output``) of the
+        flush's first ``n`` images, image by image."""
+        return torch.stack([_geometry.shape_output(img, kind, *self.shaping)
+                            for img in out[:n]])
+
+    def fetch_batch(self, out, batch, done, seq):
+        """Runs on the fetch thread: wait for the flush's event, then
+        slice the padding off on the card (a drain-time bucket of 1 would
+        otherwise copy the replayed frames) and copy the rest to the
+        host on the fetch stream. Returns the host arrays, their bytes
+        and the copy's end."""
+        rec, images = self.rec, [d.image for d in batch]
+        with rec.span("fetch.wait", image=images, batch=seq):
+            if done is not None:
+                done.synchronize()
+        n = len(batch)
+        with rec.span("fetch.copy", image=images, batch=seq) as copy, \
+                _on(self.device, self.fetch_stream):
+            if isinstance(out, tuple):  # YCbCr planes
+                host = tuple(p[:n].cpu().numpy() for p in out)
+                nbytes = sum(p.nbytes for p in host)
+            else:
+                host = out[:n].cpu().numpy()
+                nbytes = host.nbytes
+        if self.cuda:
+            rec.count("transfer.pageable_bytes", nbytes)
+        return host, nbytes, copy.end_ns
+
+    def drain_inflight(self, depth: int) -> None:
+        """``export.wait_fetch``: take fetched batches, oldest first,
+        until ``depth`` remain in flight, and hand each off."""
+        while len(self.inflight) > depth:
+            fut, batch, seq = self.inflight.pop(0)
+            try:
+                with self.rec.span("export.wait_fetch",
+                                   image=[d.image for d in batch],
+                                   batch=seq, profiler=True):
+                    host, nbytes, ready_ns = fut.result()
+            except Exception as e:  # device failure: the batch
+                # quarantines like any other per-image failure.
+                for d in batch:
+                    self.report.failed.append(
+                        (d.job.raw_path, f"device: {e}"))
+                self.note_progress()
+                continue
+            self.report.fetch_bytes += nbytes
+            self.hand_off(batch, host, seq, ready_ns)
+
+    def hand_off(self, batch, host, seq, ready_ns) -> None:
+        """``export.hand_off``: one encode an image on the encode pool,
+        then the backpressure wait on the oldest."""
+        from raweditor_tpu_torch.raw.exif import build_exif
+
+        with self.rec.span("export.hand_off", image=[d.image for d in batch],
+                           batch=seq, profiler=True):
+            for i, d in enumerate(batch):
+                # Per-image copies: an encode job must not pin the whole
+                # (B, H, W) batch array while it waits in the queue.
+                exif = build_exif(d.make, d.model, d.orientation)
+                flags = (self.quality, exif, self.jpeg_optimize,
+                         self.chroma, self.jpeg_restart_rows, self.icc)
+                if isinstance(host, tuple):  # YCbCr planes
+                    planes = tuple(p[i] for p in host)
+                    if len(planes) == 2:
+                        # Kernel planes: Y + NV12-interleaved CbCr,
+                        # de-interleaved by two strided copies of
+                        # H/2·W/2 bytes on the host.
+                        y, cbcr = planes
+                        planes = (y, cbcr[:, 0::2], cbcr[:, 1::2])
+                    fn, args = _encode_one_jpeg420, (
+                        *(p.copy() for p in planes), *flags)
+                elif self.bits == 16:
+                    fn, args = _encode_one_tiff16, (
+                        host[i].copy(), d.make, d.model, d.orientation,
+                        self.icc)
+                else:
+                    fn, args = _encode_one, (host[i].copy(), *flags)
+                fut = self.encode_pool.submit(self.encode, fn, d.image, seq,
+                                              ready_ns, d.job.out_path,
+                                              *args)
+                self.encode_futures.append((fut, d.job))
+        while len(self.encode_futures) > self.max_encodes:
+            fut, job = self.encode_futures.pop(0)
+            with self.rec.span("export.wait_encode", profiler=True):
+                self.wait_encode(fut, job)
+            self.note_progress()
+
+    def encode(self, fn, image, seq, ready_ns, *args) -> None:
+        """Runs on an encode worker: the image's wait in the encode queue
+        since its fetch, then the encoder."""
+        self.rec.interval("queue.encode", ready_ns, time.perf_counter_ns(),
+                          image=image, batch=seq)
+        with self.rec.span("encode", image=image, batch=seq):
+            fn(*args)
+
+    def wait_encode(self, fut: Future, job: ExportJob) -> None:
+        try:
+            fut.result()
+            self.report.succeeded += 1
+        except Exception as e:
+            self.report.failed.append((job.raw_path, f"encode: {e}"))
 
 
 def run_batch_export(
@@ -710,12 +1137,9 @@ def run_batch_export(
     ``report.timer.chrome_trace()``) even with no profiler open."""
     from raweditor_tpu_torch.native import require_rawkit
     from raweditor_tpu_torch.ops.demosaic import DEMOSAIC_METHODS
-    from raweditor_tpu_torch.ops.jpeg import (rgba_words_to_ycbcr420,
-                                              rgba_words_to_ycbcr444)
-    from raweditor_tpu_torch.raw.exif import build_exif
     from raweditor_tpu_torch.utils.device import resolve_device
-    from raweditor_tpu_torch.utils.memory import (
-        arena_cap_from_env, cap_malloc_arenas, trim_malloc)
+    from raweditor_tpu_torch.utils.memory import (arena_cap_from_env,
+                                                  cap_malloc_arenas)
 
     color_space = (color_space or "srgb").lower()
     if mode not in ("parity", "accurate"):
@@ -736,11 +1160,6 @@ def run_batch_export(
     elif fast_gamma and transfer == "srgb":
         transfer = "srgb_poly"
     encoder_for(transfer)  # validated up front, not deep in a flush
-    gamma = kernel_gamma_for(transfer)
-    transfer16 = transfer16_for(transfer)
-    # The develop kernels compute every transfer but Adobe RGB's, which
-    # takes the plain lane (a route by transfer, never by failure).
-    kernel_ok = use_kernel and transfer in KERNEL_GAMMA_BY_TRANSFER
     icc = None
     if color_space != "srgb":
         from raweditor_tpu_torch.icc import profile_bytes
@@ -749,15 +1168,13 @@ def run_batch_export(
     device = resolve_device(device)
     # glibc arena retention made long-run RSS track cumulative decode
     # volume instead of the working set; cap arenas before the pools
-    # below can create them, and trim between flushes (utils/memory.py).
-    # 0 disables both.
-    _arena_cap = arena_cap_from_env()
-    if _arena_cap:
-        cap_malloc_arenas(_arena_cap)
+    # can create them, and trim between flushes (utils/memory.py). 0
+    # disables both.
+    arena_cap = arena_cap_from_env()
+    if arena_cap:
+        cap_malloc_arenas(arena_cap)
 
     report = ExportReport(total=len(jobs))
-    t_start_progress = time.perf_counter()
-    _progress_last = [0.0]
     # The call's recorder: the span log is kept for a trace (the CLI's
     # --trace-out) or while a profiler is open, whose ranges then name
     # the calling thread's waits.
@@ -766,42 +1183,15 @@ def run_batch_export(
     rec = StageTimer(keep_log=trace_spans or profiling, profiler=profiling)
     for name in COUNTERS:
         rec.count(name, 0)
-    cuda = device.type == "cuda"
-
-    def to_device(t: torch.Tensor, out=None) -> torch.Tensor:
-        """A flush-time copy of a host tensor in pageable memory, into
-        ``out`` where given."""
-        if cuda:
-            rec.count("transfer.pageable_bytes", t.numel() * t.element_size())
-        return t.to(device) if out is None else out.copy_(t)
-
-    def _note_progress(force: bool = False):
-        """Rate-limited completion callback (≥1 s apart unless forced);
-        never raises into the run."""
-        if on_progress is None:
-            return
-        now = time.perf_counter()
-        if not force and now - _progress_last[0] < 1.0:
-            return
-        _progress_last[0] = now
-        try:
-            on_progress(report.succeeded, len(report.failed),
-                        report.total, now - t_start_progress)
-        except Exception:  # noqa: BLE001 - observability must not
-            pass           # fail the export
 
     # Each image's id in the spans: its catalog id, else its index in
     # the call.
     work = [(job.image_id if job.image_id is not None else i, job)
             for i, job in enumerate(jobs)]
     if skip_existing:
-        remaining = []
-        for image, job in work:
-            if os.path.exists(job.out_path):
-                report.skipped += 1
-            else:
-                remaining.append((image, job))
-        work = remaining
+        work = [(image, job) for image, job in work
+                if not os.path.exists(job.out_path)]
+        report.skipped = len(jobs) - len(work)
         jobs = [job for _, job in work]
 
     # JPEG planes on the card and the native JFIF encoder whenever every
@@ -817,446 +1207,17 @@ def run_batch_export(
         j.out_path.lower().endswith((".jpg", ".jpeg")) for j in jobs)
     if jpeg_planes_ok:
         require_rawkit()
-    fetch_stream = None
-    if cuda:
-        with torch.cuda.device(device):
-            fetch_stream = torch.cuda.Stream()
-    t_start = time.perf_counter()
-    _stage_run_begin()
-    try:
-        encode_futures: List[Tuple[Future, ExportJob]] = []
-        # Batches in flight: the develop is launched asynchronously; the
-        # fetch thread pulls results one batch behind, so the card's
-        # work, host decode and encode, and both copies overlap.
-        inflight: List[tuple] = []
-        flush_numbers = itertools.count()
-
-        def encode(fn, image, seq, ready_ns, *args):
-            """Runs on an encode worker: the image's wait in the encode
-            queue since its fetch, then the encoder."""
-            rec.interval("queue.encode", ready_ns, time.perf_counter_ns(),
-                         image=image, batch=seq)
-            with rec.span("encode", image=image, batch=seq):
-                fn(*args)
-
-        def wait_encode(fut, job):
-            try:
-                fut.result()
-                report.succeeded += 1
-            except Exception as e:
-                report.failed.append((job.raw_path, f"encode: {e}"))
-
-        def submit_encodes(batch, host, encode_pool, seq, ready_ns):
-            with rec.span("export.hand_off", image=[d.image for d in batch],
-                          batch=seq, profiler=True):
-                for i, d in enumerate(batch):
-                    # Per-image copies: an encode job must not pin the
-                    # whole (B, H, W) batch array while it waits in the
-                    # queue.
-                    exif = build_exif(d.make, d.model, d.orientation)
-                    if isinstance(host, tuple) and len(host) == 2:
-                        # Kernel planes: Y + NV12-interleaved CbCr,
-                        # de-interleaved by two strided copies of
-                        # H/2·W/2 bytes on the host.
-                        y, cbcr = host[0][i], host[1][i]
-                        fn, args = _encode_one_jpeg420, (
-                            y.copy(), cbcr[:, 0::2].copy(),
-                            cbcr[:, 1::2].copy(), quality, exif,
-                            jpeg_optimize, chroma, jpeg_restart_rows, icc)
-                    elif isinstance(host, tuple):  # YCbCr plane triple
-                        y, cb, cr = (p[i] for p in host)
-                        fn, args = _encode_one_jpeg420, (
-                            y.copy(), cb.copy(), cr.copy(), quality, exif,
-                            jpeg_optimize, chroma, jpeg_restart_rows, icc)
-                    elif bits == 16:
-                        fn, args = _encode_one_tiff16, (
-                            host[i].copy(), d.make, d.model, d.orientation,
-                            icc)
-                    else:
-                        fn, args = _encode_one, (
-                            host[i].copy(), quality, exif, jpeg_optimize,
-                            chroma, jpeg_restart_rows, icc)
-                    fut = encode_pool.submit(encode, fn, d.image, seq,
-                                             ready_ns, d.job.out_path, *args)
-                    encode_futures.append((fut, d.job))
-            # Backpressure: the card outruns host JPEG encode; without a
-            # bound the queue would pin unbounded host buffers.
-            max_inflight = 4 * encode_threads
-            while len(encode_futures) > max_inflight:
-                fut, job = encode_futures.pop(0)
-                with rec.span("export.wait_encode", profiler=True):
-                    wait_encode(fut, job)
-                _note_progress()
-
-        def _fetch_batch(out, batch, done, seq):
-            """Runs on the fetch thread: wait for the flush's event, then
-            slice the padding off on the card (a drain-time bucket of 1
-            would otherwise copy the replayed frames) and copy the rest
-            to the host on the fetch stream. Returns the host arrays,
-            their bytes and the copy's end."""
-            images = [d.image for d in batch]
-            with rec.span("fetch.wait", image=images, batch=seq):
-                if done is not None:
-                    done.synchronize()
-            n = len(batch)
-            with rec.span("fetch.copy", image=images, batch=seq) as copy, \
-                    _on(device, fetch_stream):
-                if isinstance(out, tuple):  # YCbCr planes
-                    host = tuple(p[:n].cpu().numpy() for p in out)
-                    nbytes = sum(p.nbytes for p in host)
-                else:
-                    host = out[:n].cpu().numpy()
-                    nbytes = host.nbytes
-            if cuda:
-                rec.count("transfer.pageable_bytes", nbytes)
-            return host, nbytes, copy.end_ns
-
-        def drain_inflight(encode_pool, depth: int):
-            while len(inflight) > depth:
-                fut, batch, seq = inflight.pop(0)
-                try:
-                    with rec.span("export.wait_fetch",
-                                  image=[d.image for d in batch], batch=seq,
-                                  profiler=True):
-                        host, nbytes, ready_ns = fut.result()
-                except Exception as e:  # device failure: the batch
-                    # quarantines like any other per-image failure.
-                    for d in batch:
-                        report.failed.append(
-                            (d.job.raw_path, f"device: {e}"))
-                    _note_progress()
-                    continue
-                report.fetch_bytes += nbytes
-                submit_encodes(batch, host, encode_pool, seq, ready_ns)
-
-        def _stage_batch(batch, padded, seq):
-            """The (B, H, W) u16 batch on the device: the staged buffers
-            (waited for on this thread's stream) unpacked or copied into
-            their slots in one launch, a mosaic with none uploaded into
-            its slot; else, with nothing staged, one flush-time upload."""
-            from raweditor_tpu_torch.ops.staging import unpack_into_batch
-
-            # Resolve the upload futures first: one the upload thread
-            # finished costs nothing; one still running is waited for
-            # (upload time); a failed one degrades to a flush-time upload.
-            with rec.span("export.wait_upload", batch=seq,
-                          parent="export.flush", profiler=True):
-                for d in batch:
-                    if isinstance(d.staged, Future):
-                        fut, d.staged = d.staged, None
-                        try:
-                            d.staged = fut.result()
-                        except Exception:
-                            _stage_budget_release(d.staged_nbytes)
-                            d.staged_fmt = "raw"
-                            d.staged_nbytes = 0
-            with rec.span("export.stage", batch=seq, parent="export.flush"):
-                if not any(d.staged is not None for d in batch):
-                    return to_device(_host_tensor(np.stack(
-                        [d.mosaic for d in padded])))
-                # Use every staged buffer (an over-budget straggler must
-                # not discard the bytes already copied); items without
-                # one upload into their slot here, before the launch.
-                mosaics = torch.empty(
-                    (len(padded),) + batch[0].mosaic.shape,
-                    dtype=torch.uint16, device=device)
-                sources, fmts = [], []
-                late_bytes = 0
-                slot_of = {}  # padding replays batch[0]: its first slot
-                for i, d in enumerate(padded):
-                    src, fmt = None, None
-                    if d.staged is not None:
-                        buf, done, _ = d.staged
-                        if done is not None and id(d) not in slot_of:
-                            # The copy ran on the upload stream: this
-                            # stream waits for it, and the allocator
-                            # must not hand the buffer back to the
-                            # upload stream while this stream still
-                            # reads it.
-                            stream = torch.cuda.current_stream(device)
-                            stream.wait_event(done)
-                            buf.record_stream(stream)
-                        src = buf
-                        fmt = "u16" if d.staged_fmt == "raw" else d.staged_fmt
-                    elif id(d) in slot_of:  # a replay of an uploaded item
-                        src, fmt = mosaics[slot_of[id(d)]], "u16"
-                    else:
-                        late = _host_tensor(d.mosaic)
-                        late_bytes += late.numel() * late.element_size()
-                        to_device(late, mosaics[i])
-                    slot_of.setdefault(id(d), i)
-                    sources.append(src)
-                    fmts.append(fmt)
-                unpack_into_batch(mosaics, sources, fmts)
-                rec.count("staging.slots_unpacked",
-                          sum(f in ("u12", "u14") for f in fmts))
-                rec.count("staging.slots_copied", fmts.count("u16"))
-                rec.count("staging.slots_uploaded", fmts.count(None))
-            report.upload_bytes += late_bytes + sum(
-                d.staged_nbytes for d in batch if d.staged is not None)
-            return mosaics
-
-        def _flush_dispatch(batch: List[_Decoded], seq: int):
-            # Pad to the fixed batch shape; padding replays item 0 and is
-            # dropped before encode.
-            padded = batch + [batch[0]] * (batch_size - len(batch))
-            mosaics = _stage_batch(batch, padded, seq)
-            with rec.span("export.launch", batch=seq, parent="export.flush"):
-                rec.count("slots.developed", len(batch))
-                rec.count("slots.padded", batch_size - len(batch))
-                return _launch(batch, padded, mosaics)
-
-        def _launch(batch, padded, mosaics):
-            params = [d.job.params for d in padded]
-            wbs = np.stack([d.wb for d in padded])
-            cms = np.stack([d.cam_matrix for d in padded])
-            whites = np.array([d.white_level for d in padded], np.float32)
-            blacks = np.array([d.black_level for d in padded], np.float32)
-            phase = batch[0].cfa_phase
-            linear = phase == LINEAR
-            xtrans = isinstance(phase, str) and not linear
-            # Clipped-highlight reconstruction, gated on the flush: the
-            # per-image amounts keep zero-amount images bit-exact, so a
-            # mixed batch needs no split. Every route below sees a plain
-            # u16 batch.
-            if any(float(d.job.params.highlight_recovery) != 0.0
-                   for d in batch):
-                from raweditor_tpu_torch.ops.highlights import (
-                    batch_reconstruct_mosaic)
-
-                amounts = np.array(
-                    [float(d.job.params.highlight_recovery)
-                     for d in padded], np.float32)
-                if linear:
-                    from raweditor_tpu_torch.ops.highlights import (
-                        batch_reconstruct_linear)
-
-                    mosaics = batch_reconstruct_linear(
-                        mosaics, wbs, amounts, whites, blacks)
-                else:
-                    mosaics = batch_reconstruct_mosaic(
-                        mosaics, wbs, amounts, whites, blacks,
-                        cfa_phase=(0, 0) if xtrans else phase,
-                        xtrans_pattern=phase if xtrans else None)
-            # Finish extras: the batch's static flags, ORed over its
-            # images (zero-amount images inside such a batch develop
-            # within 1 LSB of their extras-off render).
-            ex_on = any(d.job.params.has_finish_extras() for d in batch)
-            if ex_on:
-                table, mixer_on, grading_on, stencils = pack_extras(params)
-                ex_on = mixer_on or grading_on or stencils
-            # The output stage (geometry, then resize) takes words, or the
-            # 16-bit frames, image by image.
-            h_m, w_m = mosaics.shape[1], mosaics.shape[2]
-            shaped = _geometry.reshapes((h_m, w_m), long_edge, rotate, crop,
-                                        lens, perspective)
-
-            def shape(out, kind):
-                return torch.stack([_geometry.shape_output(
-                    img, kind, long_edge, rotate, crop, lens, perspective)
-                    for img in out[:len(batch)]])
-
-            def route(name):
-                rec.count("develop.slots." + name, batch_size)
-
-            if bits == 16:
-                # The 16-bit lane: extras in the chain (the words pass is
-                # 8-bit), the exact transfer.
-                route("linear" if linear else "plain")
-                mode16 = "+".join(
-                    part for part, on in (("base", ex_on and stencils),
-                                          ("mixer", ex_on and mixer_on),
-                                          ("grading", ex_on and grading_on))
-                    if on) or False
-                out = batch_develop_u16(
-                    mosaics, params, wbs, cms, whites, blacks,
-                    matrix_transpose=matrix_transpose,
-                    cfa_phase=(0, 0) if xtrans else phase,
-                    pattern=phase if xtrans else None, transfer=transfer16,
-                    demosaic_method=(generic_cfa_method(demosaic_method)
-                                     if xtrans else demosaic_method),
-                    extras=mode16, linear=linear)
-                if shaped:
-                    out = shape(out, "u16")
-                return out, _record_event(device)
-            # Point curves ride the plain lane's finish; the develop
-            # kernels do not compute them.
-            curve_on = bool(batch[0].job.params.point_curve)
-            planes = "rgba_words"
-            if jpeg_planes_ok and not shaped:
-                if chroma == "444":
-                    planes = "ycbcr444"
-                elif h_m % 2 == 0 and w_m % 2 == 0:
-                    planes = "ycbcr420"
-            if linear:
-                # No develop kernel: the plain lane on either route, as
-                # the JAX exporter's XLA lane.
-                route("linear")
-                out = batch_develop_linear_rgba(
-                    mosaics, params, wbs, cms, whites, blacks,
-                    matrix_transpose=matrix_transpose, transfer=transfer,
-                    output="rgba_words" if ex_on else planes)
-            elif kernel_ok and not curve_on:
-                cfa = (dict(pattern=phase,
-                            demosaic=generic_cfa_method(demosaic_method))
-                       if xtrans else dict(cfa_phase=phase,
-                                           demosaic=demosaic_method))
-                scal = to_device(pack_params(params, wbs, cms, whites,
-                                             blacks, matrix_transpose))
-                output = ("ycbcr420" if planes == "ycbcr420" and not ex_on
-                          else "rgba")
-                route(("cfa_" if xtrans else "") + cfa["demosaic"] + (
-                    ".planes" if output == "ycbcr420" else ".rgba"))
-                if (xtrans and cfa["demosaic"] == "grad"
-                        and _fused.period6_march(phase)):
-                    rec.count("cfa_grad.period6_slots", batch_size)
-                out = _fused.fused_batch_develop_rgba(
-                    mosaics, scal, gamma=gamma, output=output, **cfa)
-            else:
-                route("plain")
-                lane = dict(matrix_transpose=matrix_transpose,
-                            transfer=transfer,
-                            output="rgba_words" if ex_on else planes)
-                if xtrans:
-                    out = batch_develop_xtrans_rgba(
-                        mosaics, params, wbs, cms, whites, blacks,
-                        pattern=phase,
-                        demosaic_method=generic_cfa_method(demosaic_method),
-                        **lane)
-                else:
-                    out = batch_develop_rgba(
-                        mosaics, params, wbs, cms, whites, blacks,
-                        cfa_phase=phase, demosaic_method=demosaic_method,
-                        **lane)
-            if ex_on:
-                # Extras on every route run the post-pass kernel over the
-                # develop's words (its plain version for CPU tensors),
-                # every slot of the padded batch.
-                rec.count("extras.slots", batch_size)
-                rec.count("extras.asked", sum(
-                    d.job.params.has_finish_extras() for d in batch))
-                out = _fx.fused_finish_extras_rgba(
-                    out, to_device(table), mixer_on=mixer_on,
-                    grading_on=grading_on, stencils=stencils,
-                    output="ycbcr420" if planes == "ycbcr420" else "rgba")
-            if shaped:
-                out = shape(out, "words")
-                h_o, w_o = out.shape[1], out.shape[2]
-                if jpeg_planes_ok and chroma == "444":
-                    planes = "ycbcr444"
-                elif jpeg_planes_ok and h_o % 2 == 0 and w_o % 2 == 0:
-                    planes = "ycbcr420"
-            if planes != "rgba_words" and not isinstance(out, tuple):
-                out = (rgba_words_to_ycbcr444(out) if planes == "ycbcr444"
-                       else rgba_words_to_ycbcr420(out))
-            return out, _record_event(device)
-
-        def flush(batch: List[_Decoded], encode_pool: ThreadPoolExecutor):
-            seq = next(flush_numbers)
-            try:
-                with rec.span("export.flush", image=[d.image for d in batch],
-                              batch=seq) as span:
-                    for d in batch:
-                        rec.interval("queue.batch", d.decoded_ns,
-                                     span.start_ns, image=d.image, batch=seq)
-                    out, done = _flush_dispatch(batch, seq)
-            except Exception as e:  # a develop or kernel failure:
-                # quarantine the batch like any per-image failure instead
-                # of killing a long run; never route around the kernel.
-                for d in batch:
-                    report.failed.append((d.job.raw_path, f"develop: {e}"))
-                    _note_progress()
-                return
-            finally:
-                # Release the staging budget only now: until dispatch the
-                # staged buffers were the live copies.
-                for d in batch:
-                    if d.staged is not None:
-                        _stage_budget_release(d.staged_nbytes)
-                        d.staged = None
-                        d.staged_nbytes = 0
-            inflight.append(
-                (fetch_pool.submit(_fetch_batch, out, batch, done, seq),
-                 batch, seq))
-            drain_inflight(encode_pool, depth=1)
-            if _arena_cap:
-                # The batch's host buffers were just freed; hand the pages
-                # back instead of letting arenas retain them.
-                with rec.span("export.trim", batch=seq, profiler=True):
-                    trim_malloc()
-
-        with ThreadPoolExecutor(decode_threads) as decode_pool, \
-                ThreadPoolExecutor(encode_threads) as encode_pool, \
-                ThreadPoolExecutor(1) as fetch_pool, \
-                ThreadPoolExecutor(1) as upload_pool, \
-                _on(device):
-            uploader = _Uploader(upload_pool, device, rec)
-            batcher = _Batcher(batch_size)
-            window = max(2 * batch_size, decode_threads * 2)
-            pending: List[Tuple[Future, ExportJob, object]] = []
-            job_iter = iter(work)
-
-            def submit_next() -> bool:
-                image, job = next(job_iter, (None, None))
-                if job is None:
-                    return False
-                pending.append(
-                    (decode_pool.submit(_decode_job, job, mode, uploader,
-                                        color_space, rec, image), job, image)
-                )
-                return True
-
-            for _ in range(window):
-                if not submit_next():
-                    break
-
-            while pending:
-                fut, job, image = pending.pop(0)
-                try:
-                    with rec.span("export.wait_decode", image=image,
-                                  profiler=True):
-                        decoded = fut.result()[0]
-                except Exception as e:
-                    report.failed.append((job.raw_path, f"decode: {e}"))
-                    _note_progress()
-                else:
-                    report.decode_megapixels += (
-                        decoded.mosaic.shape[0] * decoded.mosaic.shape[1]
-                        / 1e6)
-                    full = batcher.add(decoded)
-                    if full is not None:
-                        flush(full, encode_pool)
-                submit_next()
-
-            for bucket in batcher.drain():
-                flush(bucket, encode_pool)
-            drain_inflight(encode_pool, depth=0)
-
-            with rec.span("export.wait_encode", profiler=True):
-                for fut, job in encode_futures:
-                    wait_encode(fut, job)
-                    _note_progress()
-            _note_progress(force=True)
-
-    finally:
-        # Always balance the run counter: an exception escaping this
-        # function must not leave _stage_runs stuck above 0 (that would
-        # disable the leaked-budget self-healing in _stage_run_begin).
-        _stage_run_end()
-    report.seconds = time.perf_counter() - t_start
-
-    def total(*names):
-        return sum(rec.totals.get(n, 0.0) for n in names)
-
-    # One measurement per boundary: the report's seconds are the spans'.
-    report.decode_seconds = total("decode")
-    report.stage_seconds = total("stage.pack")
-    report.device_seconds = total("fetch.wait")
-    report.fetch_seconds = total("fetch.copy")
-    report.upload_seconds = total("export.wait_upload", "export.stage")
-    report.encode_seconds = total("export.wait_encode")
-    report.stages = rec.report()
-    report.timer = rec
+    report = _ExportRun(
+        work, report, rec, device, batch_size=batch_size,
+        decode_threads=decode_threads, encode_threads=encode_threads,
+        quality=quality, mode=mode, matrix_transpose=matrix_transpose,
+        transfer=transfer, demosaic_method=demosaic_method,
+        use_kernel=use_kernel, bits=bits, jpeg_optimize=jpeg_optimize,
+        chroma=chroma, jpeg_restart_rows=jpeg_restart_rows,
+        color_space=color_space,
+        shaping=(long_edge, rotate, crop, lens, perspective), icc=icc,
+        jpeg_planes_ok=jpeg_planes_ok, arena_cap=arena_cap,
+        on_progress=on_progress).run()
     global LAST_REPORT
     LAST_REPORT = report.as_dict()
     return report
@@ -1293,3 +1254,4 @@ def jobs_from_catalog(lib, out_dir: os.PathLike,
             )
         )
     return jobs
+

@@ -112,6 +112,21 @@ def _recorders(monkeypatch):
     return seen
 
 
+@pytest.fixture
+def budgets(monkeypatch):
+    """The staging budget of every ``run_batch_export`` call the test
+    makes, in call order."""
+    made = []
+
+    class Recorded(pex._StageBudget):
+        def __init__(self, limit):
+            super().__init__(limit)
+            made.append(self)
+
+    monkeypatch.setattr(pex, "_StageBudget", Recorded)
+    return made
+
+
 def _lsb(a, b):
     return int(np.abs(np.asarray(a).astype(int)
                       - np.asarray(b).astype(int)).max())
@@ -291,7 +306,7 @@ def test_failures_quarantine_their_job(case, tmp_path):
 
 @pytest.mark.parametrize("wrapper", ["develop", "extras"])
 def test_failing_kernel_quarantines_its_batch(wrapper, tmp_path,
-                                              monkeypatch):
+                                              monkeypatch, budgets):
     """A kernel wrapper that raises (a build or launch failure on the
     card) quarantines its batch as "develop: ..."; no flush routes
     around it to the plain lane, and the staging budget is returned."""
@@ -315,7 +330,7 @@ def test_failing_kernel_quarantines_its_batch(wrapper, tmp_path,
                                use_kernel=True)
     assert rep.succeeded == 0 and len(rep.failed) == 3
     assert all(m.startswith("develop: injected") for _, m in rep.failed)
-    assert pex._stage_used == 0
+    assert len(budgets) == 1 and budgets[0].used == 0
     assert not any(os.path.exists(j.out_path) for j in jobs)
 
 

@@ -38,6 +38,7 @@ from raweditor_tpu_torch import DevelopEngine, EditParams
 from raweditor_tpu_torch.ops import develop as dev
 from raweditor_tpu_torch.parallel import batch as pbatch
 from raweditor_tpu_torch.pipeline import export as pex
+from raweditor_tpu_torch.pipeline.frame import FrameKind
 from raweditor_tpu_torch.raw import synth
 
 SLIDERS = dict(exposure=0.4, contrast=6.0, highlights=-0.3, shadows=0.2,
@@ -441,15 +442,16 @@ def test_staging_passes_a_linear_frame_unpacked(rng, tmp_path):
     """A LinearRaw frame stages unpacked and bit-exact (the JAX exporter
     packs only 2-D u16 mosaics), with the upload bytes of the JAX run."""
     path = _dng(tmp_path, rng)
-    frame = pex._decode_job(pex.ExportJob(path, "x.jpg"), "accurate")[0]
-    assert frame.cfa_phase == pex.LINEAR == "__linear__"
+    frame = pex._decode_job(pex.ExportJob(path, "x.jpg"), "accurate")
+    assert frame.kind == FrameKind(linear=True)
+    budget = pex._StageBudget(pex._STAGE_BUDGET)
     with ThreadPoolExecutor(1) as pool:
         up = pex._Uploader(pool, torch.device("cpu"))
-        d, _, _ = pex._decode_job(pex.ExportJob(path, "x.jpg"), "accurate",
-                                  up)
+        d = pex._decode_job(pex.ExportJob(path, "x.jpg"), "accurate", up,
+                            budget)
         assert d.staged_fmt == "raw" and d.staged_nbytes == d.mosaic.nbytes
+        assert budget.used == d.staged_nbytes
         t, event, _ = d.staged.result()
-        pex._stage_budget_release(d.staged_nbytes)
     assert event is None and t.dtype == torch.uint16
     np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16),
                                   frame.mosaic)

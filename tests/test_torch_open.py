@@ -22,7 +22,10 @@ from raweditor_tpu_torch import DevelopEngine, EditParams, RawImage
 from raweditor_tpu_torch.ops import fused_develop as fd
 from raweditor_tpu_torch.ops.cfa_generic import XTRANS_PATTERN
 from raweditor_tpu_torch.ops.develop import rgba_view
+from raweditor_tpu_torch.pipeline import export as pex
+from raweditor_tpu_torch.pipeline.frame import classify
 from raweditor_tpu_torch.raw import raf, synth
+from raweditor_tpu_torch.raw.decode import decode_raw
 from raweditor_tpu_torch.utils import device as device_mod
 
 SLIDERS = dict(exposure=0.5, contrast=6.0, highlights=-0.3, shadows=0.2,
@@ -50,6 +53,24 @@ def _write(tmp_path, kind):
         path.write_bytes(raf.write_raf(mosaic, model="X-T2",
                                        wb_grbg=(256, 512, 384, 256)))
     return path, mosaic
+
+
+def _write_cfa(tmp_path, cfa):
+    """A file of each CFA kind: a Bayer DNG of the pattern ``cfa``, an
+    X-Trans RAF (``"xtrans"``) or a LinearRaw DNG (``"linear"``)."""
+    rng = np.random.default_rng(4243)
+    if cfa == "xtrans":
+        return _write(tmp_path, "raf")[0]
+    path = tmp_path / f"{cfa}.dng"
+    if cfa == "linear":
+        synth.write_synthetic_linear_dng(
+            path, rng.integers(0, 4096, size=(24, 36, 3), dtype=np.uint16),
+            bpp=12, wb_neutral=(0.55, 1.0, 0.7), black_level=64)
+    else:
+        synth.write_synthetic_raw(
+            path, rng.integers(0, 4096, size=(24, 36), dtype=np.uint16),
+            black_level=150, white_level=4095, cfa=cfa, preview_jpeg=b"")
+    return path
 
 
 def _diff(a, b):
@@ -86,6 +107,32 @@ def test_open_matches_jax(kind, mode, tmp_path):
         mx, share = _diff(port.full(p), np.asarray(ref.full(jp)))
         print(f"{kind} {mode} full: max {mx} LSB, differing {share:.2e}")
         assert mx <= 1
+
+
+@pytest.mark.parametrize("mode", ["parity", "accurate"])
+@pytest.mark.parametrize("cfa", ["RGGB", "GRBG", "GBRG", "BGGR", "xtrans",
+                                 "linear"])
+def test_frame_kind_matches_jax(cfa, mode, tmp_path):
+    """``pipeline/frame.classify`` gives the JAX engine's Bayer phase,
+    X-Trans pattern, LinearRaw flag and levels for each CFA kind in both
+    modes, and the port's engine and exporter both take its answer."""
+    path = _write_cfa(tmp_path, cfa)
+    ref = JaxEngine.open(path, mode=mode, **VIEW)
+    raw = decode_raw(str(path))
+    kind, white, black = classify(raw, mode)
+    assert (kind.cfa_phase, kind.xtrans_pattern, kind.linear, white,
+            black) == (tuple(ref.cfa_phase), ref.xtrans_pattern,
+                       bool(ref.linear), ref.white_level, ref.black_level)
+    assert kind.linear == (cfa == "linear")
+    assert (kind.xtrans_pattern is not None) == (cfa == "xtrans"
+                                                 and mode == "accurate")
+    port = DevelopEngine(raw, mode=mode, device="cpu", **VIEW)
+    assert (port.kind, port.cfa_phase, port.xtrans_pattern, port.linear,
+            port.white_level, port.black_level) == (
+        kind, kind.cfa_phase, kind.xtrans_pattern, kind.linear, white, black)
+    frame = pex._decode(pex.ExportJob(str(path), "x.jpg"), mode, "srgb")
+    assert (frame.kind, frame.white_level, frame.black_level) == (
+        kind, white, black)
 
 
 @pytest.mark.parametrize("use_kernel", [False, True])

@@ -88,7 +88,22 @@ def test_out_of_contract_inputs_raise(bits, rng):
         unpack(torch.zeros((4, group * 2), dtype=torch.int16))
 
 
-def test_export_stages_u12_and_u14_as_jax(tmp_path, rng):
+@pytest.fixture
+def budgets(monkeypatch):
+    """The staging budget of every ``run_batch_export`` call the test
+    makes, in call order."""
+    made = []
+
+    class Recorded(pex._StageBudget):
+        def __init__(self, limit):
+            super().__init__(limit)
+            made.append(self)
+
+    monkeypatch.setattr(pex, "_StageBudget", Recorded)
+    return made
+
+
+def test_export_stages_u12_and_u14_as_jax(tmp_path, rng, budgets):
     """A run with 12-bit and 14-bit files (and a 14-bit file too narrow
     to pack, staged as u16) uploads the JAX exporter's byte count and
     writes the same pixels."""
@@ -115,7 +130,7 @@ def test_export_stages_u12_and_u14_as_jax(tmp_path, rng):
     for a, b in zip(port_jobs, ref_jobs):
         np.testing.assert_array_equal(np.asarray(Image.open(a.out_path)),
                                       np.asarray(Image.open(b.out_path)))
-    assert pex._stage_used == 0
+    assert len(budgets) == 1 and budgets[0].used == 0
 
 
 def test_over_budget_mosaics_upload_at_flush(tmp_path, rng, monkeypatch):
@@ -138,7 +153,8 @@ def test_over_budget_mosaics_upload_at_flush(tmp_path, rng, monkeypatch):
     np.testing.assert_array_equal(outs[0], outs[1])
 
 
-def test_staging_budget_under_contention(tmp_path, rng, monkeypatch):
+def test_staging_budget_under_contention(tmp_path, rng, monkeypatch,
+                                        budgets):
     """Sixteen decode workers (more than the cores) race for a budget that
     holds three packed mosaics, with a short switch interval: every image
     still comes out equal to an unstaged run, and the budget returns to
@@ -168,7 +184,8 @@ def test_staging_budget_under_contention(tmp_path, rng, monkeypatch):
     finally:
         sys.setswitchinterval(old)
     assert rep.succeeded == 12 and not rep.failed
-    assert pex._stage_used == 0
+    assert len(budgets) == 2 and budgets[1].limit == 3 * packed
+    assert budgets[1].used == 0
     assert packed <= rep.upload_bytes <= 12 * packed
     for a, b in zip(jobs, plain_jobs):
         np.testing.assert_array_equal(np.asarray(Image.open(a.out_path)),
