@@ -7,9 +7,9 @@ Builds the CUDA kernels from ``raweditor_tpu_torch/csrc`` (one nvcc per
 source, five sources started together), holds the staging kernel against
 its plain version (``staging()``: seeded packed bytes of 4016x6016 u12
 and 4000x6000 u14 frames, and of frames whose packed rows are no multiple
-of 16, into one, three and eight slots, the padding replaying the first
-source, once with the sources copied on a stream of their own; a u16
-copy of a 3-D frame; every byte equal, one launch a call) and times it
+of 16, into one, three and eight slots, the slots past five sources
+repeating the first (the kernel takes repeated sources), once with the
+sources copied on a stream of their own; a u16 copy of a 3-D frame; every byte equal, one launch a call) and times it
 for one and eight slots beside the plain chain the exporter ran before it
 and its bound (``kernel_ab.time_staging``; these calls are counted in no
 reported launch count), makes seeded 24 MP 12-bit frames (4016x6016 Bayer,
@@ -62,7 +62,8 @@ just after:
   launch exactly its kernels (A: B4 planes twice, B4 words and B8 planes
   once each, B7 planes once; B: B2 planes three times, B1 words and B8
   planes once each; A and B: the staging kernel once a flush, four
-  times, unpacking all 16 slots; C: nothing), and every JPEG must equal,
+  times, unpacking 12 slots, one an image, as every flush launches at its
+  own length (4, 1, 4 and 3); C: nothing), and every JPEG must equal,
   byte for
   byte, ``DevelopEngine.open(...).export(...)`` of the same file and edit
   with the same flags. It prints each run's ``ExportReport``. With
@@ -450,18 +451,23 @@ def reset(launches):
 
 
 def staged_flushes(rep):
-    """The flushes of a ``run_batch_export`` report that filled their
-    batch through the staging kernel, from its counters: every flush but
-    those with nothing staged, which upload their batch whole and count no
-    slot. Checks that such a flush's slots are the only ones left out."""
+    """The flushes of a ``run_batch_export`` report (a call with
+    ``trace_spans=True``) that filled their batch through the staging
+    kernel: every flush but those none of whose images went to the upload
+    thread, which upload their own images whole and count no staging
+    slot. Checks from the counters that those flushes' images are the
+    only slots the staging counters leave out."""
     c = rep.stages["counters"]
-    flushes = rep.stages["spans"].get("export.stage", {}).get("count", 0)
-    missed = (c["slots.developed"] + c["slots.padded"]
-              - c["staging.slots_unpacked"] - c["staging.slots_copied"]
-              - c["staging.slots_uploaded"])
-    check(missed >= 0 and missed % EXPORT_BATCH == 0,
-          f"staging counters {c} over {flushes} flushes")
-    return flushes - missed // EXPORT_BATCH
+    log = rep.timer.log
+    uploaded = {e["image"] for e in log if e["name"] == "upload"}
+    flushes = [e["image"] for e in log if e["name"] == "export.flush"]
+    bare = [f for f in flushes if not uploaded.intersection(f)]
+    missed = (c["slots.developed"] - c["staging.slots_unpacked"]
+              - c["staging.slots_copied"] - c["staging.slots_uploaded"])
+    check(missed == sum(len(f) for f in bare),
+          f"staging counters {c} over flushes {flushes}, {len(bare)} of "
+          "them with nothing staged")
+    return len(flushes) - len(bare)
 
 
 def host_once(fn):
@@ -830,7 +836,7 @@ def batch_export(tmpdir, edit, xedit, smi, profile=False):
         reset(fx.LAUNCHES)
         reset(st.LAUNCHES)
         rep = run_batch_export(jobs, batch_size=EXPORT_BATCH, use_kernel=True,
-                               quality=95, **kw)
+                               quality=95, trace_spans=True, **kw)
         torch.cuda.synchronize()
         launched[name] = {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES,
                                             **st.LAUNCHES}.items() if v}
@@ -850,9 +856,10 @@ def batch_export(tmpdir, edit, xedit, smi, profile=False):
         check(launched[name] == want[name],
               f"run {name} launched {launched[name]}, expected {want[name]}")
         counters = rep.stages["counters"]
+        # One staged slot an image: every flush at its own length.
         check(staged_flushes(rep) == want[name].get("unpack_slots", 0)
               and counters["staging.slots_unpacked"]
-              == EXPORT_BATCH * want[name].get("unpack_slots", 0),
+              == counters["slots.developed"] == rep.succeeded,
               f"run {name}: staging counters {counters}")
         jobs_of[name] = jobs
         if name == "A":
@@ -898,10 +905,10 @@ def staging(smi):
     """The staging kernel (``ops/staging.unpack_into_batch``,
     ``csrc/staging.cu``) on the card against its plain version: seeded
     packed bytes (any byte pattern decodes) of each frame into one slot,
-    three slots and eight slots from five sources (the padding replaying
-    the first, as the exporter's flush does), once more with the sources
-    copied on a stream of their own that the batch's stream waits for, and
-    a u16 copy of a LinearRaw-shaped frame; one launch a call, every byte
+    three slots and eight slots from five sources (the last three
+    repeating the first, which the kernel supports), once more with the
+    sources copied on a stream of their own that the batch's stream waits
+    for, and a u16 copy of a LinearRaw-shaped frame; one launch a call, every byte
     equal. Times the kernel at the main path's frames for one and eight
     slots beside the plain chain the exporter ran before it (an unpack a
     source, then ``torch.stack``) and the bound (each distinct source's
@@ -1413,7 +1420,8 @@ def gamut(tmpdir, edit, xedit, smi):
     for name, jobs in (("D", jobs_d), ("E", jobs_e)):
         before = launched()
         rep = run_batch_export(jobs, batch_size=EXPORT_BATCH, quality=95,
-                               use_kernel=True, **runs[name])
+                               use_kernel=True, trace_spans=True,
+                               **runs[name])
         torch.cuda.synchronize()
         moved = {k: v - before.get(k, 0) for k, v in launched().items()
                  if v != before.get(k, 0)}
@@ -1427,7 +1435,7 @@ def gamut(tmpdir, edit, xedit, smi):
               f"expected {want_runs[name]}")
         check(staged_flushes(rep) == want_runs[name]["unpack_slots"]
               and rep.stages["counters"]["staging.slots_unpacked"]
-              == EXPORT_BATCH * want_runs[name]["unpack_slots"],
+              == rep.stages["counters"]["slots.developed"] == n_ok,
               f"run {name}: staging counters {rep.stages['counters']}")
     lib.close()
     torch.cuda.synchronize()
@@ -1815,7 +1823,7 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     st.unpack_into_batch = counted_fill
     try:
         rep = run_batch_export(jobs_f, batch_size=EXPORT_BATCH, quality=95,
-                               use_kernel=True, **run_f)
+                               use_kernel=True, trace_spans=True, **run_f)
     finally:
         st.unpack_into_batch = real_fill
     torch.cuda.synchronize()
@@ -1838,9 +1846,9 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     check(run_launches == want_f and len(fills) == f_staged,
           f"run F launched {run_launches}, expected {want_f}; fills "
           f"{fills}")
-    # The LinearRaw frames' batches, (4, H, W, 3): every slot copied from
-    # u16 samples (a staged frame, or a replay of one uploaded into its
-    # slot) or uploaded, never unpacked.
+    # The LinearRaw frames' batches, (n, H, W, 3): every slot copied from
+    # a staged frame's u16 samples or uploaded into its slot, never
+    # unpacked.
     linear_fills = [f for shape, f in fills if len(shape) == 4]
     check(linear_fills and all(set(f) <= {"u16", None}
                                for f in linear_fills),
@@ -1848,7 +1856,7 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     log(f"run F: staging launches {f_staged} of "
         f"{rep.stages['spans']['export.stage']['count']} flushes, LinearRaw "
         f"slots copied as u16 {sum(f.count('u16') for f in linear_fills)} "
-        f"of {EXPORT_BATCH * len(linear_fills)} [{smi}]")
+        f"of {sum(len(f) for f in linear_fills)} [{smi}]")
 
     # -- checks outside the counted phase ----------------------------------
     errs = {}

@@ -5,25 +5,28 @@ The PyTorch port of the JAX package's ``pipeline/export.py`` on its
 single-device route (``mesh=None``)::
 
     decode pool ──▶ staging ──▶ shape buckets ──▶ one develop per ──▶ fetch ──▶ encode
-    (host threads,  (bit-packed, (padded to a      flush: the fused    thread   pool
-     raw/decode)     pinned, own  fixed batch      batch kernel, B8             (_rawkit
-                     CUDA stream) shape)           after it for extras)         or PIL)
+    (host threads,  (bit-packed, (up to batch_size flush: the fused    thread   pool
+     raw/decode)     pinned, own  images, launched batch kernel, B8             (_rawkit
+                     CUDA stream) at their length) after it for extras)         or PIL)
 
 - Decode workers run ahead of the card through a bounded window. Each
   mosaic is bit-packed on the host (``ops/staging.py``: 12-bit at 1.5
   bytes a pixel, 14-bit at 1.75) and handed to one upload thread, which
   copies it into pinned memory and on to the card with ``non_blocking``
   on a CUDA stream of its own and records an event. The flush makes the
-  compute stream wait on that event, then fills the (B, H, W) u16 batch
+  compute stream wait on that event, then fills the (n, H, W) u16 batch
   from the staged buffers in one launch of the staging kernel
   (``ops/staging.unpack_into_batch``).
   The staged bytes are held under the call's budget (``_StageBudget``
   of ``_STAGE_BUDGET`` bytes); over it, a mosaic uploads at flush time
   instead.
 - Mosaics are bucketed by shape, CFA kind (``pipeline/frame.FrameKind``),
-  extras, locals structure and point-curve length (``_Batcher``) and
-  each batch is padded to a fixed size by replaying its first frame,
-  whose copies are never encoded.
+  extras, locals structure and point-curve length (``_Batcher``). A
+  bucket flushes when it holds ``batch_size`` images, and at the end of
+  the call with what it holds; every flush is staged, developed and
+  fetched at its own length n (the kernels take the batch from the
+  mosaics' first dimension), so no slot is developed for an image that
+  is never written.
 - Each flush launches one develop. With ``use_kernel`` and no point
   curve in the bucket (``pipeline/frame.kernel_route``, the engine's
   rule too) it is the fused batch kernel
@@ -68,8 +71,8 @@ single-device route (``mesh=None``)::
   chain) and writes uncompressed RGB TIFFs (``_encode_one_tiff16``).
 - A fetch thread waits on an event recorded after the flush's launches
   (not on a device-wide sync, which would also wait for the next flush's
-  upload), slices the padding off on the card and copies the rest to
-  the host on a stream of its own; an encode pool writes the files:
+  upload) and copies the batch to the host on a stream of its own; an
+  encode pool writes the files:
   ``_rawkit``'s JFIF encoder for planes, PIL for RGBA PNG and odd 4:2:0
   JPEG. All launches stay on the calling thread. An all-JPEG run
   requires the native encoder before it reads a file; it never hands
@@ -84,16 +87,18 @@ single-device route (``mesh=None``)::
   ``export.trim``), the queue waits ``queue.batch`` (decode end to the
   image's flush) and ``queue.encode`` (fetch end to the encode), and
   counters of bytes moved through pinned and pageable memory, of batch
-  slots developed and padded, of the slots the staging kernel unpacked
-  from packed bytes and copied from u16 samples and of those uploaded at
-  flush straight into the batch, of the slots the extras kernel ran
-  over against the images that asked for extras, and of the slots each
-  develop route ran over, padding included (``develop.slots.<route>``:
-  the kernel's demosaic and output, as ``grad.planes`` or
-  ``cfa_grad.rgba``, or the plain lane's ``plain`` and ``linear``; one
-  counter a route that ran, summing to the slots developed and padded;
-  of the ``cfa_grad`` slots, those on the X-Trans grad kernel's period-6
-  march also as ``cfa_grad.period6_slots``).
+  slots developed (one an image) and of those a flush short of
+  ``batch_size`` left unfilled (``slots.unfilled``: what a fixed-shape
+  launch would have developed and no kernel touches), of the slots the
+  staging kernel unpacked from packed bytes and copied from u16 samples
+  and of those uploaded at flush straight into the batch, of the slots
+  the extras kernel ran over against the images that asked for extras,
+  and of the slots each develop route ran over
+  (``develop.slots.<route>``: the kernel's demosaic and output, as
+  ``grad.planes`` or ``cfa_grad.rgba``, or the plain lane's ``plain``
+  and ``linear``; one counter a route that ran, summing to the slots
+  developed; of the ``cfa_grad`` slots, those on the X-Trans grad
+  kernel's period-6 march also as ``cfa_grad.period6_slots``).
   ``ExportReport``'s seconds are reads of those spans, and
   ``report.stages`` holds them all (the CLI's one report line). The
   span log, each span with its thread, image id, flush number and
@@ -158,7 +163,7 @@ LAST_REPORT: Optional[dict] = None
 
 # The counters every call reports, 0 where nothing was counted.
 COUNTERS = ("transfer.pinned_bytes", "transfer.pageable_bytes",
-            "slots.developed", "slots.padded", "extras.slots",
+            "slots.developed", "slots.unfilled", "extras.slots",
             "extras.asked", "staging.slots_unpacked", "staging.slots_copied",
             "staging.slots_uploaded")
 
@@ -193,8 +198,7 @@ class ExportReport:
     device_seconds: float = 0.0
     # The calling thread's waits on its encode pool (``export.wait_encode``).
     encode_seconds: float = 0.0
-    # Device-to-host copy of the developed batches (padding sliced off
-    # on the card first; ``fetch.copy``).
+    # Device-to-host copy of the developed batches (``fetch.copy``).
     fetch_seconds: float = 0.0
     fetch_bytes: int = 0
     # Host-to-device staging: the bytes uploaded, and the host's wait for
@@ -484,7 +488,8 @@ def _encode_one(out_path: str, rgba_words: np.ndarray, quality: int,
 
 
 class _Batcher:
-    """Shape-bucketed batching with pad-to-fixed-size semantics."""
+    """Shape-bucketed batching: ``add`` returns a bucket once it holds
+    ``batch_size`` images, ``drain`` the rest, each at its own length."""
 
     def __init__(self, batch_size: int):
         self.batch_size = batch_size
@@ -733,9 +738,8 @@ class _ExportRun:
         return t.to(self.device) if out is None else out.copy_(t)
 
     def flush(self, batch: List[_Decoded]) -> None:
-        """``export.flush``: the batch padded to the fixed batch shape
-        (padding replays item 0 and is dropped before encode), staged and
-        developed, then handed to the fetch thread; results are taken one
+        """``export.flush``: the batch staged and developed at its own
+        length, then handed to the fetch thread; results are taken one
         batch behind."""
         rec, seq = self.rec, next(self.flush_numbers)
         try:
@@ -744,13 +748,12 @@ class _ExportRun:
                 for d in batch:
                     rec.interval("queue.batch", d.decoded_ns, span.start_ns,
                                  image=d.image, batch=seq)
-                padded = batch + [batch[0]] * (self.batch_size - len(batch))
-                mosaics = self.stage_batch(batch, padded, seq)
+                mosaics = self.stage_batch(batch, seq)
                 with rec.span("export.launch", batch=seq,
                               parent="export.flush"):
                     rec.count("slots.developed", len(batch))
-                    rec.count("slots.padded", self.batch_size - len(batch))
-                    out, done = self.develop(batch, padded, mosaics)
+                    rec.count("slots.unfilled", self.batch_size - len(batch))
+                    out, done = self.develop(batch, mosaics)
         except Exception as e:  # a develop or kernel failure:
             # quarantine the batch like any per-image failure instead of
             # killing a long run; never route around the kernel.
@@ -777,11 +780,12 @@ class _ExportRun:
             with rec.span("export.trim", batch=seq, profiler=True):
                 trim_malloc()
 
-    def stage_batch(self, batch, padded, seq) -> torch.Tensor:
-        """The (B, H, W) u16 batch on the device: the staged buffers
-        (waited for on this thread's stream) unpacked or copied into
-        their slots in one launch, a mosaic with none uploaded into its
-        slot; else, with nothing staged, one flush-time upload."""
+    def stage_batch(self, batch, seq) -> torch.Tensor:
+        """The (n, H, W) u16 batch on the device, a slot an image: the
+        staged buffers (waited for on this thread's stream) unpacked or
+        copied into their slots in one launch, a mosaic with none
+        uploaded into its slot; else, with nothing staged, one flush-time
+        upload of the n mosaics."""
         from raweditor_tpu_torch.ops.staging import unpack_into_batch
 
         # Resolve the upload futures first: one the upload thread
@@ -801,20 +805,19 @@ class _ExportRun:
         with self.rec.span("export.stage", batch=seq, parent="export.flush"):
             if not any(d.staged is not None for d in batch):
                 return self.to_device(_host_tensor(np.stack(
-                    [d.mosaic for d in padded])))
+                    [d.mosaic for d in batch])))
             # Use every staged buffer (an over-budget straggler must not
             # discard the bytes already copied); items without one upload
             # into their slot here, before the launch.
-            mosaics = torch.empty((len(padded),) + batch[0].mosaic.shape,
+            mosaics = torch.empty((len(batch),) + batch[0].mosaic.shape,
                                   dtype=torch.uint16, device=self.device)
             sources, fmts = [], []
             late_bytes = 0
-            slot_of = {}  # padding replays batch[0]: its first slot
-            for i, d in enumerate(padded):
+            for i, d in enumerate(batch):
                 src, fmt = None, None
                 if d.staged is not None:
                     buf, done, _ = d.staged
-                    if done is not None and id(d) not in slot_of:
+                    if done is not None:
                         # The copy ran on the upload stream: this stream
                         # waits for it, and the allocator must not hand
                         # the buffer back to the upload stream while this
@@ -824,13 +827,10 @@ class _ExportRun:
                         buf.record_stream(stream)
                     src = buf
                     fmt = "u16" if d.staged_fmt == "raw" else d.staged_fmt
-                elif id(d) in slot_of:  # a replay of an uploaded item
-                    src, fmt = mosaics[slot_of[id(d)]], "u16"
                 else:
                     late = _host_tensor(d.mosaic)
                     late_bytes += late.numel() * late.element_size()
                     self.to_device(late, mosaics[i])
-                slot_of.setdefault(id(d), i)
                 sources.append(src)
                 fmts.append(fmt)
             unpack_into_batch(mosaics, sources, fmts)
@@ -842,24 +842,24 @@ class _ExportRun:
             d.staged_nbytes for d in batch if d.staged is not None)
         return mosaics
 
-    def develop(self, batch, padded, mosaics):
+    def develop(self, batch, mosaics):
         """``export.launch``: the flush's develop on its route (module
         docstring), the extras post-pass, the output stage and the JPEG
         planes. Returns the output and an event recorded after it."""
         kind = batch[0].kind
-        params = [d.job.params for d in padded]
-        wbs = np.stack([d.wb for d in padded])
-        whites = np.array([d.white_level for d in padded], np.float32)
-        blacks = np.array([d.black_level for d in padded], np.float32)
+        params = [d.job.params for d in batch]
+        wbs = np.stack([d.wb for d in batch])
+        whites = np.array([d.white_level for d in batch], np.float32)
+        blacks = np.array([d.black_level for d in batch], np.float32)
         # Clipped-highlight reconstruction, gated on the flush: the
         # per-image amounts keep zero-amount images bit-exact, so a mixed
         # batch needs no split. Every route below sees a plain u16 batch.
         if any(float(d.job.params.highlight_recovery) != 0.0
                for d in batch):
-            mosaics = self.reconstruct(kind, padded, mosaics, wbs, whites,
+            mosaics = self.reconstruct(kind, batch, mosaics, wbs, whites,
                                        blacks)
         # The per-image inputs every develop lane takes after the mosaics.
-        inputs = (params, wbs, np.stack([d.cam_matrix for d in padded]),
+        inputs = (params, wbs, np.stack([d.cam_matrix for d in batch]),
                   whites, blacks)
         # Finish extras: the batch's static flags, ORed over its images
         # (zero-amount images inside such a batch develop within 1 LSB
@@ -874,7 +874,7 @@ class _ExportRun:
         if self.bits == 16:
             # The 16-bit lane: extras in the chain (the words pass is
             # 8-bit), the exact transfer.
-            self.route("linear" if kind.linear else "plain")
+            self.route("linear" if kind.linear else "plain", len(batch))
             mode16 = "+".join(
                 part for part, on in (("base", ex_on and stencils),
                                       ("mixer", ex_on and mixer_on),
@@ -887,7 +887,7 @@ class _ExportRun:
                 demosaic_method=kind.demosaic(self.demosaic_method),
                 extras=mode16, linear=kind.linear)
             if shaped:
-                out = self.shape(out, "u16", len(batch))
+                out = self.shape(out, "u16")
             return out, _record_event(self.device)
         planes = ("rgba_words" if shaped
                   else self.planes_for(*mosaics.shape[1:3]))
@@ -905,8 +905,8 @@ class _ExportRun:
         if ex_on:
             # Extras on every route run the post-pass kernel over the
             # develop's words (its plain version for CPU tensors), every
-            # slot of the padded batch.
-            self.rec.count("extras.slots", self.batch_size)
+            # slot of the batch.
+            self.rec.count("extras.slots", len(batch))
             self.rec.count("extras.asked", sum(
                 d.job.params.has_finish_extras() for d in batch))
             out = _fx.fused_finish_extras_rgba(
@@ -914,21 +914,21 @@ class _ExportRun:
                 grading_on=grading_on, stencils=stencils,
                 output="ycbcr420" if planes == "ycbcr420" else "rgba")
         if shaped:
-            out = self.shape(out, "words", len(batch))
+            out = self.shape(out, "words")
             planes = self.planes_for(*out.shape[1:3])
         if planes != "rgba_words" and not isinstance(out, tuple):
             out = (_jpeg.rgba_words_to_ycbcr444(out) if planes == "ycbcr444"
                    else _jpeg.rgba_words_to_ycbcr420(out))
         return out, _record_event(self.device)
 
-    def reconstruct(self, kind: FrameKind, padded, mosaics, wbs, whites,
+    def reconstruct(self, kind: FrameKind, batch, mosaics, wbs, whites,
                     blacks) -> torch.Tensor:
         """The flush's mosaics with their clipped highlights
         reconstructed at each image's amount (``ops/highlights.py``)."""
         from raweditor_tpu_torch.ops import highlights as _hl
 
         amounts = np.array([float(d.job.params.highlight_recovery)
-                            for d in padded], np.float32)
+                            for d in batch], np.float32)
         if kind.linear:
             return _hl.batch_reconstruct_linear(mosaics, wbs, amounts,
                                                 whites, blacks)
@@ -942,10 +942,10 @@ class _ExportRun:
         demosaic = kind.demosaic(self.demosaic_method)
         scal = self.to_device(pack_params(*inputs, self.matrix_transpose))
         self.route(_fused.variant(demosaic, kind.xtrans_pattern) + (
-            ".planes" if output == "ycbcr420" else ".rgba"))
+            ".planes" if output == "ycbcr420" else ".rgba"), len(mosaics))
         if (kind.xtrans_pattern is not None and demosaic == "grad"
                 and _fused.period6_march(kind.xtrans_pattern)):
-            self.rec.count("cfa_grad.period6_slots", self.batch_size)
+            self.rec.count("cfa_grad.period6_slots", len(mosaics))
         return _fused.fused_batch_develop_rgba(
             mosaics, scal, cfa_phase=kind.cfa_phase,
             gamma=kernel_gamma_for(self.transfer), output=output,
@@ -958,9 +958,9 @@ class _ExportRun:
         lane = dict(matrix_transpose=self.matrix_transpose,
                     transfer=self.transfer, output=output)
         if kind.linear:
-            self.route("linear")
+            self.route("linear", len(mosaics))
             return batch_develop_linear_rgba(mosaics, *inputs, **lane)
-        self.route("plain")
+        self.route("plain", len(mosaics))
         if kind.xtrans_pattern is not None:
             return batch_develop_xtrans_rgba(
                 mosaics, *inputs, pattern=kind.xtrans_pattern,
@@ -969,10 +969,10 @@ class _ExportRun:
             mosaics, *inputs, cfa_phase=kind.cfa_phase,
             demosaic_method=self.demosaic_method, **lane)
 
-    def route(self, name: str) -> None:
-        """Count the flush's slots, padding included, under its develop
-        route (``develop.slots.<route>``)."""
-        self.rec.count("develop.slots." + name, self.batch_size)
+    def route(self, name: str, n: int) -> None:
+        """Count the flush's n slots under its develop route
+        (``develop.slots.<route>``)."""
+        self.rec.count("develop.slots." + name, n)
 
     def planes_for(self, h: int, w: int) -> str:
         """What an h x w output leaves the card as: the JPEG planes of an
@@ -984,30 +984,27 @@ class _ExportRun:
             return "ycbcr420"
         return "rgba_words"
 
-    def shape(self, out, kind: str, n: int) -> torch.Tensor:
+    def shape(self, out, kind: str) -> torch.Tensor:
         """The output stage (``ops/geometry.shape_output``) of the
-        flush's first ``n`` images, image by image."""
+        flush's images, image by image."""
         return torch.stack([_geometry.shape_output(img, kind, *self.shaping)
-                            for img in out[:n]])
+                            for img in out])
 
     def fetch_batch(self, out, batch, done, seq):
         """Runs on the fetch thread: wait for the flush's event, then
-        slice the padding off on the card (a drain-time bucket of 1 would
-        otherwise copy the replayed frames) and copy the rest to the
-        host on the fetch stream. Returns the host arrays, their bytes
-        and the copy's end."""
+        copy the batch to the host on the fetch stream. Returns the host
+        arrays, their bytes and the copy's end."""
         rec, images = self.rec, [d.image for d in batch]
         with rec.span("fetch.wait", image=images, batch=seq):
             if done is not None:
                 done.synchronize()
-        n = len(batch)
         with rec.span("fetch.copy", image=images, batch=seq) as copy, \
                 _on(self.device, self.fetch_stream):
             if isinstance(out, tuple):  # YCbCr planes
-                host = tuple(p[:n].cpu().numpy() for p in out)
+                host = tuple(p.cpu().numpy() for p in out)
                 nbytes = sum(p.nbytes for p in host)
             else:
-                host = out[:n].cpu().numpy()
+                host = out.cpu().numpy()
                 nbytes = host.nbytes
         if self.cuda:
             rec.count("transfer.pageable_bytes", nbytes)

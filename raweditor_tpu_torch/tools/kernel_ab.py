@@ -35,14 +35,14 @@ package's flags plus ``-Xptxas -v``, into a library of its own under
   stencils), and four frames with per-image amounts to planes;
 - the staging kernel (``csrc/staging.cu``, ``STAGING_CASES``): seeded
   packed bytes of 4016x6016 u12 and 4000x6000 u14 frames into one slot,
-  and into eight slots from five sources (the padding replays the first,
-  as the exporter's flush does), against the plain chain the exporter ran
-  before the kernel (``unpack12_rows`` or ``unpack14_rows`` a source, then
-  ``torch.stack``), timed as one more variant, ``plain``, each call queued
-  behind a sleeping kernel so that the host's launch time does not enter
-  (``time_staging``, which ``chip_smoke.py`` calls too). The plain chain
-  is the parent of these cases: give them only variants whose directory
-  holds ``staging.cu``. Printed beside the medians: the bound, each
+  and into eight slots from five sources (the last three repeat the
+  first, which the kernel supports), against the plain chain the
+  exporter ran before the kernel (``unpack12_rows`` or ``unpack14_rows``
+  a source, then ``torch.stack``), timed as one more variant, ``plain``,
+  each call queued behind a sleeping kernel so that the host's launch
+  time does not enter (``time_staging``, which ``chip_smoke.py`` calls
+  too). The plain chain is the parent of these cases: give them only
+  variants whose directory holds ``staging.cu``. Printed beside the medians: the bound, each
   distinct source's bytes read once and every slot's written, over
   3.35 TB/s.
 
@@ -489,7 +489,7 @@ def runner(lib, case, inputs, stream, table=True):
 def staging_runner(lib, case, bufs, out, stream):
     """(launch closure, outputs) of a staging case on a library that
     holds the staging kernel: every slot of ``out`` from ``bufs``, the
-    padding slots from the first."""
+    slots past them from the first."""
     from raweditor_tpu_torch.ops import staging
 
     n = case["slots"]

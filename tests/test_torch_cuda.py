@@ -1089,8 +1089,8 @@ def _fill_both(out, sources, fmts):
                          ids=lambda v: v if isinstance(v, str)
                          else "x".join(map(str, v)))
 def test_staging_kernel_equals_plain(cuda, fmt, frame, slots):
-    """Every byte of the batch equals the plain version, the padding
-    slots of a batch of eight replaying the first of its five sources."""
+    """Every byte of the batch equals the plain version, the last three
+    slots of a batch of eight repeating the first of its five sources."""
     gen = torch.Generator(device="cuda").manual_seed(slots)
     bufs = [_packed_rows(gen, fmt, *frame, cuda) for _ in range(min(slots, 5))]
     sources = bufs + [bufs[0]] * (slots - len(bufs))
@@ -1159,8 +1159,9 @@ def test_staging_kernel_mixed_slots_and_alignments(cuda):
 
 def test_staging_kernel_launches_once_a_flush(cuda, tmp_path, rng):
     """A small ``run_batch_export`` on the card: the staging kernel
-    launches once a flush and unpacks every slot (padding included); the
-    develop reads the same batch as the CPU's."""
+    launches once a flush and unpacks one slot an image (the drained
+    bucket of one at its own length); the develop reads the same batch as
+    the CPU's."""
     from raweditor_tpu_torch.ops import staging as st
     from raweditor_tpu_torch.pipeline import export as pex
     from raweditor_tpu_torch.raw import synth
@@ -1182,16 +1183,16 @@ def test_staging_kernel_launches_once_a_flush(cuda, tmp_path, rng):
     assert flushes == 3
     assert st.LAUNCHES["unpack_slots"] - before == flushes
     counters = rep.stages["counters"]
-    assert counters["staging.slots_unpacked"] == flushes * 2
+    assert counters["staging.slots_unpacked"] == 5
     assert counters["staging.slots_copied"] == 0
     assert counters["staging.slots_uploaded"] == 0
 
 
 def test_staging_kernel_splits_a_batch_over_its_slot_limit(cuda):
     """More slots than one launch takes (``MAX_SLOTS``): u12, u14 and u16
-    sources, padding slots that replay the first, a slot the caller
-    filled and a u16 replay that reads it, in two launches; every byte
-    equal to the plain version."""
+    sources, slots that repeat the first, a slot the caller filled and a
+    u16 replay that reads it, in two launches; every byte equal to the
+    plain version."""
     from raweditor_tpu_torch.ops import staging as st
 
     gen = torch.Generator(device="cuda").manual_seed(65)
@@ -1223,9 +1224,9 @@ def test_staging_kernel_splits_a_batch_over_its_slot_limit(cuda):
 def test_staging_late_uploads_go_straight_into_their_slots(cuda, tmp_path,
                                                            rng, monkeypatch):
     """A flush whose first item missed the staging budget beside a staged
-    u12 one, on the card: the first uploads into its slot, the padding
-    replays that slot through the kernel, the second unpacks, in one
-    launch; the files equal an unstaged run's."""
+    u12 one, two slots long under a batch size of three, on the card: the
+    first uploads into its slot, the second unpacks, in one launch, and no
+    slot replays either; the files equal an unstaged run's."""
     from raweditor_tpu_torch.ops import staging as st
     from raweditor_tpu_torch.pipeline import export as pex
     from raweditor_tpu_torch.raw import synth
@@ -1251,10 +1252,128 @@ def test_staging_late_uploads_go_straight_into_their_slots(cuda, tmp_path,
                counters["staging.slots_copied"],
                counters["staging.slots_uploaded"])
         if budget:
-            assert got == (1, 1, 1)
+            assert got == (1, 0, 1)
             assert st.LAUNCHES["unpack_slots"] - before == 1
         else:  # nothing staged: one upload of the stacked batch
             assert got == (0, 0, 0)
             assert st.LAUNCHES["unpack_slots"] == before
         outs[budget] = [open(j.out_path, "rb").read() for j in jobs]
     assert outs[0] == outs[16 * 24 * 2 * 3 // 4]
+
+
+# -- a flush launched at its own length ---------------------------------------
+
+SHORT_KERNELS = {"B4": None, "B7": XTRANS}
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("output", ["rgba", "ycbcr420"])
+@pytest.mark.parametrize("kernel", sorted(SHORT_KERNELS))
+def test_grad_kernels_over_a_short_batch_equal_a_full_ones_slots(
+        cuda, kernel, output, n, rng):
+    """B4 and B7 over the first n of eight frames (several strips and
+    bands each) give the bytes of the first n slots of the same launch over
+    all eight: a flush launched at its own length develops each image as
+    a batch of eight does."""
+    mos, scal = _inputs(rng, 8, 198, 300, cuda)
+    kw = dict(gamma="srgb", output=output, demosaic="grad",
+              pattern=SHORT_KERNELS[kernel])
+    full = fd.fused_batch_develop_rgba(mos, scal, (0, 1), **kw)
+    short = fd.fused_batch_develop_rgba(mos[:n].contiguous(),
+                                        scal[:n].contiguous(), (0, 1), **kw)
+    torch.cuda.synchronize()
+    if output == "rgba":
+        full, short = (full,), (short,)
+    for a, b in zip(full, short):
+        assert b.shape[0] == n and torch.equal(a[:n], b)
+
+
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("output", ["rgba", "ycbcr420"])
+def test_extras_kernel_over_a_short_batch_equals_a_full_ones_slots(
+        cuda, output, n, rng):
+    """B8 with every stage on over the first n of eight frames gives the
+    bytes of the first n slots of the same launch over all eight."""
+    words, table = _extras_inputs(rng, 8, 198, 300, cuda)
+    kw = dict(mixer_on=True, grading_on=True, stencils=True, output=output)
+    full = fx.fused_finish_extras_rgba(words, table, **kw)
+    short = fx.fused_finish_extras_rgba(words[:n].contiguous(),
+                                        table[:n].contiguous(), **kw)
+    torch.cuda.synchronize()
+    if output == "rgba":
+        full, short = (full,), (short,)
+    for a, b in zip(full, short):
+        assert b.shape[0] == n and torch.equal(a[:n], b)
+
+
+@pytest.mark.parametrize("budget", ["default", "nothing staged"])
+def test_batch_export_short_flushes_equal_full_ones_on_the_card(
+        cuda, budget, rng, tmp_path, monkeypatch):
+    """The kernel route on the card over Bayer DNGs and X-Trans RAFs whose
+    buckets drain one and three images short of a batch of four (B4 and
+    B7 to planes and words, B8 to planes): every file byte-equal to the
+    same jobs exported a bucket an image (``batch_size=1``), every flush
+    at its own length; with nothing staged, the pageable bytes are each
+    flush's own mosaics, its scalars and tables, and the fetch."""
+    from raweditor_tpu_torch.ops import staging as st
+    from raweditor_tpu_torch.pipeline import export as pex
+    from raweditor_tpu_torch.raw import raf, synth
+
+    if budget != "default":
+        monkeypatch.setattr(pex, "_STAGE_BUDGET", 0)
+    h, w = 120, 180
+    extras = dict(sharpen=40.0, vignette=-20.0, hue_red=20.0,
+                  grade_shadow_hue=200.0, grade_shadow_sat=30.0)
+    paths, edits = [], []
+    for i in range(13):
+        m = rng.integers(0, 4096, size=(h, w), dtype=np.uint16)
+        if i < 8:
+            p = tmp_path / f"b{i}.dng"
+            synth.write_synthetic_raw(p, m, xyz_to_cam=REAL, black_level=150,
+                                      white_level=4095, preview_jpeg=b"")
+        else:
+            p = tmp_path / f"x{i}.raf"
+            p.write_bytes(raf.write_raf(m, model="X-T2"))
+        paths.append(str(p))
+        edits.append(FULL.replace(**extras) if i in (1, 4, 6, 10)
+                     else FULL.replace(exposure=0.1 * i))
+    written = {}
+    for batch in (4, 1):
+        jobs = [pex.ExportJob(p, str(tmp_path / f"b{batch}_{i}.jpg"), e)
+                for i, (p, e) in enumerate(zip(paths, edits))]
+        for k in fd.LAUNCHES:
+            fd.LAUNCHES[k] = 0
+        for k in fx.LAUNCHES:
+            fx.LAUNCHES[k] = 0
+        before = st.LAUNCHES["unpack_slots"]
+        rep = pex.run_batch_export(jobs, batch_size=batch, mode="accurate",
+                                   demosaic_method="grad", use_kernel=True,
+                                   device=cuda)
+        assert rep.succeeded == 13 and not rep.failed, rep.failed
+        written[batch] = [open(j.out_path, "rb").read() for j in jobs]
+        if batch == 1:
+            continue
+        # Buckets: Bayer plain 5 (4 + 1), Bayer extras 3, X-Trans plain 4,
+        # X-Trans extras 1: five flushes, 7 slots short of 20.
+        c = rep.stages["counters"]
+        assert rep.timer.counts["export.flush"] == 5
+        assert (c["slots.developed"], c["slots.unfilled"]) == (13, 7)
+        assert (c["extras.slots"], c["extras.asked"]) == (4, 4)
+        assert {k: v for k, v in fd.LAUNCHES.items() if v} == {
+            fd.launch_key("ycbcr420", "grad"): 2,
+            fd.launch_key("rgba", "grad"): 1,
+            fd.launch_key("ycbcr420", "grad", XTRANS): 1,
+            fd.launch_key("rgba", "grad", XTRANS): 1}
+        assert {k: v for k, v in fx.LAUNCHES.items() if v} == {
+            "extras_ycbcr420": 2}
+        if budget == "default":
+            assert st.LAUNCHES["unpack_slots"] - before == 5
+            assert c["staging.slots_unpacked"] == 13
+        else:
+            assert st.LAUNCHES["unpack_slots"] == before
+            assert c["staging.slots_unpacked"] == 0
+            assert c["transfer.pinned_bytes"] == 0
+            assert c["transfer.pageable_bytes"] == (
+                rep.fetch_bytes + 13 * h * w * 2 + 13 * fd.N_SCALARS * 4
+                + 4 * fx.N_EXTRAS * 4)
+    assert written[4] == written[1]

@@ -3,7 +3,7 @@ CPU device against the JAX package's exporter on the same files and jobs.
 
 Files are written under ``tmp_path`` by the port's writers: 12-bit DNGs
 of 24x32 (three, so that ``batch_size=2`` gives a full bucket and a drain
-of one padded frame), 32x48 and an odd 23x31, and two 24x36 X-Trans RAFs.
+of one frame), 32x48 and an odd 23x31, and two 24x36 X-Trans RAFs.
 What each exporter hands its encoder is recorded by replacing
 ``_encode_one_jpeg420`` and ``_encode_one`` in both modules.
 
@@ -258,7 +258,8 @@ def test_extras_route_calls_the_extras_wrapper_on_both_routes(tmp_path,
         rep = pex.run_batch_export(jobs, batch_size=2, device="cpu",
                                    use_kernel=use_kernel)
         assert rep.succeeded == 3
-    assert calls == [((2, 24, 32), "ycbcr420")] * 4
+    # A full bucket of two, then the drain's one image at its length.
+    assert calls == [((2, 24, 32), "ycbcr420"), ((1, 24, 32), "ycbcr420")] * 2
 
 
 @pytest.mark.parametrize("case", ["missing", "truncated", "bad_cfa",

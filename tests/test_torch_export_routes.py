@@ -77,8 +77,9 @@ def _routes(rep):
 
 def test_xtrans_export_agrees_with_the_plain_reference(tmp_path, captured):
     """Five X-Trans RAFs, one with finish extras, in batches of four: the
-    plain bucket fills a batch, the extras bucket pads three slots; every
-    4:2:0 plane within the configuration's tolerance of the reference."""
+    plain bucket fills a batch, the extras bucket flushes its one image
+    three slots short; every 4:2:0 plane within the configuration's
+    tolerance of the reference."""
     cfg = _cfg("xt2_raf")
     files = _write("xt2_raf", tmp_path / "raw", 5, 2**31 + 41)
     edits = [_edit(i, i == 2) for i in range(5)]
@@ -87,9 +88,9 @@ def test_xtrans_export_agrees_with_the_plain_reference(tmp_path, captured):
     rep = pex.run_batch_export(jobs, **_kwargs(cfg, batch_size=4))
     assert rep.succeeded == 5 and not rep.failed
     c = rep.stages["counters"]
-    assert (c["slots.developed"], c["slots.padded"]) == (5, 3)
-    assert _routes(rep) == {"cfa_grad.planes": 4, "cfa_grad.rgba": 4}
-    assert c["cfa_grad.period6_slots"] == 8
+    assert (c["slots.developed"], c["slots.unfilled"]) == (5, 3)
+    assert _routes(rep) == {"cfa_grad.planes": 4, "cfa_grad.rgba": 1}
+    assert c["cfa_grad.period6_slots"] == 5
     flags = dict(cfg["flags"])
     worst = 0
     for job, (_, frame), e in zip(jobs, files, edits):
@@ -106,13 +107,13 @@ def test_xtrans_export_agrees_with_the_plain_reference(tmp_path, captured):
 # one of each with finish extras, in batches of two must read)
 MIXED = [
     ("kernel-jpeg", {}, "jpg",
-     {"grad.planes": 2, "grad.rgba": 2, "cfa_grad.planes": 2,
-      "cfa_grad.rgba": 2}),
-    ("kernel-png", {}, "png", {"grad.rgba": 4, "cfa_grad.rgba": 4}),
-    ("plain-jpeg", {"use_kernel": False}, "jpg", {"plain": 8}),
+     {"grad.planes": 2, "grad.rgba": 1, "cfa_grad.planes": 2,
+      "cfa_grad.rgba": 1}),
+    ("kernel-png", {}, "png", {"grad.rgba": 3, "cfa_grad.rgba": 3}),
+    ("plain-jpeg", {"use_kernel": False}, "jpg", {"plain": 6}),
     ("kernel-nearest", {"demosaic_method": "nearest"}, "jpg",
-     {"nearest.planes": 2, "nearest.rgba": 2, "cfa_nearest.planes": 2,
-      "cfa_nearest.rgba": 2}),
+     {"nearest.planes": 2, "nearest.rgba": 1, "cfa_nearest.planes": 2,
+      "cfa_nearest.rgba": 1}),
 ]
 
 
@@ -135,7 +136,8 @@ def test_route_counters_split_bayer_from_xtrans(case, over, ext, want,
     assert rep.succeeded == 6 and not rep.failed
     c = rep.stages["counters"]
     assert _routes(rep) == want
-    assert sum(want.values()) == c["slots.developed"] + c["slots.padded"]
+    assert sum(want.values()) == c["slots.developed"]
+    assert c["slots.unfilled"] == 2
     cfa_grad = sum(n for k, n in want.items() if k.startswith("cfa_grad."))
     assert c.get("cfa_grad.period6_slots", 0) == cfa_grad
     assert pex.LAST_REPORT["stages"]["counters"] == json.loads(
@@ -145,9 +147,9 @@ def test_route_counters_split_bayer_from_xtrans(case, over, ext, want,
 @pytest.mark.parametrize("config", ["xt2_raf", "d3300_dng"])
 def test_period6_slots_count_the_xtrans_grad_slots(config, tmp_path):
     """``cfa_grad.period6_slots``: on an X-Trans export every slot of the
-    grad kernel, padding included (the X-Trans grid takes the kernel's
-    period-6 march), the sum of ``develop.slots.cfa_grad.*``; absent on a
-    Bayer export, which never runs that kernel."""
+    grad kernel (the X-Trans grid takes the kernel's period-6 march), the
+    sum of ``develop.slots.cfa_grad.*``, one an image; absent on a Bayer
+    export, which never runs that kernel."""
     files = _write(config, tmp_path / "raw", 3, 2**31 + 53)
     jobs = [pex.ExportJob(p, str(tmp_path / f"p{i}.jpg"),
                           EditParams(**_edit(i, i == 1)))
@@ -159,7 +161,7 @@ def test_period6_slots_count_the_xtrans_grad_slots(config, tmp_path):
                 if k.startswith("cfa_grad.")}
     if config == "xt2_raf":
         assert cfa_grad and c["cfa_grad.period6_slots"] == sum(
-            cfa_grad.values()) == c["slots.developed"] + c["slots.padded"]
+            cfa_grad.values()) == c["slots.developed"] == 3
     else:
         assert not cfa_grad and "cfa_grad.period6_slots" not in c
 
@@ -265,5 +267,6 @@ def test_readers_take_the_counters_a_real_call_leaves(mixed_files,
     kernels = {f"{B7}<true>": [0.002, 1], f"{B7}<false>": [0.002, 1]}
     record = {"images": 6, "work": [_work(60 * 96, PATTERN)] * 3,
               "trace": {"kernels": kernels, "kernel_s": 0.004}}
-    assert _read("ms_per_slot", record) == pytest.approx(1.0)
+    # Three X-Trans slots, one an image: two planes, one RGBA.
+    assert _read("ms_per_slot", record) == pytest.approx(4.0 / 3.0)
     assert _read("roofline_share", record) > 0

@@ -33,7 +33,7 @@ SPANS = WAITS + LAUNCHING + (
     "export.hand_off", "decode", "stage.pack", "upload", "fetch.wait",
     "fetch.copy", "encode", "queue.batch", "queue.encode")
 COUNTERS = ("transfer.pinned_bytes", "transfer.pageable_bytes",
-            "slots.developed", "slots.padded", "extras.slots", "extras.asked",
+            "slots.developed", "slots.unfilled", "extras.slots", "extras.asked",
             "staging.slots_unpacked", "staging.slots_copied",
             "staging.slots_uploaded")
 # (name, output extension, run_batch_export keywords, files already
@@ -118,8 +118,7 @@ def test_report_names_every_span_and_counter(traced):
     # Beside the fixed counters, one counter a develop route that ran.
     routes = {k for k in counters if k.startswith("develop.slots.")}
     assert set(COUNTERS) == set(counters) - routes and routes
-    assert sum(counters[k] for k in routes) == (
-        counters["slots.developed"] + counters["slots.padded"])
+    assert sum(counters[k] for k in routes) == counters["slots.developed"]
     assert rep.as_dict()["stages"] == rep.stages
     assert json.loads(json.dumps(rep.as_dict()))["stages"] == rep.stages
     # Nothing crosses between host and device on the CPU.
@@ -161,16 +160,18 @@ def test_counts_are_exact_across_threads(traced):
     counters = rep.stages["counters"]
     batch = kw["batch_size"]
     assert counters["slots.developed"] == n
-    assert counters["slots.developed"] + counters["slots.padded"] == (
+    # A flush short of its batch leaves the rest unfilled: no slot is
+    # developed for an image that is not written.
+    assert counters["slots.developed"] + counters["slots.unfilled"] == (
         flushes * batch)
     extras = [j for j in jobs[done:] if j.params.has_finish_extras()]
     assert counters["extras.asked"] == len(extras) > 0
     # Extras images batch apart from plain ones: B8 runs over the extras
-    # buckets' slots only.
-    assert counters["extras.slots"] == batch * -(-len(extras) // batch)
+    # images' slots only.
+    assert counters["extras.slots"] == len(extras)
     # Every mosaic stages packed (12-bit, even width, within the budget):
-    # the staging kernel's plain version unpacks every slot, padding too.
-    assert counters["staging.slots_unpacked"] == flushes * batch
+    # the staging kernel's plain version unpacks one slot an image.
+    assert counters["staging.slots_unpacked"] == n
     assert counters["staging.slots_copied"] == 0
     assert counters["staging.slots_uploaded"] == 0
 

@@ -108,8 +108,8 @@ def test_sources_for_builds_only_what_the_cases_launch():
 @pytest.mark.parametrize("case", sorted(kernel_ab.STAGING_CASES))
 def test_every_staging_case_launches_the_staging_kernel(case):
     """A staging case names the staging launcher, builds ``staging.cu``
-    alone, passes the launcher's arguments (the slots' sources, the
-    padding replaying the first, their slots, u12 or u14) and states the
+    alone, passes the launcher's arguments (the slots' sources, repeats
+    of the first among them, their slots, u12 or u14) and states the
     bound of its bytes: each distinct source read once, every slot
     written."""
     spec = kernel_ab.STAGING_CASES[case]

@@ -209,8 +209,8 @@ def _raw(rng, shape):
 
 # name: the slots' formats (None: a late upload the caller writes into
 # its slot, or the replay of one, which reads that slot as u16 samples),
-# the distinct items (the rest replay the first, as the flush's padding
-# does) and the frame.
+# the distinct items (the rest repeat the first: the fill takes repeated
+# sources) and the frame.
 FILLS = {
     "u12": (["u12"] * 3, 3, (6, 10)),
     "u14": (["u14"] * 2, 2, (5, 12)),
@@ -226,7 +226,7 @@ FILLS = {
 @pytest.mark.parametrize("case", sorted(FILLS))
 def test_batch_fill_equals_the_stack_of_unpacks(case, rng):
     """Each slot holds what the flush's ``torch.stack`` of ``unpack12_rows``
-    / ``unpack14_rows`` (or the u16 frame) held, padding slots replaying
+    / ``unpack14_rows`` (or the u16 frame) held, repeated slots replaying
     the first item; a slot without a source keeps what the caller wrote,
     and a u16 source may be a slot of the batch itself."""
     fmts, distinct, frame = FILLS[case]
@@ -311,10 +311,10 @@ def test_batch_fill_refuses_what_the_kernel_does_not_take(name):
 def test_flush_fills_late_uploads_and_their_replays(tmp_path, rng,
                                                     monkeypatch):
     """A batch whose first item missed the staging budget (a 16-bit
-    mosaic, staged as u16 samples) beside a staged u12 one: the first
-    uploads into its slot, the padding replays that slot, the second
-    unpacks; the files equal an unstaged run's and the staging counters
-    count one slot of each kind."""
+    mosaic) beside a staged u12 one, flushed two slots long under a
+    batch size of three: the first uploads into its slot, the second
+    unpacks, no slot replays either; the files equal an unstaged run's
+    and the staging counters count one slot unpacked and one uploaded."""
     from PIL import Image
 
     mosaics = [rng.integers(16384, 65536, size=(16, 24), dtype=np.uint16),
@@ -336,7 +336,7 @@ def test_flush_fills_late_uploads_and_their_replays(tmp_path, rng,
             assert rep.upload_bytes == 16 * 24 * 2 + 16 * 24 * 2 * 3 // 4
             assert (counters["staging.slots_unpacked"],
                     counters["staging.slots_copied"],
-                    counters["staging.slots_uploaded"]) == (1, 1, 1)
+                    counters["staging.slots_uploaded"]) == (1, 0, 1)
         else:  # nothing staged: one upload of the stacked batch
             assert rep.upload_bytes == 0
             assert (counters["staging.slots_unpacked"],
