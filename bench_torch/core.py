@@ -1,5 +1,6 @@
-"""What every cell's run shares: the benchmark file and the lookup of a
-cell's configuration, traffic mix, driver and per-layer readers by name;
+"""What every cell's run shares: the benchmark file and the lookups by
+name (a cell's configuration and traffic mix, the mix's driver, the
+configuration's container writer and reference, the per-layer readers);
 the set-up clock and its split; the cache directories; the traced window;
 the device's description; the result line.
 
@@ -20,6 +21,9 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent
 REPO = PKG.parent
 BENCHMARK = REPO / "BENCHMARK.json"
+# Where configurations and traffic mixes are found by name.
+CONFIGS = PKG / "configs"
+TRAFFIC = PKG / "traffic"
 # Fixed cache directories inside the checkout, so that only a cell's first
 # run there builds or compiles. The program builds its own kernels into
 # build/raweditor_tpu_torch/ (a fixed path under the checkout as well).
@@ -69,7 +73,8 @@ def benchmark() -> dict:
 def find_cell(name: str):
     """(benchmark, cell, configuration, traffic mix) of the cell
     ``name`` of ``BENCHMARK.json``; raises KeyError naming it when the
-    file has no such cell."""
+    file has no such cell, and LookupError (``serves``) when its
+    configuration's reference lacks what its mix's driver checks with."""
     bench = benchmark()
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
@@ -77,43 +82,134 @@ def find_cell(name: str):
                        f"{sorted(cells)}")
     cell = cells[name]
     config = next(c for c in bench["configs"] if c["name"] == cell["config"])
-    return bench, cell, load_json(REPO / config["file"]), _mix(cell)
+    cfg = load_json(REPO / config["file"])
+    mix = _mix(cell)
+    serves(cfg, cell["traffic"], mix)
+    return bench, cell, cfg, mix
 
 
 def folder_cells() -> list:
-    """``<config>.<mix>`` for every configuration under ``configs/`` and
-    every mix under ``traffic/``: the cells the rehearsal and the tests
-    run, those ``BENCHMARK.json`` names and those it does not yet."""
-    return [f"{c.stem}.{t.stem}"
-            for c in sorted((PKG / "configs").glob("*.json"))
-            for t in sorted((PKG / "traffic").glob("*.json"))]
+    """``<config>.<mix>`` for every configuration under ``CONFIGS`` and
+    every mix under ``TRAFFIC`` whose driver its reference serves
+    (``serves``): the cells the rehearsal and the tests run, those
+    ``BENCHMARK.json`` names and those it does not yet. A new
+    configuration or a new mix is found as a new file alone."""
+    mixes = {m.stem: load_json(m) for m in sorted(TRAFFIC.glob("*.json"))}
+    cells = []
+    for path in sorted(CONFIGS.glob("*.json")):
+        cfg = load_json(path)
+        for traffic, mix in mixes.items():
+            try:
+                serves(cfg, traffic, mix)
+            except _Unserved:
+                continue
+            cells.append(f"{path.stem}.{traffic}")
+    return cells
 
 
 def any_cell(name: str):
     """As ``find_cell``, and for a name not in ``BENCHMARK.json`` the
-    cell ``<config>.<mix>`` read from ``configs/`` and ``traffic/``
+    cell ``<config>.<mix>`` read from ``CONFIGS`` and ``TRAFFIC``
     directly, on one chip, with the end-to-end metrics that name no
     cells."""
     try:
         return find_cell(name)
     except KeyError:
-        if name not in folder_cells():
+        config, _, traffic = name.partition(".")
+        path = CONFIGS / f"{config}.json"
+        if not path.is_file():
             raise
-    config, traffic = name.split(".", 1)
+    cfg = load_json(path)
     bench = benchmark()
     cell = {"name": name, "config": config, "traffic": traffic, "chips": 1}
-    return (bench, cell, load_json(PKG / "configs" / f"{config}.json"),
-            _mix(cell))
+    mix = _mix(cell)
+    serves(cfg, traffic, mix)
+    return bench, cell, cfg, mix
+
+
+class _Unserved(LookupError):
+    """A configuration's reference lacks entry points a driver needs."""
+
+
+def serves(cfg: dict, traffic: str, mix: dict) -> None:
+    """Refuses, by a LookupError naming what is missing, a cell of the
+    configuration ``cfg`` under the mix ``traffic`` unless its reference
+    module (``reference_of``) gives every entry point that the mix's
+    driver lists in ``REFERENCE``, the ones its check calls."""
+    need = driver_of(mix).REFERENCE
+    reference = reference_of(cfg)
+    missing = [n for n in need if not hasattr(reference, n)]
+    if missing:
+        raise _Unserved(f"configuration {cfg['name']!r}: its reference "
+                        f"{cfg['reference']} gives no {missing}, which mix "
+                        f"{traffic!r} (driver {mix['driver']!r}) checks "
+                        f"with")
 
 
 def _mix(cell: dict) -> dict:
-    return load_json(PKG / "traffic" / f"{cell['traffic']}.json")
+    return load_json(TRAFFIC / f"{cell['traffic']}.json")
 
 
 def driver_of(mix: dict):
     """The general generator that reads a traffic mix: the module
     ``bench_torch.drivers.<mix["driver"]>``."""
     return importlib.import_module(f"bench_torch.drivers.{mix['driver']}")
+
+
+def container_of(cfg: dict):
+    """The writer of a configuration's files: the module
+    ``bench_torch.containers.<cfg["container"]>`` (its interface is in
+    that package's docstring); raises LookupError naming the module when
+    there is none."""
+    return _module(cfg, "container", f"bench_torch.containers."
+                                     f"{cfg['container']}")
+
+
+def reference_of(cfg: dict):
+    """The plain reference that checks a configuration: the module whose
+    file its ``reference`` key names, relative to the checkout
+    (``bench_torch/yardstick/reference.py`` is
+    ``bench_torch.yardstick.reference``), imported by that name; raises
+    LookupError naming it when there is none.
+
+    A reference module gives what the drivers' checks call, for the
+    frames its configuration's container returns; each driver lists the
+    ones it calls in its ``REFERENCE``, and a configuration makes a cell
+    under a mix only where its reference gives them all (``serves``):
+    ``export_planes(frame, params, device, flags)``, the (Y, Cb, Cr) u8
+    4:2:0 planes the exporter hands its JPEG encoder for one file
+    (``catalog_export``); ``preview(frame, mosaic_dev, params, flags)``,
+    the session's (h, w, 3) u8 preview; ``preview_planes(rgb)``, an even
+    preview's 4:2:0 planes; ``histogram(frame, mosaic_dev, params,
+    flags)``, the (3, 256) counts of the ``histogram`` reply;
+    ``bin_shift(got, want)``, how many bins one histogram's counts lie
+    from another's (these four, ``slider_session``)."""
+    path = cfg["reference"]
+    if not path.endswith(".py") or path.startswith("/") or ".." in path:
+        raise LookupError(f"configuration {cfg['name']!r}: reference "
+                          f"{path!r} is not a .py file inside the checkout")
+    return _module(cfg, "reference", path[:-3].replace("/", "."))
+
+
+def _module(cfg: dict, key: str, name: str):
+    """The module ``name`` that the configuration's ``key`` names;
+    LookupError naming both when there is no such module."""
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        if e.name is None or not (name == e.name
+                                  or name.startswith(e.name + ".")):
+            raise
+        raise LookupError(f"configuration {cfg['name']!r}: {key} "
+                          f"{cfg[key]!r} has no module {name}") from None
+
+
+def _load(path: Path, name: str):
+    """The module at ``path``, executed anew under ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def metrics_of(bench: dict, cell: dict, traced: bool):
@@ -135,12 +231,8 @@ def read_metric(name: str, record: dict):
     ``bench_torch/metrics/<name>.py`` (every per-layer metric, and an
     end-to-end metric whose source is the device trace); None when the
     reader finds nothing to read."""
-    path = PKG / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"bench_torch_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read(record)
+    return _load(PKG / "metrics" / f"{name}.py",
+                 f"bench_torch_metric_{name.replace('.', '_')}").read(record)
 
 
 class Setup:

@@ -24,7 +24,8 @@ with the window's line.
 The check, after the window, covers every file (``check``): the planes
 the exporter handed its JPEG encoder are observed by wrapping
 ``pipeline.export._encode_one_jpeg420``, for the first copy of each
-file; the reference develops the mosaic and metadata that were written.
+file; the configuration's reference (``core.reference_of``) develops the
+mosaic and metadata that were written.
 """
 
 from __future__ import annotations
@@ -37,12 +38,14 @@ import numpy as np
 
 from bench_torch import core
 from bench_torch.drivers.files import write_files
-from bench_torch.yardstick import reference
 from bench_torch.yardstick.scene import XEDIT
 
 
 # The fixed stream the catalog's set of edits is drawn from.
 EDIT_STREAM = 20261017
+# What the check calls on the configuration's reference: a configuration
+# whose reference lacks it makes no cell under this driver's mixes.
+REFERENCE = ("export_planes",)
 
 
 class State:
@@ -106,6 +109,7 @@ def setup(ctx):
                                                      run_batch_export)
 
     st = State()
+    st.reference = core.reference_of(ctx.cfg)
     mix = ctx.mix
     n = int(ctx.rehearsal.get("catalog_files", mix["catalog_files"]))
     with ctx.setup.phase("write_files"):
@@ -214,7 +218,8 @@ def window(ctx, st, seconds, trace):
 
 def _work_of(frame, edit: dict, flags: dict) -> dict:
     """The develop work one image of this file needs, as the yardstick's
-    bounds take it: pixels, demosaic (with the X-Trans pattern), the
+    bounds take it: pixels (the frame's rows times columns, whatever
+    samples a pixel carries), demosaic (with the X-Trans pattern), the
     kernels' transfer lane, and the extras flags or None."""
     from bench_torch.yardstick.color import kernel_gamma_for
     from bench_torch.yardstick.ops.cfa_generic import generic_cfa_method
@@ -225,7 +230,8 @@ def _work_of(frame, edit: dict, flags: dict) -> dict:
     _, mixer_on, grading_on, stencils = pack_extras([params])
     on = params.has_finish_extras() and (mixer_on or grading_on or stencils)
     demosaic = flags["demosaic_method"]
-    return {"pixels": int(frame.mosaic.size),
+    h, w = frame.mosaic.shape[:2]
+    return {"pixels": int(h) * int(w),
             "demosaic": (generic_cfa_method(demosaic) if frame.pattern
                          else demosaic),
             "pattern": frame.pattern,
@@ -284,8 +290,8 @@ def check(ctx, st, record):
             if path != first and os.path.exists(path):
                 with open(path, "rb") as f:
                     differing += f.read() != body
-        want = reference.export_planes(frame, EditParams(**edit),
-                                       ctx.device, flags)
+        want = st.reference.export_planes(frame, EditParams(**edit),
+                                          ctx.device, flags)
         for a, b in zip(planes, want):
             planes_worst = max(planes_worst, 255 if a.shape != b.shape else
                                int(np.abs(a.astype(np.int16)

@@ -2,16 +2,13 @@
 
 A configuration file (``bench_torch/configs/<name>.json``) states the
 camera: frame size, sample depth, CFA, levels, colour matrix, white
-balance, container and, for a DNG, its tiles. ``write_files`` renders one
-seeded ``scene()`` at that size and writes ``n`` files from it, each
-rolled by (97 i, 211 i) pixels as ``chip_smoke.py:731-747`` rolls its
-catalog, through the frozen copies of the port's writers
-(``yardstick/raw/synth.py`` for a DNG, ``yardstick/raw/raf.py`` for a
-RAF), on threads. A DNG's tiles are entropy-coded for the writer in one
-pass on the device first (``yardstick/native.prepare_tiles``): the
-writer's own per-tile NumPy packing takes some 2 s a 24 MP file. It
-returns each file's path with the ``reference.Frame`` the decoder must
-read back from it."""
+balance and container. ``write_files`` takes the writer module of that
+container (``bench_torch/containers/<container>.py``, by name through
+``core.container_of``), renders its seeded base image at the
+configuration's size and writes ``n`` files from it, each rolled by
+(97 i, 211 i) pixels as ``chip_smoke.py:731-747`` rolls its catalog, on
+threads. It returns each file's path with the frame the decoder must read
+back from it, as the container module describes it."""
 
 from __future__ import annotations
 
@@ -20,126 +17,41 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from bench_torch.yardstick.scene import scene
+from bench_torch import core
 
 ROLL = (97, 211)  # pixels a file is rolled by, per index (rows, columns)
-# A 16x16 grey JFIF (4:2:0, quality 90) for a DNG's embedded preview,
-# which no check reads; the writer would otherwise render one with PIL.
-PREVIEW_JPEG = bytes.fromhex(
-    "ffd8ffe000104a46494600010100000100010000ffdb0043000302020302020303030304"
-    "030304050805050404050a070706080c0a0c0c0b0a0b0b0d0e12100d0e110e0b0b101610"
-    "1113141515150c0f171816141812141514ffdb00430103040405040509050509140d0b0d"
-    "141414141414141414141414141414141414141414141414141414141414141414141414"
-    "1414141414141414141414141414ffc00011080010001003012200021101031101ffc400"
-    "1f0000010501010101010100000000000000000102030405060708090a0bffc400b51000"
-    "02010303020403050504040000017d010203000411051221314106135161072271143281"
-    "91a1082342b1c11552d1f02433627282090a161718191a25262728292a3435363738393a"
-    "434445464748494a535455565758595a636465666768696a737475767778797a83848586"
-    "8788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6"
-    "c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9faffc400"
-    "1f0100030101010101010101010000000000000102030405060708090a0bffc400b51100"
-    "020102040403040705040400010277000102031104052131061241510761711322328108"
-    "144291a1b1c109233352f0156272d10a162434e125f11718191a262728292a3536373839"
-    "3a434445464748494a535455565758595a636465666768696a737475767778797a828384"
-    "85868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4"
-    "c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9faffda00"
-    "0c03010002110311003f0028a28a00ffd9")
-
-
-def matrix(cfg: dict) -> np.ndarray:
-    """The configuration's XYZ-to-camera matrix (dcraw's ``adobe_coeff``
-    integers over 10000, in f32 as ``chip_smoke.py:259-263`` makes it)."""
-    return np.array(cfg["xyz_to_cam_x10000"], np.float32) / 10000.0
 
 
 def shape(cfg: dict, rehearsal: dict):
-    """(height, width): the configuration's, or the rehearsal's tiny
-    frame."""
-    return tuple(rehearsal.get("frame", {}).get(
-        cfg["name"], (cfg["height"], cfg["width"])))
+    """(height, width): the configuration's, or under a rehearsal, the
+    rehearsal's frame for it; a rehearsal that has none for it is
+    refused, so that it never writes a full-size frame."""
+    if "frame" not in rehearsal:
+        return (cfg["height"], cfg["width"])
+    if cfg["name"] not in rehearsal["frame"]:
+        raise KeyError(f"the rehearsal has no frame for configuration "
+                       f"{cfg['name']!r}")
+    return tuple(rehearsal["frame"][cfg["name"]])
 
 
 def write_files(cfg: dict, folder, n: int, rng, rehearsal: dict, device,
                 threads: int = 8):
     """Write ``n`` files of the configuration into ``folder``, packing on
-    ``device``; returns [(path, Frame)] in file order."""
+    ``device``; returns [(path, frame)] in file order."""
     from bench_torch.yardstick import native
-    from bench_torch.yardstick.reference import Frame
 
+    container = core.container_of(cfg)
     h, w = shape(cfg, rehearsal)
-    base = scene(rng, h, w, (1 << int(cfg["bits"])) - 1)
+    base = container.base(rng, h, w, cfg)
     os.makedirs(folder, exist_ok=True)
-    kind = cfg["container"]
-    if kind not in _WRITE:
-        raise ValueError(f"unknown container {kind!r}")
-    mosaics = [np.roll(base, (ROLL[0] * i, ROLL[1] * i), axis=(0, 1))
-               for i in range(n)]
-    paths = [os.path.join(folder, _NAME[kind].format(i + 1))
+    images = [np.roll(base, (ROLL[0] * i, ROLL[1] * i), axis=(0, 1))
+              for i in range(n)]
+    paths = [os.path.join(folder, container.NAME.format(i + 1))
              for i in range(n)]
     try:
         with ThreadPoolExecutor(max(1, min(threads, n))) as pool:
-            list(pool.map(_WRITE[kind], paths, mosaics, [cfg] * n,
+            list(pool.map(container.write, paths, images, [cfg] * n,
                           [device] * n))
     finally:
-        native.forget()
-    if kind == "raf":
-        # A bare RAF carries no levels and no matrix: the decoder reads
-        # black 0, white the mosaic's largest sample and the identity
-        # matrix (configuration "decoded_as").
-        frames = [Frame(m, _wb_of_grbg(cfg["wb_grbg"]),
-                        np.eye(3, dtype=np.float32), float(m.max()), 0.0,
-                        pattern=cfg["cfa"]) for m in mosaics]
-    else:
-        frames = [Frame(m, 1.0 / np.asarray(cfg["wb_neutral"], np.float32),
-                        matrix(cfg), cfg["white_level"], cfg["black_level"],
-                        phase=_bayer_phase(cfg["cfa"])) for m in mosaics]
-    return list(zip(paths, frames))
-
-
-def _write_raf(path: str, mosaic, cfg: dict, device) -> None:
-    from bench_torch.yardstick.raw import raf
-
-    with open(path, "wb") as f:
-        f.write(raf.write_raf(mosaic, model=cfg["camera"]["model"],
-                              wb_grbg=tuple(cfg["wb_grbg"])))
-
-
-def _write_dng(path: str, mosaic, cfg: dict, device) -> None:
-    from bench_torch.yardstick import native
-    from bench_torch.yardstick.raw import ljpeg, synth
-
-    tile = cfg.get("tile_size")
-    if tile is not None and cfg["compression"] == "ljpeg":
-        # The tables ``ljpeg.encode_lossless`` hands the packer.
-        code_tab = np.zeros(17, np.uint64)
-        clen_tab = np.zeros(17, np.int32)
-        codes = ljpeg._canonical_codes([0] + ljpeg._ENC_BITS[1:],
-                                       ljpeg._ENC_VALUES)
-        for s, (code, length) in codes.items():
-            code_tab[s], clen_tab[s] = code, length
-        native.prepare_tiles(mosaic, tuple(tile), int(cfg["bits"]),
-                             code_tab, clen_tab, 15, device)
-    synth.write_synthetic_raw(
-        path, mosaic, bpp=int(cfg["bits"]), compression=cfg["compression"],
-        wb_neutral=tuple(cfg["wb_neutral"]), xyz_to_cam=matrix(cfg),
-        black_level=int(cfg["black_level"]),
-        white_level=int(cfg["white_level"]), make=cfg["camera"]["make"],
-        model=cfg["camera"]["model"], preview_jpeg=PREVIEW_JPEG,
-        cfa=cfg["cfa"], tile_size=None if tile is None else tuple(tile))
-
-
-_WRITE = {"raf": _write_raf, "dng": _write_dng}
-_NAME = {"raf": "DSCF{:04d}.RAF", "dng": "DSC_{:04d}.dng"}
-
-
-def _wb_of_grbg(grbg) -> np.ndarray:
-    """RGB gains of a RAF's G R B G record, green-normalised as the
-    decoder normalises them."""
-    g, r, b, _ = (float(v) for v in grbg)
-    return np.array([r / g, 1.0, b / g], np.float32)
-
-
-def _bayer_phase(cfa: str):
-    """(row, column) of the red site in a 2x2 Bayer pattern."""
-    i = cfa.index("R")
-    return (i // 2, i % 2)
+        native.forget()  # the streams a writer packed ahead
+    return [(p, container.frame(m, cfg)) for p, m in zip(paths, images)]

@@ -23,12 +23,12 @@ trip of each verb is kept as a span.
 The check, after the window: every reply ok; for the sampled events the
 frame the session encoded (observed by wrapping ``DevelopEngine.
 _encode_planes``, the 4:2:0 planes of an even preview, and ``_pil_jpeg``,
-the RGB of an odd one) against the plain reference's preview at the
-client's edit, zoom and pan (largest difference in LSB, within the
-configuration's ``tolerance_lsb``), and the frame's JPEG decoded by
-libjpeg against that preview (``yardstick/jfif.py``: all three planes of
-an even preview, the luma of an odd one; within the mix's
-``frame_jpeg_max_lsb``); the
+the RGB of an odd one) against the preview of the configuration's plain
+reference (``core.reference_of``) at the client's edit, zoom and pan
+(largest difference in LSB, within the configuration's
+``tolerance_lsb``), and the frame's JPEG decoded by libjpeg against that
+preview (``yardstick/jfif.py``: all three planes of an even preview, the
+luma of an odd one; within the mix's ``frame_jpeg_max_lsb``); the
 ``histogram`` counts against the reference's (``bin_shift``, within
 ``tolerance_lsb`` bins); and the catalog's newest edit row against the
 client's last edit."""
@@ -46,12 +46,14 @@ import numpy as np
 
 from bench_torch import core
 from bench_torch.drivers.files import write_files
-from bench_torch.yardstick import reference
 
 # The ten sliders of the reference editor, in the catalog's order.
 SLIDERS = ("exposure", "contrast", "highlights", "shadows", "whites",
            "blacks", "vibrance", "saturation", "temperature", "tint")
 DEFAULTS = {s: (1.0 if s == "whites" else 0.0) for s in SLIDERS}
+# What the check calls on the configuration's reference: a configuration
+# whose reference lacks any of it makes no cell under this driver's mixes.
+REFERENCE = ("preview", "preview_planes", "histogram", "bin_shift")
 
 
 class State:
@@ -115,6 +117,7 @@ def setup(ctx):
     from raweditor_tpu_torch.pipeline.serve import DevelopServer
 
     st = State()
+    st.reference = core.reference_of(ctx.cfg)
     with ctx.setup.phase("write_files"):
         ((st.path, st.frame),) = write_files(
             ctx.cfg, ctx.workdir / "files", 1, ctx.rng("scene"),
@@ -268,12 +271,12 @@ def check(ctx, st, record):
             if seen is None or not reply.get("ok"):
                 unseen += 1
             else:
-                rgb = reference.preview(st.frame, mosaic, params, flags)
+                rgb = st.reference.preview(st.frame, mosaic, params, flags)
                 kind, image = seen
                 data = base64.b64decode(reply["jpeg_base64"])
                 if kind == "_encode_planes":
                     got = [p.cpu().numpy() for p in image]
-                    want = reference.preview_planes(rgb)
+                    want = st.reference.preview_planes(rgb)
                     jpeg = jfif.max_lsb(data, want)
                 else:
                     got, want = [np.asarray(image)], [rgb.cpu().numpy()]
@@ -290,8 +293,8 @@ def check(ctx, st, record):
             else:
                 got = np.array([reply["r"], reply["g"], reply["b"]],
                                np.int64)
-                want = reference.histogram(st.frame, mosaic, params, flags)
-                shift = max(shift, reference.bin_shift(got, want))
+                want = st.reference.histogram(st.frame, mosaic, params, flags)
+                shift = max(shift, st.reference.bin_shift(got, want))
     with sqlite3.connect(st.db) as conn:
         row = conn.execute(
             "SELECT settings_json FROM edits WHERE image_id = ? "

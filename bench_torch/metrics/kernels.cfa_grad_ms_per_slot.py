@@ -2,8 +2,9 @@
 ``ops/fused_develop.py``): milliseconds of device time in every kernel
 whose name contains ``develop_grad_cfa_bands`` per slot the exporter
 developed on that route (the ``develop.slots.cfa_grad.*`` counters,
-padding included), over both outputs: the in-window cost of one X-Trans
-frame. None when either is missing."""
+which count the images' own slots: a flush launches at its length), over
+both outputs: the in-window cost of one X-Trans frame. None when either
+is missing."""
 
 from bench_torch.metrics._routes import kernel_s, route_slots
 

@@ -3,10 +3,11 @@
 developed need at the H100's published peaks.
 
 The numerator is, for each output, the exporter's ``develop.slots.
-cfa_grad.<output>`` counter (padding included: the kernel develops those
-slots too) times the least time of one frame (``yardstick/bounds.py``:
-``bound`` of the ``cfa_grad`` tier on the pattern's grid, at
-``ycbcr420`` for ``planes`` and ``rgba`` for ``rgba``); the frame's
+cfa_grad.<output>`` counter (the images' own slots, the ones the kernel
+develops: a flush launches at its length) times the least time of one
+frame (``yardstick/bounds.py``: ``bound`` of the ``cfa_grad`` tier on the
+pattern's grid, at ``ycbcr420`` for ``planes`` and ``rgba`` for
+``rgba``); the frame's
 pixels, 36-letter CFA and transfer lane come from the images the window
 wrote, which carry the configuration's. The denominator is the device
 time of every kernel whose name contains ``develop_grad_cfa_bands``.

@@ -2,13 +2,14 @@
 
     python -m bench_torch.rehearse [--cells a,b] [--seed N]
 
-Every configuration under ``configs/`` under every mix under ``traffic/``
-(``core.folder_cells``: the cells of ``BENCHMARK.json`` and those it does
-not name yet) runs its set-up, window and check through ``run.run_cell`` with
-the CPU as the device (the kernels' plain versions, the server's engines
-on the CPU), frames of ``FRAMES``, a catalog of four files written once,
-and a window of ``SECONDS``, untraced and traced; the result object must
-have the contract's keys, the cell's metrics by name and ``correct`` true.
+Every configuration under ``configs/`` under every mix of ``traffic/``
+whose driver its reference serves (``core.folder_cells``: the cells of
+``BENCHMARK.json`` and those it does not name yet) runs its set-up,
+window and check through ``run.run_cell`` with the CPU as the device (the kernels' plain versions, the server's engines
+on the CPU), at the frame its own ``rehearsal`` key gives
+(``rehearsal_of``), a catalog of four files written once, and a window of
+``SECONDS``, untraced and traced; the result object must have the
+contract's keys, the cell's metrics by name and ``correct`` true.
 Then the real command must refuse to run here (no card) without printing
 a result. It prints what it checked, never a metric's value: no number
 taken on the CPU stands for the card's."""
@@ -23,13 +24,25 @@ import sys
 
 from bench_torch import core
 
-FRAMES = {"d3300_dng": (64, 96), "xt2_raf": (60, 96)}
 SECONDS = 1.5
-# The X-Trans frame's preview is cut to 72 columns so that it is odd (45
-# rows) like the card's 1280x853, which the session encodes through PIL.
-REHEARSAL = {"frame": FRAMES, "catalog_files": 4, "repeats": 2,
-             "session": {"xt2_raf": {"max_preview_width": 72}}}
 KEYS = ("correct", "attempted", "failed", "metrics", "device", "checks")
+
+
+def rehearsal_of(cfg: dict) -> dict:
+    """The sizes a rehearsal runs the configuration ``cfg`` at, in the
+    shape ``Ctx.rehearsal`` carries: its ``rehearsal.frame`` under
+    ``frame`` (``files.shape``), its ``rehearsal.session`` (a preview
+    width cut with the frame) under ``session`` (``slider_session.
+    session_of``), four catalog files and two repeats of them. Refuses,
+    by name, a configuration with no ``rehearsal.frame``: it is never
+    rehearsed at its full size."""
+    own = cfg.get("rehearsal", {})
+    if "frame" not in own:
+        raise KeyError(f"configuration {cfg['name']!r} has no "
+                       f"rehearsal.frame; it is not rehearsed at full size")
+    return {"frame": {cfg["name"]: tuple(own["frame"])},
+            "session": {cfg["name"]: own.get("session", {})},
+            "catalog_files": 4, "repeats": 2}
 
 
 def rehearse_cell(name: str, seed: int, traced: bool) -> dict:
@@ -41,7 +54,7 @@ def rehearse_cell(name: str, seed: int, traced: bool) -> dict:
                               trace=int(traced))
     found = core.any_cell(name)
     out = run_cell(args, found, device=torch.device("cpu"),
-                   rehearsal=REHEARSAL)
+                   rehearsal=rehearsal_of(found[2]))
     want = {m["name"] for m in core.metrics_of(found[0], found[1], traced)}
     if tuple(out) != KEYS:
         raise AssertionError(f"{name}: result keys {list(out)}")

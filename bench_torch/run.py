@@ -7,8 +7,8 @@ The cell names a configuration (``bench_torch/configs/<config>.json``) and
 a traffic mix (``bench_torch/traffic/<mix>.json``); the mix names the
 general generator that reads it (``bench_torch/drivers/<driver>.py``),
 which makes the cell's files from the seed, sets the program up, runs the
-window and checks what the window produced against the plain reference
-(``bench_torch/yardstick/reference.py``). With ``--trace 0`` the result
+window and checks what the window produced against the configuration's
+plain reference (the module its ``reference`` key names). With ``--trace 0`` the result
 carries the cell's end-to-end metrics, with ``--trace 1`` its per-layer
 metrics, each read by ``bench_torch/metrics/<name>.py`` from the traced
 window's record.
@@ -21,7 +21,8 @@ end-to-end metric whose source is ``device_trace`` is read by its reader
 from the device's activity, which ``--trace 0`` records without the host's
 operations. Exits
 with 2, printing no result, when torch sees no CUDA device or fewer than
-the cell asks for.
+the cell asks for; with 3, printing no result, when once the window has
+closed the process holds a module of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +33,10 @@ import sys
 import tempfile
 
 from bench_torch import core
+
+# Top-level module names the process may not hold: the port and the
+# benchmark run without JAX and without the JAX package.
+BARRED = frozenset({"jax", "jaxlib", "flax", "raweditor_tpu"})
 
 
 def parse(argv):
@@ -110,11 +115,11 @@ def run_cell(args, found, device=None, rehearsal=None, setup=None) -> dict:
 def main(argv=None) -> int:
     setup = core.Setup()
     args = parse(argv)
-    found = core.find_cell(args.workload)
-    cell = found[1]
-    core.set_cache_dirs()
+    core.set_cache_dirs()  # before the lookups import torch
     with setup.phase("import"):
+        found = core.find_cell(args.workload)
         import torch
+    cell = found[1]
 
     want = int(cell["chips"])
     if not torch.cuda.is_available() or torch.cuda.device_count() < want:
@@ -123,6 +128,10 @@ def main(argv=None) -> int:
                  " no result")
         return 2
     out = run_cell(args, found, setup=setup)
+    loaded = sorted(BARRED & {m.partition(".")[0] for m in sys.modules})
+    if loaded:
+        core.log(f"the run loaded {loaded}: no result")
+        return 3
     core.log(f"card: {core.power_limit()}")
     for name, c in out["checks"].items():
         core.log(f"check {name}: {c['value']!r} (limit {c['limit']!r})")

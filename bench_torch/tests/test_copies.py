@@ -5,6 +5,7 @@ may move on; the copy may not."""
 
 import hashlib
 import json
+import sys
 from pathlib import Path
 
 import pytest
@@ -98,9 +99,12 @@ def _strings_and_calls(path):
 def test_nothing_under_the_benchmark_loads_code_by_file_path():
     """No load of native or Python code by its path, in what a run of the
     benchmark executes (all but these tests), reaches the JAX package or
-    the program: no string names the JAX package's folder, and only
+    the program: no string names the JAX package's folder (but for
+    ``run.BARRED``, the modules a run refuses to hold), and only
     ``core.py`` loads by path, the metric readers beside it."""
     import re
+
+    from bench_torch import run
 
     jax_dir = re.compile(r"raweditor_tpu(?!_torch)\b")
     tests = ROOT / "bench_torch" / "tests"
@@ -110,7 +114,8 @@ def test_nothing_under_the_benchmark_loads_code_by_file_path():
         rel = path.relative_to(ROOT)
         strings, calls = _strings_and_calls(path)
         for s in strings:
-            assert not jax_dir.search(s), f"{rel} names {s!r}"
+            barred = rel.as_posix() == "bench_torch/run.py" and s in run.BARRED
+            assert barred or not jax_dir.search(s), f"{rel} names {s!r}"
             assert not s.endswith((".so", ".dll", ".dylib")), (
                 f"{rel} names a shared library {s!r}")
         loads = sorted(set(calls) & set(FILE_LOADERS))
@@ -118,6 +123,29 @@ def test_nothing_under_the_benchmark_loads_code_by_file_path():
             assert loads == ["spec_from_file_location"], loads
         else:
             assert not loads, f"{rel} loads code by file path: {loads}"
+
+
+@pytest.mark.parametrize("name", ["jax", "jaxlib.xla_client", "flax",
+                                  "raweditor_tpu.ops"])
+def test_a_run_that_holds_jax_prints_no_result(monkeypatch, capsys, name):
+    """A run whose process holds JAX or the JAX package once the window
+    has closed exits non-zero, names it, and prints no result."""
+    import types
+
+    import torch
+
+    from bench_torch import run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(run.core, "set_cache_dirs", lambda: None)
+    monkeypatch.setattr(run, "run_cell", lambda *a, **k: {"checks": {}})
+    monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+    rc = run.main(["--workload", "d3300_dng.export", "--seed", "1",
+                   "--seconds", "1"])
+    out = capsys.readouterr()
+    assert rc != 0 and out.out == ""
+    assert repr(name.partition(".")[0]) in out.err
 
 
 def test_the_jax_package_folder_check_sees_a_load_by_path(tmp_path):
@@ -168,6 +196,7 @@ def test_tiles_packed_ahead_give_the_copied_writer_its_file(tmp_path, shape):
     import numpy as np
     import torch
 
+    from bench_torch.containers import dng
     from bench_torch.drivers import files
     from bench_torch.yardstick import native
     from bench_torch.yardstick.raw import synth
@@ -181,10 +210,10 @@ def test_tiles_packed_ahead_give_the_copied_writer_its_file(tmp_path, shape):
     for path, frame in out:
         alone = synth.write_synthetic_raw(
             None, frame.mosaic, bpp=cfg["bits"], compression="ljpeg",
-            wb_neutral=tuple(cfg["wb_neutral"]), xyz_to_cam=files.matrix(cfg),
+            wb_neutral=tuple(cfg["wb_neutral"]), xyz_to_cam=dng.matrix(cfg),
             black_level=cfg["black_level"], white_level=cfg["white_level"],
             make=cfg["camera"]["make"], model=cfg["camera"]["model"],
-            preview_jpeg=files.PREVIEW_JPEG, cfa=cfg["cfa"],
+            preview_jpeg=dng.PREVIEW_JPEG, cfa=cfg["cfa"],
             tile_size=tuple(cfg["tile_size"]))
         with open(path, "rb") as f:
             assert f.read() == alone

@@ -20,8 +20,9 @@ CASES = [(name, fault) for name in core.folder_cells()
 def _run(cell: str, seed: int):
     args = argparse.Namespace(workload=cell, seed=seed,
                               seconds=rehearse.SECONDS, trace=0)
-    return run_cell(args, core.any_cell(cell), device=torch.device("cpu"),
-                    rehearsal=rehearse.REHEARSAL)
+    found = core.any_cell(cell)
+    return run_cell(args, found, device=torch.device("cpu"),
+                    rehearsal=rehearse.rehearsal_of(found[2]))
 
 
 @pytest.mark.parametrize("cell,fault", CASES,
