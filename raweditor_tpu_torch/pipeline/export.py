@@ -82,7 +82,8 @@ single-device route (``mesh=None``)::
   on the threads that do the work (``decode``, ``stage.pack``,
   ``upload``, ``fetch.wait``, ``fetch.copy``, ``encode``; on the calling
   thread ``export.wait_decode``, ``export.flush`` with its
-  ``export.wait_upload``, ``export.stage`` and ``export.launch``,
+  ``export.wait_upload``, ``export.stage`` and ``export.launch`` (and
+  in the launch ``export.develop``, the develop call on its route),
   ``export.wait_fetch``, ``export.hand_off``, ``export.wait_encode``,
   ``export.trim``), the queue waits ``queue.batch`` (decode end to the
   image's flush) and ``queue.encode`` (fetch end to the encode), and
@@ -602,7 +603,8 @@ class _ExportRun:
     flight and the encodes queued. Its methods are the stages the spans
     name: ``run`` (the decode window, ``export.wait_decode``), ``flush``
     (``export.flush``: ``stage_batch``, then ``develop`` under
-    ``export.launch``), ``fetch_batch`` (the fetch thread's
+    ``export.launch``, its develop call under ``export.develop``),
+    ``fetch_batch`` (the fetch thread's
     ``fetch.wait`` and ``fetch.copy``), ``drain_inflight``
     (``export.wait_fetch``), ``hand_off`` (``export.hand_off``),
     ``encode`` (an encode worker's ``encode``) and ``wait_encode``
@@ -753,7 +755,7 @@ class _ExportRun:
                               parent="export.flush"):
                     rec.count("slots.developed", len(batch))
                     rec.count("slots.unfilled", self.batch_size - len(batch))
-                    out, done = self.develop(batch, mosaics)
+                    out, done = self.develop(batch, mosaics, seq)
         except Exception as e:  # a develop or kernel failure:
             # quarantine the batch like any per-image failure instead of
             # killing a long run; never route around the kernel.
@@ -842,10 +844,11 @@ class _ExportRun:
             d.staged_nbytes for d in batch if d.staged is not None)
         return mosaics
 
-    def develop(self, batch, mosaics):
+    def develop(self, batch, mosaics, seq):
         """``export.launch``: the flush's develop on its route (module
-        docstring), the extras post-pass, the output stage and the JPEG
-        planes. Returns the output and an event recorded after it."""
+        docstring) under ``export.develop``, then the extras post-pass,
+        the output stage and the JPEG planes. Returns the output and an
+        event recorded after it."""
         kind = batch[0].kind
         params = [d.job.params for d in batch]
         wbs = np.stack([d.wb for d in batch])
@@ -880,12 +883,13 @@ class _ExportRun:
                                       ("mixer", ex_on and mixer_on),
                                       ("grading", ex_on and grading_on))
                 if on) or False
-            out = batch_develop_u16(
-                mosaics, *inputs, matrix_transpose=self.matrix_transpose,
-                cfa_phase=kind.cfa_phase, pattern=kind.xtrans_pattern,
-                transfer=transfer16_for(self.transfer),
-                demosaic_method=kind.demosaic(self.demosaic_method),
-                extras=mode16, linear=kind.linear)
+            with self.develop_span(seq):
+                out = batch_develop_u16(
+                    mosaics, *inputs, matrix_transpose=self.matrix_transpose,
+                    cfa_phase=kind.cfa_phase, pattern=kind.xtrans_pattern,
+                    transfer=transfer16_for(self.transfer),
+                    demosaic_method=kind.demosaic(self.demosaic_method),
+                    extras=mode16, linear=kind.linear)
             if shaped:
                 out = self.shape(out, "u16")
             return out, _record_event(self.device)
@@ -894,14 +898,15 @@ class _ExportRun:
         # The fused kernel where it computes the edit and the frame;
         # point curves, LinearRaw frames and the Adobe RGB transfer ride
         # the plain lane.
-        if kernel_route(self.use_kernel, kind, self.transfer,
-                        batch[0].job.params):
-            out = self.develop_kernel(kind, mosaics, inputs, (
-                "ycbcr420" if planes == "ycbcr420" and not ex_on
-                else "rgba"))
-        else:
-            out = self.develop_plain(kind, mosaics, inputs,
-                                     "rgba_words" if ex_on else planes)
+        with self.develop_span(seq):
+            if kernel_route(self.use_kernel, kind, self.transfer,
+                            batch[0].job.params):
+                out = self.develop_kernel(kind, mosaics, inputs, (
+                    "ycbcr420" if planes == "ycbcr420" and not ex_on
+                    else "rgba"))
+            else:
+                out = self.develop_plain(kind, mosaics, inputs,
+                                         "rgba_words" if ex_on else planes)
         if ex_on:
             # Extras on every route run the post-pass kernel over the
             # develop's words (its plain version for CPU tensors), every
@@ -920,6 +925,15 @@ class _ExportRun:
             out = (_jpeg.rgba_words_to_ycbcr444(out) if planes == "ycbcr444"
                    else _jpeg.rgba_words_to_ycbcr420(out))
         return out, _record_event(self.device)
+
+    def develop_span(self, seq):
+        """``export.develop``, a child of ``export.launch``: the develop
+        call alone on whichever route the flush takes (the kernel, the
+        plain lane or the 16-bit lane), without the reconstruction before
+        it or the extras post-pass and output stage after it. It encloses
+        launches, so it never enters a profiler range."""
+        return self.rec.span("export.develop", batch=seq,
+                             parent="export.launch")
 
     def reconstruct(self, kind: FrameKind, batch, mosaics, wbs, whites,
                     blacks) -> torch.Tensor:

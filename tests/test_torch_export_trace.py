@@ -28,7 +28,8 @@ EXTRAS = dict(sharpen=40.0, hue_red=20.0, grade_shadow_sat=30.0)
 WAITS = ("export.wait_decode", "export.wait_upload", "export.wait_fetch",
          "export.wait_encode")
 # The calling thread's work that launches device work: log only.
-LAUNCHING = ("export.flush", "export.stage", "export.launch")
+LAUNCHING = ("export.flush", "export.stage", "export.launch",
+             "export.develop")
 SPANS = WAITS + LAUNCHING + (
     "export.hand_off", "decode", "stage.pack", "upload", "fetch.wait",
     "fetch.copy", "encode", "queue.batch", "queue.encode")
@@ -153,9 +154,9 @@ def test_counts_are_exact_across_threads(traced):
                  "queue.batch", "encode", "queue.encode"):
         assert c[name] == n, name
     flushes = c["export.flush"]
-    for name in ("export.stage", "export.launch", "export.wait_upload",
-                 "export.wait_fetch", "fetch.wait", "fetch.copy",
-                 "export.hand_off"):
+    for name in ("export.stage", "export.launch", "export.develop",
+                 "export.wait_upload", "export.wait_fetch", "fetch.wait",
+                 "fetch.copy", "export.hand_off"):
         assert c[name] == flushes, name
     counters = rep.stages["counters"]
     batch = kw["batch_size"]
@@ -202,12 +203,20 @@ def test_log_lies_inside_the_call_on_one_clock(traced):
         on_caller = (e["name"].startswith("export.")
                      or e["name"] == "queue.batch")
         assert (e["tid"] == main) == on_caller, e
-    # Children lie inside their flush.
-    flushes = {e["batch"]: e for e in _entries(rep, "export.flush")}
-    for name in ("export.wait_upload", "export.stage", "export.launch"):
+    # Children lie inside their flush, the develop inside its launch.
+    _assert_nested(rep, "export.flush",
+                   ("export.wait_upload", "export.stage", "export.launch"))
+    _assert_nested(rep, "export.launch", ("export.develop",))
+
+
+def _assert_nested(rep, parent, children):
+    """Each ``children`` span names ``parent`` and lies inside the
+    ``parent`` span of its flush."""
+    outer = {e["batch"]: e for e in _entries(rep, parent)}
+    for name in children:
         for e in _entries(rep, name):
-            f = flushes[e["batch"]]
-            assert e["parent"] == "export.flush"
+            f = outer[e["batch"]]
+            assert e["parent"] == parent
             assert f["start_ns"] <= e["start_ns"] <= e["end_ns"] \
                 <= f["end_ns"]
 
@@ -292,3 +301,59 @@ def test_cli_trace_out_writes_a_chrome_trace(paths, tmp_path, monkeypatch,
     flush = [e for e in events if e["name"] == "export.flush"]
     assert flush and all(e["dur"] >= 0 and "batch" in e["args"]
                          for e in flush)
+
+
+def _linear_files(root, n=5, seed=9):
+    """LinearRaw DNGs (photometric 34892, (H, W, 3) u16) by the port's
+    writer."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(exist_ok=True)
+    paths = []
+    for i in range(n):
+        p = root / f"l{i}.dng"
+        synth.write_synthetic_linear_dng(
+            p, rng.integers(0, 65536, size=SHAPE + (3,), dtype=np.uint16),
+            wb_neutral=(0.5, 1.0, 0.625), uncorrelated_preview=True)
+        paths.append(str(p))
+    return paths
+
+
+# (route, files, output extension, run_batch_export keywords, the route
+# counters the call must count)
+DEVELOP_ROUTES = [
+    ("kernel", "mosaic", "jpg", dict(use_kernel=True, mode="accurate",
+                                     demosaic_method="grad"),
+     {"develop.slots.grad.planes", "develop.slots.grad.rgba"}),
+    ("plain", "mosaic", "png", dict(mode="parity"), {"develop.slots.plain"}),
+    ("linear", "linear", "jpg", dict(use_kernel=True, mode="accurate"),
+     {"develop.slots.linear"}),
+    ("16-bit", "linear", "tif", dict(mode="accurate", bits=16),
+     {"develop.slots.linear"}),
+]
+
+
+@pytest.mark.parametrize("route,files,ext,kw,counted", DEVELOP_ROUTES,
+                         ids=[r[0] for r in DEVELOP_ROUTES])
+def test_the_develop_span_nests_in_the_launch_on_every_route(
+        paths, tmp_path, route, files, ext, kw, counted):
+    """``export.develop`` times each flush's develop call inside its
+    ``export.launch`` on the kernel route, the plain lane, the LinearRaw
+    lane and the 16-bit lane, never as a profiler range (it encloses
+    launches), and the route counters still sum to the slots
+    developed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    src = paths if files == "mosaic" else _linear_files(tmp_path / "raw")
+    jobs = _jobs(src[:5], tmp_path, ext)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rep, _, _ = _run(jobs, batch_size=2, **kw)
+    assert rep.succeeded == 5 and not rep.failed
+    ranges = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert "export.develop" not in ranges and "export.wait_decode" in ranges
+    flushes = rep.timer.counts["export.flush"]
+    assert rep.timer.counts["export.develop"] == flushes == 3
+    _assert_nested(rep, "export.launch", ("export.develop",))
+    counters = rep.stages["counters"]
+    routes = {k for k in counters if k.startswith("develop.slots.")}
+    assert routes == counted
+    assert sum(counters[k] for k in routes) == counters["slots.developed"]
