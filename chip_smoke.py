@@ -116,13 +116,21 @@ just after:
   (the export catalog and two LinearRaw files, accurate grad,
   ``long_edge=2048``, ``rotate=2.0``: B4 RGBA three times, B7 RGBA once,
   B8 RGBA twice, the staging kernel once a flush that staged anything, the
-  LinearRaw frames' slots as u16 copies). Outside the counted phase B8 over the LinearRaw words
+  LinearRaw frames' slots as u16 copies, the LinearRaw kernel to words
+  twice, one launch for each LinearRaw slot). Outside the counted phase B8 over the LinearRaw words
   equals its plain version (0 LSB, both outputs), the LinearRaw develop
   and every resize and geometry form on the card are within 1 LSB of the
   CPU's, each export has its expected size, and every output of run F
   equals the engine's export byte for byte. It prints the phase's host
   times, the resize's and the geometry's device times beside the
   resize's bound, and run F's report.
+
+Before those paths it holds the LinearRaw kernel (``linear_kernel()``)
+against the plain LinearRaw lane at 24 MP and on frames around its
+thread, tile and block (words, Y, Cb and Cr equal, one launch a call),
+sweeps its quantiser table against the lane's finish over every
+f32 in [0, 1] and beyond for each transfer, and times it per 24 MP slot
+to planes and to words beside the lane and the bound.
 
 Then it holds every kernel against its plain PyTorch version (at the four
 Bayer phases and on an odd 4015x6013 frame; the extras kernel for every
@@ -450,6 +458,27 @@ def reset(launches):
         launches[k] = 0
 
 
+def _counters():
+    """The launch counts of every kernel the port launches: the develop
+    kernels', B8's, the staging kernel's and the LinearRaw kernel's."""
+    from raweditor_tpu_torch.ops import (fused_develop, fused_extras,
+                                         fused_linear, staging)
+
+    return (fused_develop.LAUNCHES, fused_extras.LAUNCHES, staging.LAUNCHES,
+            fused_linear.LAUNCHES)
+
+
+def reset_launches():
+    """Zero every kernel's launch count, before a counted phase."""
+    for counts in _counters():
+        reset(counts)
+
+
+def launch_counts():
+    """{key: launches} of every kernel launched since the last reset."""
+    return {k: v for counts in _counters() for k, v in counts.items() if v}
+
+
 def staged_flushes(rep):
     """The flushes of a ``run_batch_export`` report (a call with
     ``trace_spans=True``) that filled their batch through the staging
@@ -508,8 +537,6 @@ def file_path(tmpdir, mosaic, edit, xedit, smi):
                                      decode_raw)
     from raweditor_tpu_torch.native import get_rawkit
     from raweditor_tpu_torch.ops import fused_develop as fused
-    from raweditor_tpu_torch.ops import fused_extras as fx
-    from raweditor_tpu_torch.ops import staging as st
     from raweditor_tpu_torch.raw import raf, synth
 
     rk = get_rawkit()
@@ -584,12 +611,10 @@ def file_path(tmpdir, mosaic, edit, xedit, smi):
     def launching(want, fn, *args):
         """``fn(*args)``, which must add one launch to each key of
         ``want`` and to no other key."""
-        before = {**fused.LAUNCHES, **fx.LAUNCHES, **st.LAUNCHES}
+        before = launch_counts()
         out = fn(*args)
-        moved = {k: v - before[k] for k, v in {**fused.LAUNCHES,
-                                               **fx.LAUNCHES,
-                                               **st.LAUNCHES}.items()
-                 if v != before[k]}
+        moved = {k: v - before.get(k, 0) for k, v in launch_counts().items()
+                 if v != before.get(k, 0)}
         check(moved == {k: 1 for k in want},
               f"{fn.__name__} launched {moved}, expected one each of "
               f"{want}")
@@ -599,9 +624,7 @@ def file_path(tmpdir, mosaic, edit, xedit, smi):
                raf_path: ("nearest", "smooth", "grad")}
     out = {}
     # -- the counted path: counts reset just before, read just after ------
-    reset(fused.LAUNCHES)
-    reset(fx.LAUNCHES)
-    reset(st.LAUNCHES)
+    reset_launches()
     t0 = time.perf_counter()
     lib = Library(os.path.join(tmpdir, "catalog.db"))
     first = lib.import_folder(files)
@@ -641,8 +664,7 @@ def file_path(tmpdir, mosaic, edit, xedit, smi):
     loaded_words = launching(["develop_rgba", "extras_rgba"],
                              kept.full_rgba_device, loaded)
     torch.cuda.synchronize()
-    path_launches = {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES,
-                                       **st.LAUNCHES}.items() if v}
+    path_launches = launch_counts()
     log(f"file path: {time.perf_counter() - t0:.2f} s, launches "
         f"{path_launches}; files {sizes} bytes")
 
@@ -746,8 +768,6 @@ def batch_export(tmpdir, edit, xedit, smi, profile=False):
     from raweditor_tpu_torch import DevelopEngine, Library
     from raweditor_tpu_torch.native import get_rawkit
     from raweditor_tpu_torch.ops import fused_develop as fused
-    from raweditor_tpu_torch.ops import fused_extras as fx
-    from raweditor_tpu_torch.ops import staging as st
     from raweditor_tpu_torch.pipeline.export import (jobs_from_catalog,
                                                      run_batch_export)
     from raweditor_tpu_torch.raw import raf, synth
@@ -832,14 +852,11 @@ def batch_export(tmpdir, edit, xedit, smi, profile=False):
         jobs = jobs_from_catalog(lib, out)
         check(len(jobs) == n_ok + 1, f"run {name}: {len(jobs)} jobs")
         # -- the counted run: counts reset just before, read just after --
-        reset(fused.LAUNCHES)
-        reset(fx.LAUNCHES)
-        reset(st.LAUNCHES)
+        reset_launches()
         rep = run_batch_export(jobs, batch_size=EXPORT_BATCH, use_kernel=True,
                                quality=95, trace_spans=True, **kw)
         torch.cuda.synchronize()
-        launched[name] = {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES,
-                                            **st.LAUNCHES}.items() if v}
+        launched[name] = launch_counts()
         log(f"batch export run {name} {json.dumps(kw)}: "
             f"{json.dumps(rep.as_dict())}; develops_per_sec "
             f"{rep.develops_per_sec!r}; launches {launched[name]}; host "
@@ -899,6 +916,46 @@ def batch_export(tmpdir, edit, xedit, smi, profile=False):
 # no multiple of 16 and whose slots start off a 16-byte boundary.
 STAGING_FRAMES = {"u12": ((H, W), (37, 1002)), "u14": ((XH, XW), (7, 1004))}
 STAGING_SRC = "raweditor_tpu_torch/csrc/staging.cu"
+
+
+def table_sweep(label, lookup, plain, gammas):
+    """A table quantiser ``lookup(c, gamma)`` against the plain quantiser
+    ``plain(c, gamma)`` it was derived from, on the card, per transfer:
+    every f32 in [0, 1] in chunks, then the first 2**20 values above 1.0
+    and every 4096th pattern from there to +inf, -0.0 and the first 2**20
+    negative patterns (denormals) and every 4096th to -inf. Fails on any
+    value that differs; returns the counts and logs them."""
+    i32 = torch.int32
+    extra = torch.cat([
+        torch.arange(ONE_BITS + 1, ONE_BITS + (1 << 20), dtype=i32),
+        torch.arange(ONE_BITS + (1 << 20), 0x7F800001, 4096, dtype=i32),
+        torch.tensor([0x7F800000], dtype=i32),  # +inf
+        torch.arange(-2**31, -2**31 + (1 << 20), dtype=i32),  # -0.0, ...
+        torch.arange(-2**31 + (1 << 20), -0x00800000 + 1, 4096, dtype=i32),
+        torch.tensor([-0x00800000], dtype=i32),  # -inf
+    ]).cuda().view(torch.float32)
+    t0 = time.perf_counter()
+    sweep = {}
+    for gamma in gammas:
+        swept = bad = 0
+        for start in range(0, ONE_BITS + 1, SWEEP_CHUNK):
+            c = torch.arange(start, min(start + SWEEP_CHUNK, ONE_BITS + 1),
+                             dtype=i32, device="cuda").view(torch.float32)
+            bad += int((lookup(c, gamma) != plain(c, gamma).to(
+                torch.uint8)).sum())
+            swept += c.numel()
+        bad_x = int((lookup(extra, gamma) != plain(extra, gamma).to(
+            torch.uint8)).sum())
+        sweep[gamma] = dict(unit=swept, mismatches=bad, beyond=extra.numel(),
+                            beyond_mismatches=bad_x)
+        check(swept == ONE_BITS + 1 and bad == 0 and bad_x == 0,
+              f"{label} {gamma}: {sweep[gamma]}")
+    torch.cuda.synchronize()
+    del c, extra
+    torch.cuda.empty_cache()
+    log(f"{label} on the card ({time.perf_counter() - t0:.2f} s): "
+        f"{json.dumps(sweep)}")
+    return sweep
 
 
 def staging(smi):
@@ -990,6 +1047,156 @@ def staging(smi):
             "times": times}
 
 
+# The LinearRaw kernel (csrc/linear.cu): a thread takes eight columns of
+# two rows, a block 256 columns (32 threads) and 64 rows (four tiles of 16;
+# kLinTileW, kLinBlockH; a test holds them against the source). Frames
+# around them (RGBA: any shape; planes: even), a flush of each n, and the
+# 24 MP frame.
+LINEAR_COLS, LINEAR_TILE_W, LINEAR_BLOCK_H = 8, 256, 64
+LINEAR_EDGE = ((1, 1), (1, 9), (3, 7), (17, 8), (37, 53), (63, 255),
+               (65, 257), (64, 256), (129, 520))
+LINEAR_EDGE_EVEN = ((2, 2), (2, 10), (24, 32), (38, 54), (62, 254),
+                    (64, 256), (66, 262), (128, 512))
+LINEAR_SRC = "raweditor_tpu_torch/csrc/linear.cu"
+# f32 operations a pixel of the plain LinearRaw lane it replaces (each
+# operator's outputs counted once: the develop to words, and the 4:2:0
+# conversion), so a lower bound beside its bytes.
+LINEAR_OPS = {"rgba": 116.0, "ycbcr420": 140.0}
+# The slider sweep of the LinearRaw flushes: one edit a slot, in turn.
+LINEAR_EDITS = (dict(),
+                dict(exposure=0.37, contrast=23.0, highlights=-0.4,
+                     shadows=0.3, whites=1.05, blacks=0.04, vibrance=0.5,
+                     saturation=-15.0, temperature=0.2, tint=-0.1),
+                dict(exposure=-1.3, contrast=-50.0, saturation=60.0,
+                     vibrance=-0.3),
+                dict(exposure=2.1, highlights=0.8, shadows=-0.6, whites=0.9,
+                     blacks=-0.05, temperature=-0.4, tint=0.3))
+
+
+def linear_kernel(smi):
+    """The LinearRaw kernel (``ops/fused_linear.fused_batch_develop_linear``,
+    ``csrc/linear.cu``) against the plain lane it replaces
+    (``parallel/batch.batch_develop_linear_rgba``, planes through
+    ``ops/jpeg.rgba_words_to_ycbcr420``): seeded 16-bit frames with every
+    seventh sample 0, every eleventh 65535 and every thirteenth 100 (below
+    a black of 512.5), one edit of a slider sweep a slot, per-slot white
+    balance, matrices and levels; at 24 MP in flushes of one, three and
+    eight for both outputs and the exact transfers (gamma 2.2, sRGB), and
+    on frames around the kernel's thread, tile and block for the four
+    transfers. Words, Y, Cb and Cr equal the lane's (0 LSB); one launch a
+    call, the calls counted as each entry's ``launches``. Then the lane's
+    quantiser table (``lane_quant_table``) against the lane's transfer and
+    quantiser on every f32 in [0, 1] and beyond, per transfer. Times the
+    kernel (``launch_linear``) per 24 MP slot in a flush of eight without
+    the extreme samples (queued behind a sleeping kernel) beside the
+    lane's time for one slot and the bound (six bytes read a pixel and 1.5
+    or 4 written over 3.35 TB/s). Returns the kernels line's entries for
+    planes and words, without the main path's launch counts, which
+    ``main`` adds."""
+    from raweditor_tpu_torch import EditParams
+    from raweditor_tpu_torch.ops import fused_linear as fl
+    from raweditor_tpu_torch.ops.jpeg import rgba_words_to_ycbcr420
+    from raweditor_tpu_torch.parallel.batch import batch_develop_linear_rgba
+    from raweditor_tpu_torch.tools.kernel_ab import queued_ms
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    transfers = {g: t for g, t in fl.TRANSFER_BY_GAMMA.items()}
+    worst = {"rgba": 0, "ycbcr420": 0}
+
+    def flush(n, h, w, extreme=True):
+        f = rng.integers(0, 65536, (n, h, w, 3), dtype=np.uint16)
+        if extreme:
+            flat = f.reshape(-1)
+            flat[::7], flat[3::11], flat[5::13] = 0, 65535, 100
+        params = [EditParams(**LINEAR_EDITS[i % len(LINEAR_EDITS)])
+                  for i in range(n)]
+        levels = (np.array([65535.0, 60000.0, 4095.0, 16383.0])[np.arange(n) % 4],
+                  np.array([0.0, 512.5, 150.0, 64.0])[np.arange(n) % 4])
+        return (torch.from_numpy(f).to(dev), params,
+                rng.uniform(0.5, 2.5, (n, 3)), rng.uniform(-0.5, 1.5, (n, 3, 3)),
+                *levels)
+
+    def compare(n, h, w, gamma, outputs=("rgba", "ycbcr420")):
+        frames, *inputs = flush(n, h, w)
+        want = batch_develop_linear_rgba(frames, *inputs,
+                                         transfer=transfers[gamma])
+        for out in outputs:
+            before = fl.LAUNCHES["linear_" + out]
+            got = fl.fused_batch_develop_linear(frames, *inputs, gamma=gamma,
+                                                output=out)
+            check(fl.LAUNCHES["linear_" + out] == before + 1,
+                  "LinearRaw kernel: one launch a call")
+            if out == "rgba":
+                mx, _ = lsb_diff(got, want)
+            else:
+                y, cb, cr = rgba_words_to_ycbcr420(want)
+                mx = max(plane_diff(got[0], y)[0],
+                         plane_diff(got[1][..., 0::2], cb)[0],
+                         plane_diff(got[1][..., 1::2], cr)[0])
+            check(mx == 0, f"LinearRaw {out} {n}x{h}x{w} {gamma}: {mx} LSB "
+                  "from the lane")
+            worst[out] = max(worst[out], mx)
+        torch.cuda.synchronize()
+
+    reset(fl.LAUNCHES)
+    t0 = time.perf_counter()
+    for n in (1, 3, 8):
+        for gamma in ("pow", "srgb"):
+            compare(n, H, W, gamma)
+            torch.cuda.empty_cache()
+    n_edge = 0
+    for gamma in fl.TRANSFER_BY_GAMMA:
+        for h, w in LINEAR_EDGE:
+            compare(3, h, w, gamma, ("rgba",))
+            n_edge += 1
+        for h, w in LINEAR_EDGE_EVEN:
+            compare(3, h, w, gamma)
+            n_edge += 1
+    log(f"LinearRaw kernel against the lane: 24 MP flushes of 1, 3 and 8 "
+        f"(pow, srgb), {n_edge} edge flushes of 3 around its {LINEAR_COLS}"
+        f"-column thread, {LINEAR_TILE_W}-column tile and {LINEAR_BLOCK_H}"
+        f"-row block (four transfers): worst LSB {json.dumps(worst)}, "
+        f"launches {json.dumps(fl.LAUNCHES)} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    compared = dict(fl.LAUNCHES)
+
+    # The lane's quantiser table against the lane's finish.
+    table_sweep("LinearRaw table quantiser vs the lane's finish",
+                fl.linear_quantize, fl._lane_quantize, fl.TRANSFER_BY_GAMMA)
+
+    # Timed without the extreme samples: a sample at a black level of 0
+    # takes the division's slow path (csrc/linear.cu).
+    frames, params, *inputs = flush(8, H, W, extreme=False)
+    sc = fl.pack_linear_params(params, *inputs, device=dev)
+    one = (frames[:1], params[:1], *(a[:1] for a in inputs))
+    entries = []
+    for out, lane_out in (("ycbcr420", "ycbcr420"), ("rgba", "rgba_words")):
+        ms = [m / 8 for m in queued_ms(
+            lambda: fl.launch_linear(frames, sc, "pow", out),
+            TIMING_REPS // 2, loop=5)]
+        lane_ms = cuda_ms(lambda: batch_develop_linear_rgba(
+            *one, output=lane_out), 3)
+        out_bytes = 1.5 if out == "ycbcr420" else 4.0
+        t_bytes = H * W * (6.0 + out_bytes) / HBM_BYTES_PER_S * 1e3
+        t_ops = H * W * LINEAR_OPS[out] / F32_OPS_PER_S * 1e3
+        b_ms, b_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+        entries.append({
+            "name": "linear_" + out, "route": "cuda", "source": LINEAR_SRC,
+            "replaces": None, "max_abs_err": worst[out],
+            "ms": statistics.median(ms), "plain_ms": statistics.median(
+                lane_ms), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "frames": 1,
+            "launches": compared["linear_" + out]})
+        log(f"time linear_{out} (a 24 MP slot of a flush of 8, pow): kernel "
+            f"{entries[-1]['ms']:.4f} ms, the lane {entries[-1]['plain_ms']:.4f}"
+            f" ms, bound {b_ms:.4f} ms by {b_by} [{smi}]")
+        torch.cuda.empty_cache()
+    del frames, sc, one
+    torch.cuda.empty_cache()
+    return entries
+
+
 def session(tmpdir, smi):
     """The interactive session, the TCP server and the CLI over the files
     ``file_path()`` wrote (the 4016x6016 DNG and the 4000x6000 X-Trans
@@ -1020,8 +1227,6 @@ def session(tmpdir, smi):
 
     from raweditor_tpu_torch import DevelopEngine, EditParams, Library
     from raweditor_tpu_torch.ops import fused_develop as fused
-    from raweditor_tpu_torch.ops import fused_extras as fx
-    from raweditor_tpu_torch.ops import staging as st
     from raweditor_tpu_torch.pipeline.serve import DevelopServer
     from raweditor_tpu_torch.pipeline.session import DevelopSession
     from raweditor_tpu_torch.utils.config import Config
@@ -1045,17 +1250,13 @@ def session(tmpdir, smi):
         check(out is not None and out["ok"], f"session {line!r}: {out}")
         return out
 
-    def launched():
-        return {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES,
-                                  **st.LAUNCHES}.items() if v}
-
     def full(sess, path, src, want):
         """``full`` of ``path`` on the session's image ``src``, which must
         launch exactly ``want``; returns (path, src, the edit exported)."""
-        before = launched()
+        before = launch_counts()
         ask(sess, f"full {path}", "full_ms")
         torch.cuda.synchronize()
-        now = launched()
+        now = launch_counts()
         moved = {k: now[k] - before.get(k, 0) for k in now
                  if now[k] != before.get(k, 0)}
         check(moved == want, f"full {os.path.basename(path)} launched "
@@ -1063,9 +1264,7 @@ def session(tmpdir, smi):
         return path, src, sess.params
 
     # -- the counted phase: counts reset just before, read just after -----
-    reset(fused.LAUNCHES)
-    reset(fx.LAUNCHES)
-    reset(st.LAUNCHES)
+    reset_launches()
     t0 = time.perf_counter()
     eng, times["open_dng_first_ms"] = host_once(
         lambda: DevelopEngine.open(dng, **kw))
@@ -1163,7 +1362,7 @@ def session(tmpdir, smi):
     check(cli_launches == {fused.launch_key("ycbcr420", "grad"): 1},
           f"CLI develop launched {cli_launches}")
     torch.cuda.synchronize()
-    phase_launches = launched()
+    phase_launches = launch_counts()
     seconds = time.perf_counter() - t0
 
     # -- checks outside the counted phase ----------------------------------
@@ -1269,7 +1468,6 @@ def gamut(tmpdir, edit, xedit, smi):
     from raweditor_tpu_torch.ops import fused_develop as fused
     from raweditor_tpu_torch.ops import fused_extras as fx
     from raweditor_tpu_torch.ops import highlights as hl
-    from raweditor_tpu_torch.ops import staging as st
     from raweditor_tpu_torch.ops.develop import develop_u16, develop_xtrans
     from raweditor_tpu_torch.pipeline.export import (jobs_from_catalog,
                                                      run_batch_export)
@@ -1303,16 +1501,12 @@ def gamut(tmpdir, edit, xedit, smi):
                                                   16, 90, False, 0, 0))
     del m, noise, site, disc
 
-    def launched():
-        return {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES,
-                                  **st.LAUNCHES}.items() if v}
-
     def launching(want, fn, *args):
         """``fn(*args)``, which must add one launch to each key of
         ``want`` and to no other key."""
-        before = launched()
+        before = launch_counts()
         out = fn(*args)
-        now = launched()
+        now = launch_counts()
         moved = {k: now[k] - before.get(k, 0) for k in now
                  if now[k] != before.get(k, 0)}
         check(moved == {k: 1 for k in want}, f"{fn.__name__} launched "
@@ -1328,9 +1522,7 @@ def gamut(tmpdir, edit, xedit, smi):
 
     times, sizes = {}, {}
     # -- the counted phase: counts reset just before, read just after -----
-    reset(fused.LAUNCHES)
-    reset(fx.LAUNCHES)
-    reset(st.LAUNCHES)
+    reset_launches()
     t0 = time.perf_counter()
     # Display P3 through every develop kernel, and B8 after B4.
     eng, times["open_dng_p3_ms"] = host_once(lambda: DevelopEngine.open(
@@ -1376,19 +1568,19 @@ def gamut(tmpdir, edit, xedit, smi):
     # Adobe RGB: the plain develop lane, the profile in APP2.
     ad = DevelopEngine(raw_dng, demosaic_method="grad", color_space="adobe-rgb",
                        **acc)
-    before = launched()
+    before = launch_counts()
     ad_jpg, times["adobe_export_jpeg_ms"] = host_once(lambda: ad.export(
         os.path.join(tmpdir, "adobe.jpg"), edit))
-    check(launched() == before, f"the Adobe RGB export launched "
-          f"{ {k: v - before.get(k, 0) for k, v in launched().items()} }")
+    check(launch_counts() == before, f"the Adobe RGB export launched "
+          f"{ {k: v - before.get(k, 0) for k, v in launch_counts().items()} }")
     # 16-bit TIFF of the DNG (P3, grad) and of the RAF (grad): no kernel.
     raf_eng = DevelopEngine(raw_raf, demosaic_method="grad", **acc)
     tifs = {}
     for name, e in (("dng", eng), ("raf", raf_eng)):
-        before = launched()
+        before = launch_counts()
         tifs[name], times[f"export_tif_{name}_ms"] = host_once(
             lambda: e.export(os.path.join(tmpdir, f"{name}.tif"), edit))
-        check(launched() == before, f"export .tif of the {name} launched")
+        check(launch_counts() == before, f"export .tif of the {name} launched")
         sizes[f"{name}.tif"] = os.path.getsize(tifs[name])
     # Runs D and E over the batch exporter's catalog.
     lib = Library(os.path.join(tmpdir, "export.db"))
@@ -1418,12 +1610,12 @@ def gamut(tmpdir, edit, xedit, smi):
               "unpack_slots": 4},
         "E": {"unpack_slots": 3}}
     for name, jobs in (("D", jobs_d), ("E", jobs_e)):
-        before = launched()
+        before = launch_counts()
         rep = run_batch_export(jobs, batch_size=EXPORT_BATCH, quality=95,
                                use_kernel=True, trace_spans=True,
                                **runs[name])
         torch.cuda.synchronize()
-        moved = {k: v - before.get(k, 0) for k, v in launched().items()
+        moved = {k: v - before.get(k, 0) for k, v in launch_counts().items()
                  if v != before.get(k, 0)}
         log(f"batch export run {name} {json.dumps(runs[name])}: "
             f"{json.dumps(rep.as_dict())}; develops_per_sec "
@@ -1439,7 +1631,7 @@ def gamut(tmpdir, edit, xedit, smi):
               f"run {name}: staging counters {rep.stages['counters']}")
     lib.close()
     torch.cuda.synchronize()
-    phase_launches = launched()
+    phase_launches = launch_counts()
     # The CLI in a child process with no device pin: the card. Started
     # after the counted work so that its start-up overlaps the checks
     # below and not the phase's times.
@@ -1736,16 +1928,12 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     grad_rgba = fused.launch_key("rgba", "grad")
     xt_rgba = fused.launch_key("rgba", "grad", xtrans)
 
-    def launched():
-        return {k: v for k, v in {**fused.LAUNCHES, **fx.LAUNCHES,
-                                  **st.LAUNCHES}.items() if v}
-
     def launching(want, fn, *args, **kw):
         """``fn(*args, **kw)``, which must add one launch to each key of
         ``want`` and to no other key."""
-        before = launched()
+        before = launch_counts()
         out = fn(*args, **kw)
-        now = launched()
+        now = launch_counts()
         moved = {k: now[k] - before.get(k, 0) for k in now
                  if now[k] != before.get(k, 0)}
         check(moved == {k: 1 for k in want}, f"{fn.__name__} launched "
@@ -1754,9 +1942,7 @@ def linear_geometry(tmpdir, edit, xedit, smi):
 
     times, shapes = {}, {}
     # -- the counted phase: counts reset just before, read just after -----
-    reset(fused.LAUNCHES)
-    reset(fx.LAUNCHES)
-    reset(st.LAUNCHES)
+    reset_launches()
     t0 = time.perf_counter()
     lin, times["open_linear_ms"] = host_once(
         lambda: DevelopEngine.open(lin_path, **acc))
@@ -1819,7 +2005,7 @@ def linear_geometry(tmpdir, edit, xedit, smi):
         fills.append((tuple(out.shape), list(fmts)))
         return real_fill(out, sources, fmts)
 
-    before = launched()
+    before = launch_counts()
     st.unpack_into_batch = counted_fill
     try:
         rep = run_batch_export(jobs_f, batch_size=EXPORT_BATCH, quality=95,
@@ -1827,9 +2013,9 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     finally:
         st.unpack_into_batch = real_fill
     torch.cuda.synchronize()
-    run_launches = {k: v - before.get(k, 0) for k, v in launched().items()
+    run_launches = {k: v - before.get(k, 0) for k, v in launch_counts().items()
                     if v != before.get(k, 0)}
-    phase_launches = launched()
+    phase_launches = launch_counts()
     seconds = time.perf_counter() - t0
     log(f"batch export run F {json.dumps(run_f)}: "
         f"{json.dumps(rep.as_dict())}; develops_per_sec "
@@ -1841,7 +2027,9 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     # depends on when the budget freed (the LinearRaw frames take 145 MB
     # each), so the count is the one the run's counters give.
     f_staged = staged_flushes(rep)
-    want_f = {grad_rgba: 3, xt_rgba: 1, "extras_rgba": 2,
+    # The two LinearRaw files flush apart (one with extras), each to words
+    # for the output stage: two LinearRaw kernel launches.
+    want_f = {grad_rgba: 3, xt_rgba: 1, "extras_rgba": 2, "linear_rgba": 2,
               "unpack_slots": f_staged}
     check(run_launches == want_f and len(fills) == f_staged,
           f"run F launched {run_launches}, expected {want_f}; fills "
@@ -1853,6 +2041,10 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     check(linear_fills and all(set(f) <= {"u16", None}
                                for f in linear_fills),
           f"run F: LinearRaw fills {fills}")
+    # Both LinearRaw slots on the LinearRaw kernel (use_kernel, no curve).
+    counted = rep.stages["counters"]
+    check(counted.get("linear.kernel_slots", 0) == counted.get(
+        "develop.slots.linear", 0) == 2, f"run F: LinearRaw slots {counted}")
     log(f"run F: staging launches {f_staged} of "
         f"{rep.stages['spans']['export.stage']['count']} flushes, LinearRaw "
         f"slots copied as u16 {sum(f.count('u16') for f in linear_fills)} "
@@ -2054,6 +2246,8 @@ def main():
     lap("build")
     staging_entry = staging(smi)
     lap("staging kernel")
+    linear_entries = linear_kernel(smi)
+    lap("LinearRaw kernel")
 
     # -- inputs -----------------------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -2369,7 +2563,10 @@ def main():
         # B8 over the LinearRaw words, + run F's two extras flushes
         "extras_rgba": 1 + 2, "extras_ycbcr420": 1,
         # run F's flushes that staged (checked in the phase)
-        "unpack_slots": f_staged}
+        "unpack_slots": f_staged,
+        # run F's two LinearRaw flushes; the engine's LinearRaw develops
+        # stay on the plain lane
+        "linear_rgba": 2}
     check(lg_launches == lg_want, f"linear/geometry phase launched "
           f"{lg_launches}, expected {lg_want}")
     lap("LinearRaw, resize and geometry")
@@ -2872,40 +3069,9 @@ def main():
 
     lap("24 MP and edge frames against the plain versions")
     # The develop kernels' table quantiser (fused_quantize: the same
-    # table and lookup as their tail) against the plain quantiser on the
-    # card: every f32 in [0, 1] in chunks, then the first 2**20 values
-    # above 1.0 and every 4096th pattern from there to +inf, -0.0 and the
-    # first 2**20 negative patterns (denormals) and every 4096th to -inf.
-    i32 = torch.int32
-    extra = torch.cat([
-        torch.arange(ONE_BITS + 1, ONE_BITS + (1 << 20), dtype=i32),
-        torch.arange(ONE_BITS + (1 << 20), 0x7F800001, 4096, dtype=i32),
-        torch.tensor([0x7F800000], dtype=i32),  # +inf
-        torch.arange(-2**31, -2**31 + (1 << 20), dtype=i32),  # -0.0, ...
-        torch.arange(-2**31 + (1 << 20), -0x00800000 + 1, 4096, dtype=i32),
-        torch.tensor([-0x00800000], dtype=i32),  # -inf
-    ]).cuda().view(torch.float32)
-    t0 = time.perf_counter()
-    sweep = {}
-    for gamma in fused.GAMMAS:
-        swept = bad = 0
-        for start in range(0, ONE_BITS + 1, SWEEP_CHUNK):
-            c = torch.arange(start, min(start + SWEEP_CHUNK, ONE_BITS + 1),
-                             dtype=i32, device="cuda").view(torch.float32)
-            bad += int((fused.fused_quantize(c, gamma) != fused._quantize(
-                c, gamma).to(torch.uint8)).sum())
-            swept += c.numel()
-        bad_x = int((fused.fused_quantize(extra, gamma) != fused._quantize(
-            extra, gamma).to(torch.uint8)).sum())
-        sweep[gamma] = dict(unit=swept, mismatches=bad, beyond=extra.numel(),
-                            beyond_mismatches=bad_x)
-        check(swept == ONE_BITS + 1 and bad == 0 and bad_x == 0,
-              f"table quantiser {gamma}: {sweep[gamma]}")
-    torch.cuda.synchronize()
-    del c, extra
-    torch.cuda.empty_cache()
-    log(f"table quantiser vs plain on the card ({time.perf_counter() - t0:.2f}"
-        f" s): {json.dumps(sweep)}")
+    # table and lookup as their tail) against the plain quantiser.
+    table_sweep("table quantiser vs plain", fused.fused_quantize,
+                fused._quantize, fused.GAMMAS)
 
     lap("quantiser sweep")
     # Small inputs: the card against the same code on the CPU (which the
@@ -3154,6 +3320,15 @@ def main():
         "session_launches": session_launches.get("unpack_slots", 0),
         "gamut_launches": gamut_launches.get("unpack_slots", 0),
         "linear_geometry_launches": lg_launches.get("unpack_slots", 0)})
+    for entry in linear_entries:
+        key = entry["name"]
+        kernels.append({
+            **entry, "file_path_launches": file_launches.get(key, 0),
+            "export_launches": {run: n.get(key, 0)
+                                for run, n in export_launches.items()},
+            "session_launches": session_launches.get(key, 0),
+            "gamut_launches": gamut_launches.get(key, 0),
+            "linear_geometry_launches": lg_launches.get(key, 0)})
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
         f"build included; seconds by phase {json.dumps(phase_s)}")
     print(json.dumps({"kernels": kernels}))

@@ -111,6 +111,9 @@ def _signatures():
         "rtt_develop_cfa_launch": [ptr] * 4 + [i32] * 5 + [tables, ptr, ptr],
         "rtt_develop_grad_cfa_launch": [ptr] * 4 + [i32] * 4 + [tables, ptr,
                                                                  ptr],
+        # The LinearRaw kernel: (frames, scal, out0, out1, n, h, w, output,
+        #  quant, stream)
+        "rtt_linear_launch": [ptr] * 4 + [i32] * 4 + [ptr, ptr],
         # (packed tables): 1 where the grad launcher takes its period-6
         #  march, else 0 (not an error code)
         "rtt_develop_grad_cfa_period6": [tables],

@@ -359,51 +359,57 @@ _QUANT_DTYPE = np.dtype([("lo", "<i4"), ("n", "<i4"), ("pad", "<i4", 2),
                          ("base", "u1", QUANT_BUCKETS)])
 
 
-def quant_thresholds(gamma: str, device="cpu") -> torch.Tensor:
-    """The 255 thresholds of ``_quantize`` for ``gamma``, found by the plain
-    version itself on ``device``, as int32 bit patterns (INT_MAX where
-    ``_quantize(1.0) < k``): t_k (k = 1..255) is where ``_quantize`` steps
-    to k. A bisection over the bit patterns of [0, 1] (30 steps of 255
+def quant_thresholds(gamma: str, device="cpu",
+                     quantize=None) -> torch.Tensor:
+    """The 255 thresholds of ``quantize`` (``_quantize`` unless another
+    plain quantiser of the same form is given) for ``gamma``, found by the
+    plain version itself on ``device``, as int32 bit patterns (INT_MAX
+    where ``quantize(1.0) < k``): t_k (k = 1..255) is where it steps to k.
+    A bisection over the bit patterns of [0, 1] (30 steps of 255
     lanes) finds a value with code >= k after one below k; then t_k moves,
     within QUANT_WINDOW ulps, to the step that leaves the fewest values
-    whose code is on the wrong side of k. Where ``_quantize`` never
+    whose code is on the wrong side of k. Where the quantiser never
     decreases, t_k is the smallest f32 with code >= k."""
+    quantize = quantize or _quantize
     dev = torch.device(device)
     k = torch.arange(1, 256, dtype=torch.float32, device=dev)
     lo = torch.zeros(255, dtype=torch.int32, device=dev)  # q(lo) < k
     hi = torch.full((255,), _ONE_BITS, dtype=torch.int32, device=dev)
     for _ in range(30):  # 2**30 > _ONE_BITS: then hi - lo <= 1
         mid = lo + (hi - lo) // 2
-        ge = _quantize(mid.view(torch.float32), gamma) >= k
+        ge = quantize(mid.view(torch.float32), gamma) >= k
         hi = torch.where(ge, mid, hi)
         lo = torch.where(ge, lo, mid)
     near = torch.clamp(hi[:, None] + torch.arange(
         -QUANT_WINDOW, QUANT_WINDOW + 1, dtype=torch.int32, device=dev),
         0, _ONE_BITS)
-    up = _quantize(near.view(torch.float32), gamma) >= k[:, None]
+    up = quantize(near.view(torch.float32), gamma) >= k[:, None]
     # Values on the wrong side of a step at column i: those up before it
     # and those not up from it on.
     wrong = (torch.cumsum(up, 1) - up.long()
              + torch.flip(torch.cumsum(torch.flip(~up, (1,)), 1), (1,)))
     best = torch.gather(near, 1, torch.argmin(wrong, 1)[:, None])[:, 0]
-    top = _quantize(torch.ones(1, device=dev), gamma)
+    top = quantize(torch.ones(1, device=dev), gamma)
     return torch.where(k <= top, best, _INT_MAX)
 
 
-def quant_exceptions(gamma: str, thresholds: torch.Tensor):
-    """Where ``_quantize`` (on the thresholds' device) leaves the staircase
-    of ``thresholds``: the f32 values within QUANT_WINDOW ulps of a
-    threshold whose code is not #{k : c >= t_k}, as (int64 bit patterns,
-    their codes), on the CPU. Empty where ``_quantize`` never decreases
-    there; a transfer built on a ``pow`` that is not monotone steps down
-    and up again at a single value (chip_smoke.py sweeps the rest)."""
+def quant_exceptions(gamma: str, thresholds: torch.Tensor,
+                     quantize=None):
+    """Where ``quantize`` (``_quantize`` unless given; on the thresholds'
+    device) leaves the staircase of ``thresholds``: the f32 values within
+    QUANT_WINDOW ulps of a threshold whose code is not #{k : c >= t_k}, as
+    (int64 bit patterns, their codes), on the CPU. Empty where it never
+    decreases there; a transfer built on a ``pow`` that is not monotone
+    steps down and up again at a single value (chip_smoke.py sweeps the
+    rest)."""
+    quantize = quantize or _quantize
     t = thresholds.to(torch.int64)
     t = t[t < _INT_MAX]
     near = (t[:, None] + torch.arange(-QUANT_WINDOW, QUANT_WINDOW + 1,
                                       device=t.device)).reshape(-1).unique()
     near = near[(near >= 0) & (near <= _ONE_BITS)]
-    q = _quantize(near.to(torch.int32).view(torch.float32),
-                  gamma).to(torch.int64)
+    q = quantize(near.to(torch.int32).view(torch.float32),
+                 gamma).to(torch.int64)
     off = q != torch.searchsorted(t, near, right=True)
     return near[off].cpu(), q[off].cpu()
 
@@ -835,6 +841,14 @@ def fused_quantize(c: torch.Tensor, gamma: str = "pow") -> torch.Tensor:
     ``gamma``: on the card the kernels' table quantiser over every value (a
     check of the table, not a kernel of the develop path), on the CPU its
     plain version ``_quantize``. Returns uint8 of ``c``'s shape."""
+    return table_quantize(c, gamma, quant_table, _quantize)
+
+
+def table_quantize(c: torch.Tensor, gamma: str, table_of, plain):
+    """The u8 codes of f32 ``c`` (any shape, contiguous) under the plain
+    quantiser ``plain(c, gamma)``: on the card the table quantiser over
+    every value with the table ``table_of(gamma, device)`` derived from
+    it, on the CPU ``plain`` itself. Returns uint8 of ``c``'s shape."""
     if not isinstance(c, torch.Tensor) or c.dtype != torch.float32:
         raise TypeError("values must be a torch.float32 tensor")
     if not c.is_contiguous():
@@ -843,7 +857,7 @@ def fused_quantize(c: torch.Tensor, gamma: str = "pow") -> torch.Tensor:
         raise ValueError(f"unknown gamma {gamma!r}")
     dev = c.device
     if dev.type == "cpu":
-        return _quantize(c, gamma).to(torch.uint8)
+        return plain(c, gamma).to(torch.uint8)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if c.numel() >= 2**31:
@@ -852,7 +866,7 @@ def fused_quantize(c: torch.Tensor, gamma: str = "pow") -> torch.Tensor:
 
     lib = _build.load()
     with torch.cuda.device(dev):
-        quant = quant_table(gamma, dev)[1]
+        quant = table_of(gamma, dev)[1]
         out = torch.empty(c.shape, dtype=torch.uint8, device=dev)
         code = lib.rtt_quant_sweep_launch(
             quant.data_ptr(), c.data_ptr(), out.data_ptr(), c.numel(),

@@ -46,10 +46,14 @@ single-device route (``mesh=None``)::
   ``pallas_ok``), and its extras still run B8.
 - LinearRaw files (DNG photometric 34892, (H, W, 3) u16 frames already
   demosaiced) form buckets of their own (``FrameKind(linear=True)``, the
-  JAX ``"__linear__"`` key), stage unpacked, and develop through the
-  plain lane's ``parallel/batch.batch_develop_linear_rgba`` on either
-  route (the JAX exporter runs XLA there too); their extras take the B8
-  post-pass like any other bucket's.
+  JAX ``"__linear__"`` key) and stage unpacked. With ``use_kernel``, a
+  transfer the kernels compute and no point curve in the bucket, a flush
+  develops in one launch of the LinearRaw kernel
+  (``ops/fused_linear.fused_batch_develop_linear``), to planes or words
+  as the fused kernel above, bit for bit the plain lane's output; else
+  through the plain lane's ``parallel/batch.batch_develop_linear_rgba``
+  (the JAX exporter runs XLA there). Their extras take the B8 post-pass
+  like any other bucket's.
 - A flush with any non-zero ``highlight_recovery`` first reconstructs
   the clipped sites of its stacked mosaics
   (``ops/highlights.batch_reconstruct_mosaic``, or
@@ -99,7 +103,9 @@ single-device route (``mesh=None``)::
   ``grad.planes`` or ``cfa_grad.rgba``, or the plain lane's ``plain``
   and ``linear``; one counter a route that ran, summing to the slots
   developed; of the ``cfa_grad`` slots, those on the X-Trans grad
-  kernel's period-6 march also as ``cfa_grad.period6_slots``).
+  kernel's period-6 march also as ``cfa_grad.period6_slots``, and of
+  the ``linear`` slots, those the LinearRaw kernel developed also as
+  ``linear.kernel_slots``).
   ``ExportReport``'s seconds are reads of those spans, and
   ``report.stages`` holds them all (the CLI's one report line). The
   span log, each span with its thread, image id, flush number and
@@ -135,11 +141,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from raweditor_tpu_torch.color import (COLOR_SPACES, TRANSFER_BY_SPACE,
+from raweditor_tpu_torch.color import (COLOR_SPACES,
+                                       KERNEL_GAMMA_BY_TRANSFER,
+                                       TRANSFER_BY_SPACE,
                                        cam_to_output_matrix, encoder_for,
                                        kernel_gamma_for, transfer16_for)
 from raweditor_tpu_torch.ops import fused_develop as _fused
 from raweditor_tpu_torch.ops import fused_extras as _fx
+from raweditor_tpu_torch.ops import fused_linear as _linear
 from raweditor_tpu_torch.ops import geometry as _geometry
 from raweditor_tpu_torch.ops import jpeg as _jpeg
 from raweditor_tpu_torch.params import EditParams
@@ -895,15 +904,17 @@ class _ExportRun:
             return out, _record_event(self.device)
         planes = ("rgba_words" if shaped
                   else self.planes_for(*mosaics.shape[1:3]))
-        # The fused kernel where it computes the edit and the frame;
-        # point curves, LinearRaw frames and the Adobe RGB transfer ride
-        # the plain lane.
+        # The fused kernel where it computes the edit and the frame, and
+        # the LinearRaw kernel for LinearRaw frames; point curves and the
+        # Adobe RGB transfer ride the plain lane.
+        output = ("ycbcr420" if planes == "ycbcr420" and not ex_on
+                  else "rgba")
         with self.develop_span(seq):
             if kernel_route(self.use_kernel, kind, self.transfer,
                             batch[0].job.params):
-                out = self.develop_kernel(kind, mosaics, inputs, (
-                    "ycbcr420" if planes == "ycbcr420" and not ex_on
-                    else "rgba"))
+                out = self.develop_kernel(kind, mosaics, inputs, output)
+            elif self.linear_kernel_route(kind, batch):
+                out = self.develop_linear_kernel(mosaics, inputs, output)
             else:
                 out = self.develop_plain(kind, mosaics, inputs,
                                          "rgba_words" if ex_on else planes)
@@ -965,10 +976,32 @@ class _ExportRun:
             gamma=kernel_gamma_for(self.transfer), output=output,
             demosaic=demosaic, pattern=kind.xtrans_pattern)
 
+    def linear_kernel_route(self, kind: FrameKind, batch) -> bool:
+        """Whether a LinearRaw flush takes the LinearRaw kernel:
+        ``use_kernel``, a transfer the kernels compute and no point curve
+        in the bucket (``kernel_route``'s rule, for frames that need no
+        demosaic)."""
+        return (kind.linear and self.use_kernel
+                and self.transfer in KERNEL_GAMMA_BY_TRANSFER
+                and not any(d.job.params.point_curve for d in batch))
+
+    def develop_linear_kernel(self, mosaics, inputs, output: str):
+        """The LinearRaw kernel (``ops/fused_linear.py``) over the flush, to
+        RGBA words or 4:2:0 planes, bit for bit the plain lane's. Its
+        slots count as the lane's route, ``linear``, and again as
+        ``linear.kernel_slots``."""
+        n = len(mosaics)
+        self.route("linear", n)
+        self.rec.count("linear.kernel_slots", n)
+        return _linear.fused_batch_develop_linear(
+            mosaics, *inputs, matrix_transpose=self.matrix_transpose,
+            gamma=kernel_gamma_for(self.transfer), output=output)
+
     def develop_plain(self, kind: FrameKind, mosaics, inputs, output: str):
         """The plain lane (``parallel/batch.py``) over the flush. A
-        LinearRaw flush always takes it: no develop kernel exists for it,
-        as the JAX exporter's XLA lane."""
+        LinearRaw flush takes it without ``use_kernel``, with a point
+        curve or with a transfer the kernels do not compute, as the JAX
+        exporter's XLA lane."""
         lane = dict(matrix_transpose=self.matrix_transpose,
                     transfer=self.transfer, output=output)
         if kind.linear:

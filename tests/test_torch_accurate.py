@@ -485,10 +485,12 @@ def test_site_blacks_develop_like_jax(method, rng):
 def test_every_source_is_built():
     names = [p.name for p in _build._sources()]
     assert names == ["develop.cu", "develop_grad.cu",
-                     "develop_grad_generic.cu", "extras.cu", "staging.cu"]
+                     "develop_grad_generic.cu", "extras.cu", "linear.cu",
+                     "staging.cu"]
     header = _build.CSRC / "develop_common.cuh"
     assert header.exists()
-    # Every develop and extras kernel shares the finish tail; the staging
+    # Every develop and extras kernel shares the finish tail (the
+    # LinearRaw kernel its quantiser and store helpers); the staging
     # kernel (integer unpacking) stands alone.
     for src in names[:-1]:
         assert '#include "develop_common.cuh"' in (_build.CSRC / src).read_text()

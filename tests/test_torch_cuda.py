@@ -14,8 +14,11 @@ from raweditor_tpu_torch import DevelopEngine, EditParams, RawImage
 from raweditor_tpu_torch.ops import _build
 from raweditor_tpu_torch.ops import fused_develop as fd
 from raweditor_tpu_torch.ops import fused_extras as fx
-from raweditor_tpu_torch.ops.develop import unpack_rgba
-from raweditor_tpu_torch.parallel.batch import pack_params
+from raweditor_tpu_torch.ops import fused_linear as fl
+from raweditor_tpu_torch.ops.develop import _SLIDERS, unpack_rgba
+from raweditor_tpu_torch.ops.jpeg import rgba_words_to_ycbcr420
+from raweditor_tpu_torch.parallel.batch import (batch_develop_linear_rgba,
+                                                pack_params)
 
 pytestmark = pytest.mark.cuda
 
@@ -826,14 +829,18 @@ def test_quant_table_equals_plain_on_the_card(cuda, gamma):
     on a seeded tenth of the f32 values in [0, 1], within 4 ulp of every
     threshold, and at -0.0, negatives, denormals, values above 1 and
     +-inf (chip_smoke.py sweeps every value of [0, 1])."""
-    table, _ = fd.quant_table(gamma, cuda)
+    _table_equals_plain(cuda, gamma, fd.quant_table(gamma, cuda)[0],
+                        fd._quantize, fd.fused_quantize, 20261016)
+
+
+def _table_equals_plain(cuda, gamma, table, plain, lookup, seed):
     t = torch.from_numpy(table.next[:255, 0].astype(np.int32)).to(cuda)
     finite = t[t < 2**31 - 1]
     k = torch.arange(1, finite.numel() + 1, device=cuda)
-    q = fd._quantize(finite.view(torch.float32), gamma)
-    q_below = fd._quantize((finite - 1).view(torch.float32), gamma)
+    q = plain(finite.view(torch.float32), gamma)
+    q_below = plain((finite - 1).view(torch.float32), gamma)
     assert bool((q >= k).all()) and bool((q_below < k).all())
-    gen = torch.Generator(device=cuda).manual_seed(20261016)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     tenth = torch.randint(0, ONE_BITS + 1, (ONE_BITS // 10,), generator=gen,
                           device=cuda, dtype=torch.int32)
     near = (finite[:, None] + torch.arange(-4, 5, device=cuda,
@@ -844,8 +851,8 @@ def test_quant_table_equals_plain_on_the_card(cuda, gamma):
         device=cuda).view(torch.int32)
     for bits in (tenth, near, special):
         c = bits.view(torch.float32)
-        got = fd.fused_quantize(c, gamma)
-        want = fd._quantize(c, gamma).to(torch.uint8)
+        got = lookup(c, gamma)
+        want = plain(c, gamma).to(torch.uint8)
         torch.cuda.synchronize()
         bad = int((got != want).sum())
         assert bad == 0, f"{bad} of {c.numel()} values differ"
@@ -1377,3 +1384,181 @@ def test_batch_export_short_flushes_equal_full_ones_on_the_card(
                 rep.fetch_bytes + 13 * h * w * 2 + 13 * fd.N_SCALARS * 4
                 + 4 * fx.N_EXTRAS * 4)
     assert written[4] == written[1]
+
+
+# -- the LinearRaw kernel (csrc/linear.cu) --------------------------------------
+
+LINEAR_TRANSFERS = {g: t for g, t in fl.TRANSFER_BY_GAMMA.items()}
+LINEAR_EDITS = [EditParams(), FULL, FULL.replace(exposure=-1.3, contrast=-50.0,
+                                                 saturation=60.0),
+                EditParams(exposure=2.1, highlights=0.8, shadows=-0.6,
+                           whites=0.9, blacks=-0.05, temperature=-0.4,
+                           tint=0.3, vibrance=-0.3)]
+
+
+def _linear_flush(rng, n, h, w, dev, params=None):
+    """A flush of n seeded (h, w, 3) u16 frames with every seventh sample
+    0, every eleventh 65535 and every thirteenth 100 (below a black of
+    512.5), per-slot white balance, matrices, levels and edits: (frames,
+    the lane's inputs)."""
+    f = rng.integers(0, 65536, (n, h, w, 3), dtype=np.uint16)
+    flat = f.reshape(-1)
+    flat[::7], flat[3::11], flat[5::13] = 0, 65535, 100
+    params = params or [LINEAR_EDITS[i % len(LINEAR_EDITS)] for i in range(n)]
+    i = np.arange(n) % 4
+    inputs = (params, rng.uniform(0.5, 2.5, (n, 3)),
+              rng.uniform(-0.5, 1.5, (n, 3, 3)),
+              np.array([65535.0, 60000.0, 4095.0, 16383.0])[i],
+              np.array([0.0, 512.5, 150.0, 64.0])[i])
+    return torch.from_numpy(f).to(dev), inputs
+
+
+def _linear_against_lane(frames, inputs, gamma, output, transpose=False):
+    """Launch the kernel once over the flush and hold it to the plain lane
+    on the card: words, or Y and each of Cb and Cr, equal."""
+    key = "linear_" + output
+    before = fl.LAUNCHES[key]
+    got = fl.fused_batch_develop_linear(frames, *inputs,
+                                        matrix_transpose=transpose,
+                                        gamma=gamma, output=output)
+    assert fl.LAUNCHES[key] == before + 1
+    want = batch_develop_linear_rgba(frames, *inputs,
+                                     matrix_transpose=transpose,
+                                     transfer=LINEAR_TRANSFERS[gamma])
+    torch.cuda.synchronize()
+    n, h, w = want.shape
+    if output == "rgba":
+        assert got.dtype == torch.uint32 and got.shape == (n, h, w)
+        assert torch.equal(got, want)
+        return
+    y, cb, cr = rgba_words_to_ycbcr420(want)
+    assert got[0].shape == (n, h, w) and got[1].shape == (n, h // 2, w)
+    assert torch.equal(got[0], y)
+    assert torch.equal(got[1][..., 0::2], cb)
+    assert torch.equal(got[1][..., 1::2], cr)
+
+
+@pytest.mark.parametrize("output", ["rgba", "ycbcr420"])
+@pytest.mark.parametrize("gamma", ["pow", "srgb"])
+@pytest.mark.parametrize("n", [1, 3, 8])
+def test_linear_kernel_equals_the_lane_at_24_mp(cuda, rng, n, gamma, output):
+    """Flushes of 24 MP LinearRaw frames: words, Y, Cb and Cr equal the
+    plain lane's (the kernel sums the chroma box rows first, in the order
+    torch's sum takes on the card)."""
+    frames, inputs = _linear_flush(rng, n, 4016, 6016, cuda)
+    _linear_against_lane(frames, inputs, gamma, output)
+
+
+# Frames around the kernel's eight-column thread, 256-column tile and
+# 64-row block (csrc/linear.cu kLinTileW, kLinBlockH), odd and ragged.
+LINEAR_SHAPES = [(1, 1, 1), (3, 1, 9), (3, 3, 7), (1, 17, 8), (3, 37, 53),
+                 (2, 63, 255), (2, 65, 257), (1, 64, 256), (1, 129, 520)]
+LINEAR_SHAPES_EVEN = [(3, 2, 2), (3, 2, 10), (8, 24, 32), (3, 38, 54),
+                      (2, 62, 254), (2, 66, 262), (1, 128, 512)]
+
+
+@pytest.mark.parametrize("gamma", sorted(LINEAR_TRANSFERS))
+@pytest.mark.parametrize("shape", LINEAR_SHAPES + LINEAR_SHAPES_EVEN,
+                         ids=str)
+def test_linear_kernel_equals_the_lane_on_odd_and_ragged_frames(
+        cuda, rng, gamma, shape):
+    frames, inputs = _linear_flush(rng, *shape, cuda)
+    outputs = ["rgba"] + (["ycbcr420"] if shape in LINEAR_SHAPES_EVEN
+                          else [])
+    for output in outputs:
+        _linear_against_lane(frames, inputs, gamma, output,
+                             transpose=gamma == "srgb")
+
+
+@pytest.mark.parametrize("slider", _SLIDERS)
+def test_linear_kernel_over_a_slider_sweep(cuda, rng, slider):
+    """Eight slots, each with the slider at another value, over the
+    range an editor sends and past it."""
+    percent = (-100.0, -60.0, -7.5, 0.0, 12.0, 45.0, 80.0, 100.0)
+    vals = {"exposure": (-5.0, -2.3, -0.7, 0.0, 0.31, 1.7, 3.9, 5.0),
+            "contrast": percent, "saturation": percent}.get(
+        slider, (-1.0, -0.55, -0.2, 0.0, 0.05, 0.3, 0.75, 1.0))
+    params = [EditParams(**{slider: v}) for v in vals]
+    frames, inputs = _linear_flush(rng, 8, 38, 54, cuda, params)
+    for output in ("rgba", "ycbcr420"):
+        for gamma in ("pow", "srgb"):
+            _linear_against_lane(frames, inputs, gamma, output)
+
+
+@pytest.mark.parametrize("gamma", sorted(LINEAR_TRANSFERS))
+def test_linear_quant_table_equals_the_lanes_finish_on_the_card(cuda, gamma):
+    """The LinearRaw table, derived on the card from the lane's finish,
+    held to it as the develop kernels' table is to ``_quantize``."""
+    _table_equals_plain(cuda, gamma, fl.lane_quant_table(gamma, cuda)[0],
+                        fl._lane_quantize, fl.linear_quantize, 20261023)
+
+
+def test_linear_scalars_are_the_lanes_on_the_card(cuda):
+    """Each slot of the scalar table is the f32 value the lane computes on
+    the card, where ``x / 100.0`` multiplies by the reciprocal: against
+    the same operations on 0-d tensors, image by image."""
+    from raweditor_tpu_torch.ops.develop import _scalars, f32
+
+    params = LINEAR_EDITS + [EditParams(contrast=c, saturation=-c,
+                                        exposure=c / 37.0)
+                             for c in (1.0, 3.0, 7.0, 33.0, 99.0)]
+    n = len(params)
+    sc = fl.pack_linear_params(params, np.ones((n, 3)),
+                               np.tile(np.eye(3), (n, 1, 1)),
+                               np.full(n, 60000.0), np.full(n, 512.5),
+                               device=cuda)
+    slot = {name: i for i, name in enumerate(fl.SCALAR_SLOTS)}
+    for i, p in enumerate(params):
+        s = _scalars(p, cuda)
+        want = {"exposure": torch.exp2(s["exposure"]),
+                "contrast": 1.0 + s["contrast"] / 100.0,
+                "saturation": 1.0 + s["saturation"] / 100.0,
+                "inv_range": 1.0 / (s["whites"] - s["blacks"] + f32(0.0001)),
+                "temp_r": 1.0 + s["temperature"] * f32(0.3)}
+        for name, v in want.items():
+            assert torch.equal(sc[i, slot[name]], v), (i, name)
+
+
+def test_linear_export_launches_once_a_flush_and_equals_the_lane(
+        cuda, rng, tmp_path, monkeypatch):
+    """LinearRaw files through ``run_batch_export`` with ``use_kernel``:
+    one LinearRaw kernel launch a flush (planes, and words before B8 for
+    the flush with extras), every slot counted under
+    ``linear.kernel_slots``, and every JPEG byte-equal to the same run
+    without ``use_kernel`` (the plain lane)."""
+    from raweditor_tpu_torch.pipeline import export as pex
+    from raweditor_tpu_torch.raw import synth
+
+    monkeypatch.setattr(synth, "preview_from_mosaic", lambda *a, **k: b"")
+    paths = []
+    for i in range(5):
+        p = tmp_path / f"l{i}.dng"
+        synth.write_synthetic_linear_dng(
+            p, rng.integers(0, 65536, (40, 64, 3), dtype=np.uint16),
+            wb_neutral=(0.5, 1.0, 0.625))
+        paths.append(str(p))
+    extra = FULL.replace(**{k: getattr(EXTRA, k) for k in fx.EXTRAS_COLUMNS})
+    edits = [FULL, EditParams(), extra, FULL.replace(exposure=-0.5), FULL]
+
+    def run(tag, use_kernel):
+        jobs = [pex.ExportJob(p, str(tmp_path / f"{tag}{i}.jpg"), e)
+                for i, (p, e) in enumerate(zip(paths, edits))]
+        before = dict(fl.LAUNCHES)
+        rep = pex.run_batch_export(jobs, batch_size=2, mode="accurate",
+                                   use_kernel=use_kernel, device=cuda)
+        assert rep.succeeded == 5 and not rep.failed
+        moved = {k: v - before[k] for k, v in fl.LAUNCHES.items()}
+        return rep, moved, [open(j.out_path, "rb").read() for j in jobs]
+
+    rep, moved, kernel_files = run("k", True)
+    counters = rep.stages["counters"]
+    assert counters["linear.kernel_slots"] == counters[
+        "develop.slots.linear"] == counters["slots.developed"] == 5
+    # Bucketed by extras: two flushes of the four other images to planes,
+    # the extras image's to words for B8.
+    assert rep.timer.counts["export.flush"] == 3
+    assert moved == {"linear_ycbcr420": 2, "linear_rgba": 1}
+    rep, moved, plain_files = run("p", False)
+    assert "linear.kernel_slots" not in rep.stages["counters"]
+    assert not any(moved.values())
+    assert kernel_files == plain_files
