@@ -87,7 +87,9 @@ single-device route (``mesh=None``)::
   ``upload``, ``fetch.wait``, ``fetch.copy``, ``encode``; on the calling
   thread ``export.wait_decode``, ``export.flush`` with its
   ``export.wait_upload``, ``export.stage`` and ``export.launch`` (and
-  in the launch ``export.develop``, the develop call on its route),
+  in the launch ``export.develop``, the develop call on its route, and
+  for a shaped flush ``export.shape``, the output stage and the
+  conversion of its words to planes),
   ``export.wait_fetch``, ``export.hand_off``, ``export.wait_encode``,
   ``export.trim``), the queue waits ``queue.batch`` (decode end to the
   image's flush) and ``queue.encode`` (fetch end to the encode), and
@@ -105,7 +107,9 @@ single-device route (``mesh=None``)::
   developed; of the ``cfa_grad`` slots, those on the X-Trans grad
   kernel's period-6 march also as ``cfa_grad.period6_slots``, and of
   the ``linear`` slots, those the LinearRaw kernel developed also as
-  ``linear.kernel_slots``).
+  ``linear.kernel_slots``; of a shaped flush, its images and their
+  pixels before and after the output stage as ``shape.images``,
+  ``shape.in_pixels`` and ``shape.out_pixels``).
   ``ExportReport``'s seconds are reads of those spans, and
   ``report.stages`` holds them all (the CLI's one report line). The
   span log, each span with its thread, image id, flush number and
@@ -612,7 +616,8 @@ class _ExportRun:
     flight and the encodes queued. Its methods are the stages the spans
     name: ``run`` (the decode window, ``export.wait_decode``), ``flush``
     (``export.flush``: ``stage_batch``, then ``develop`` under
-    ``export.launch``, its develop call under ``export.develop``),
+    ``export.launch``, its develop call under ``export.develop``, a
+    shaped flush's output stage under ``export.shape``),
     ``fetch_batch`` (the fetch thread's
     ``fetch.wait`` and ``fetch.copy``), ``drain_inflight``
     (``export.wait_fetch``), ``hand_off`` (``export.hand_off``),
@@ -900,7 +905,8 @@ class _ExportRun:
                     demosaic_method=kind.demosaic(self.demosaic_method),
                     extras=mode16, linear=kind.linear)
             if shaped:
-                out = self.shape(out, "u16")
+                with self.shape_span(seq):
+                    out = self.shape(out, "u16")
             return out, _record_event(self.device)
         planes = ("rgba_words" if shaped
                   else self.planes_for(*mosaics.shape[1:3]))
@@ -930,12 +936,20 @@ class _ExportRun:
                 grading_on=grading_on, stencils=stencils,
                 output="ycbcr420" if planes == "ycbcr420" else "rgba")
         if shaped:
-            out = self.shape(out, "words")
-            planes = self.planes_for(*out.shape[1:3])
-        if planes != "rgba_words" and not isinstance(out, tuple):
-            out = (_jpeg.rgba_words_to_ycbcr444(out) if planes == "ycbcr444"
-                   else _jpeg.rgba_words_to_ycbcr420(out))
+            with self.shape_span(seq):
+                out = self.shape(out, "words")
+                out = self.jpeg_planes(out, self.planes_for(*out.shape[1:3]))
+        else:
+            out = self.jpeg_planes(out, planes)
         return out, _record_event(self.device)
+
+    def jpeg_planes(self, out, planes: str):
+        """The flush's RGBA words converted on the card to the JPEG planes
+        ``planes`` names; planes, or words that stay words, as they are."""
+        if planes == "rgba_words" or isinstance(out, tuple):
+            return out
+        return (_jpeg.rgba_words_to_ycbcr444(out) if planes == "ycbcr444"
+                else _jpeg.rgba_words_to_ycbcr420(out))
 
     def develop_span(self, seq):
         """``export.develop``, a child of ``export.launch``: the develop
@@ -1031,11 +1045,27 @@ class _ExportRun:
             return "ycbcr420"
         return "rgba_words"
 
+    def shape_span(self, seq):
+        """``export.shape``, a child of ``export.launch``: the output
+        stage of a shaped flush and, for JPEG planes, the conversion of
+        its shaped words. It encloses launches, so it never enters a
+        profiler range."""
+        return self.rec.span("export.shape", batch=seq,
+                             parent="export.launch")
+
     def shape(self, out, kind: str) -> torch.Tensor:
         """The output stage (``ops/geometry.shape_output``) of the
-        flush's images, image by image."""
-        return torch.stack([_geometry.shape_output(img, kind, *self.shaping)
-                            for img in out])
+        flush's images, image by image, counted as ``shape.images`` and
+        their pixels in and out."""
+        shaped = torch.stack([_geometry.shape_output(img, kind,
+                                                     *self.shaping)
+                              for img in out])
+        n = len(out)
+        self.rec.count("shape.images", n)
+        self.rec.count("shape.in_pixels", n * out.shape[1] * out.shape[2])
+        self.rec.count("shape.out_pixels",
+                       n * shaped.shape[1] * shaped.shape[2])
+        return shaped
 
     def fetch_batch(self, out, batch, done, seq):
         """Runs on the fetch thread: wait for the flush's event, then
