@@ -117,7 +117,9 @@ just after:
   ``long_edge=2048``, ``rotate=2.0``: B4 RGBA three times, B7 RGBA once,
   B8 RGBA twice, the staging kernel once a flush that staged anything, the
   LinearRaw frames' slots as u16 copies, the LinearRaw kernel to words
-  twice, one launch for each LinearRaw slot). Outside the counted phase B8 over the LinearRaw words
+  twice, one launch for each LinearRaw slot, the resize kernel once a
+  flush; each engine export with ``long_edge`` launches the resize kernel
+  to words once). Outside the counted phase B8 over the LinearRaw words
   equals its plain version (0 LSB, both outputs), the LinearRaw develop
   and every resize and geometry form on the card are within 1 LSB of the
   CPU's, each export has its expected size, and every output of run F
@@ -128,6 +130,10 @@ just after:
 Before those paths it holds the LinearRaw kernel (``linear_kernel()``)
 against the plain LinearRaw lane at 24 MP and on frames around its
 thread, tile and block (words, Y, Cb and Cr equal, one launch a call),
+and the banded resize kernel (``resize_kernel()``) against its plain
+version from the cell's rehearsal frame to a 45 MP image each way round
+(words and planes equal, one launch a call), timed at the web cell's
+shape beside its bound, its plain version and the dense matrix products,
 sweeps its quantiser table against the lane's finish over every
 f32 in [0, 1] and beyond for each transfer, and times it per 24 MP slot
 to planes and to words beside the lane and the bound.
@@ -460,12 +466,13 @@ def reset(launches):
 
 def _counters():
     """The launch counts of every kernel the port launches: the develop
-    kernels', B8's, the staging kernel's and the LinearRaw kernel's."""
+    kernels', B8's, the staging kernel's, the LinearRaw kernel's and the
+    resize kernel's."""
     from raweditor_tpu_torch.ops import (fused_develop, fused_extras,
-                                         fused_linear, staging)
+                                         fused_linear, fused_resize, staging)
 
     return (fused_develop.LAUNCHES, fused_extras.LAUNCHES, staging.LAUNCHES,
-            fused_linear.LAUNCHES)
+            fused_linear.LAUNCHES, fused_resize.LAUNCHES)
 
 
 def reset_launches():
@@ -1197,6 +1204,144 @@ def linear_kernel(smi):
     return entries
 
 
+RESIZE_SRC = "raweditor_tpu_torch/csrc/resize.cu"
+# (h, w, out_h, out_w) beside the cell's rehearsal frame (64x96 to
+# 16x24): odd sizes, a portrait frame (the march along the columns), an
+# upscale (the ring of 16), a kept height and a kept width; then what the
+# march does not take (``resize_taps``): 100:1 and a 5x upscale.
+RESIZE_CASES = ((397, 611, 131, 201), (397, 611, 150, 226),
+                (611, 397, 226, 150), (200, 300, 397, 611),
+                (397, 611, 397, 300), (300, 611, 120, 611),
+                (1200, 1600, 12, 16), (64, 96, 320, 480))
+RESIZE_CELL = (5464, 8192, 1366, 2048)  # r5_dng.export_web's image
+
+
+def _dense_words(words, out_w, out_h):
+    """The dense path the port used before the banded kernel: the bytes as
+    f32 planes, ``resize_hw``'s two matrix products, rounded, repacked."""
+    from raweditor_tpu_torch.ops.develop import pack_rgba, unpack_rgba
+    from raweditor_tpu_torch.ops.resize import resize_hw
+
+    planes = torch.stack([c.to(torch.float32) for c in unpack_rgba(words)],
+                         dim=-3)
+    q = torch.clamp(torch.round(resize_hw(planes, out_h, out_w)), 0, 255)
+    return pack_rgba(q[..., 0, :, :], q[..., 1, :, :], q[..., 2, :, :])
+
+
+def resize_bound(h, w, out_h, out_w, output):
+    """(ms, "bytes" or "operations") of one image: the words read once and
+    the output written once over 3.35 TB/s, or the banded passes' f32
+    operations (a multiply and an add a tap, 6·max(1, in/out) taps, three
+    channels, in the cheaper order) and the 4:2:0 conversion's over
+    67 TFLOP/s, whichever is larger."""
+    def taps(i, o):
+        return 0.0 if i == o else 6.0 * max(1.0, i / o)
+    rows = out_h * w * taps(h, out_h) + out_h * out_w * taps(w, out_w)
+    cols = h * out_w * taps(w, out_w) + out_h * out_w * taps(h, out_h)
+    ops = 6.0 * min(rows, cols) + (
+        YCBCR_OPS * out_h * out_w if output == "ycbcr420" else 0.0)
+    out_bytes = 1.5 if output == "ycbcr420" else 4.0
+    t_bytes = (h * w * 4.0 + out_h * out_w * out_bytes) / HBM_BYTES_PER_S
+    return max((t_bytes * 1e3, "bytes"), (ops / F32_OPS_PER_S * 1e3,
+                                          "operations"))
+
+
+def resize_kernel(smi):
+    """The banded resize kernel (``ops/fused_resize.resize_words``,
+    ``csrc/resize.cu``) against its plain version
+    (``resize_words_banded_plain``; planes through ``ops/jpeg.
+    rgba_words_to_ycbcr420`` on the card): seeded words (every bit, alpha
+    too) at the cell's rehearsal frame in flushes of one, three and eight,
+    at ``RESIZE_CASES`` in flushes of three, and one 45 MP image each way
+    round (the cell's, and portrait). Words, Y, Cb and Cr equal the plain
+    version's (0 LSB), one launch a call. Times the kernel on a flush of
+    eight at the cell's image (queued behind a sleeping kernel) beside its
+    bound (``resize_bound``), the plain version's time for one image and
+    the dense ``torch.matmul`` path's (``library_ms``; the port no longer
+    calls it for words). Returns the kernels line's entries for planes and
+    words, without the main path's launch counts, which ``main`` adds."""
+    from raweditor_tpu_torch.ops import fused_resize as fr
+    from raweditor_tpu_torch.ops.jpeg import rgba_words_to_ycbcr420
+    from raweditor_tpu_torch.tools.kernel_ab import queued_ms
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    worst = {"rgba": 0, "ycbcr420": 0}
+    key = {"rgba": "resize_words", "ycbcr420": "resize_ycbcr420"}
+
+    def flush(n, h, w):
+        bits = rng.integers(0, 1 << 32, (n, h, w), dtype=np.uint64)
+        return torch.from_numpy(bits.astype(np.uint32).view(np.int32)).to(
+            dev).view(torch.uint32)
+
+    def compare(words, out_h, out_w):
+        want = fr.resize_words_banded_plain(words, out_w, out_h)
+        outs = ("rgba", "ycbcr420") if out_h % 2 == out_w % 2 == 0 else (
+            "rgba",)
+        for out in outs:
+            before = fr.LAUNCHES[key[out]]
+            got = fr.resize_words(words, out_w, out_h, output=out)
+            check(fr.LAUNCHES[key[out]] == before + 1,
+                  "resize kernel: one launch a call")
+            if out == "rgba":
+                same = torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+                mx = 0 if same else max(1, lsb_diff(got, want)[0])
+            else:
+                mx = max(plane_diff(g, p)[0] for g, p in zip(
+                    got, rgba_words_to_ycbcr420(want)))
+            n, h, w = words.shape
+            check(mx == 0, f"resize {out} {n}x{h}x{w} to {out_h}x{out_w}: "
+                  f"{mx} LSB from the plain version")
+            worst[out] = max(worst[out], mx)
+        torch.cuda.synchronize()
+
+    reset(fr.LAUNCHES)
+    t0 = time.perf_counter()
+    for n in (1, 3, 8):
+        compare(flush(n, 64, 96), 16, 24)
+    for h, w, oh, ow in RESIZE_CASES:
+        compare(flush(3, h, w), oh, ow)
+    h, w, oh, ow = RESIZE_CELL
+    for shape in ((h, w, oh, ow), (w, h, ow, oh)):
+        compare(flush(1, *shape[:2]), *shape[2:])
+        torch.cuda.empty_cache()
+    log(f"resize kernel against its plain version: the rehearsal frame in "
+        f"flushes of 1, 3 and 8, {len(RESIZE_CASES)} sizes in flushes of "
+        f"3, one 45 MP image each way round: worst LSB "
+        f"{json.dumps(worst)}, launches {json.dumps(fr.LAUNCHES)} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    compared = dict(fr.LAUNCHES)
+
+    words = flush(8, h, w)
+    one = words[:1]
+    entries = []
+    for out in ("ycbcr420", "rgba"):
+        ms = [m / 8 for m in queued_ms(
+            lambda: fr.resize_words(words, ow, oh, output=out),
+            TIMING_REPS // 2, loop=5)]
+        plain_ms = cuda_ms(lambda: fr.resize_words_banded_plain(
+            one, ow, oh), 3)
+        b_ms, b_by = resize_bound(h, w, oh, ow, out)
+        entries.append({
+            "name": key[out], "route": "cuda", "source": RESIZE_SRC,
+            "replaces": None, "max_abs_err": worst[out],
+            "ms": statistics.median(ms),
+            "plain_ms": statistics.median(plain_ms), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": statistics.median(cuda_ms(
+                lambda: _dense_words(one, ow, oh), 3)), "frames": 1,
+            "launches": compared[key[out]]})
+        e = entries[-1]
+        log(f"time {key[out]} (a {h}x{w} image of a flush of 8 to "
+            f"{oh}x{ow}): kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f}"
+            f" ms, dense torch.matmul path {e['library_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by} [{smi}]")
+        torch.cuda.empty_cache()
+    del words, one
+    torch.cuda.empty_cache()
+    return entries
+
+
 def session(tmpdir, smi):
     """The interactive session, the TCP server and the CLI over the files
     ``file_path()`` wrote (the 4016x6016 DNG and the 4000x6000 X-Trans
@@ -1847,7 +1992,8 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     f32); their device times by CUDA events; each JPEG's size from its
     SOF; every output of run F byte-equal to the engine's export of the
     same job. Returns (the phase's launches, the largest LSB of each
-    kernel from its plain version, run F's staging launches)."""
+    kernel from its plain version, run F's staging launches, run F's
+    resize launches by output)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from raweditor_tpu_torch import DevelopEngine, Library
@@ -1974,13 +2120,16 @@ def linear_geometry(tmpdir, edit, xedit, smi):
                                          **acc),
                "linear": lin}
     want_key = {"dng": [grad_rgba], "raf": [xt_rgba], "linear": []}
+    # The engine's long-edge export resizes its words on the card.
+    resized = {"long_edge": ["resize_words"]}
     tiers = {}
     for src, e in engines.items():
         for case, kw in geo_cases.items():
             name = f"{src}_{case}.jpg"
             outs[name], times[f"{src}_{case}_export_jpeg_ms"] = host_once(
-                lambda: launching(want_key[src], e.export,
-                                  os.path.join(tmpdir, name), edit, **kw))
+                lambda: launching(want_key[src] + resized.get(case, []),
+                                  e.export, os.path.join(tmpdir, name), edit,
+                                  **kw))
             h, w = e.height, e.width
             if "long_edge" in kw:
                 shapes[name] = resize.long_edge_shape(h, w, LONG_EDGE)
@@ -2028,7 +2177,18 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     # each), so the count is the one the run's counters give.
     f_staged = staged_flushes(rep)
     # The two LinearRaw files flush apart (one with extras), each to words
-    # for the output stage: two LinearRaw kernel launches.
+    # for the output stage: two LinearRaw kernel launches. Every flush is
+    # shaped: one resize launch each, to planes where its output is even.
+    counted = rep.stages["counters"]
+    shaped = rep.timer.counts["export.shape"]
+    f_resizes = {k: run_launches.pop(k) for k in ("resize_words",
+                                                   "resize_ycbcr420")
+                 if k in run_launches}
+    resizes = sum(f_resizes.values())
+    check(resizes == shaped and counted["resize.kernel_images"]
+          == counted["shape.images"] == counted["slots.developed"],
+          f"run F: {resizes} resize launches for {shaped} shaped flushes; "
+          f"counters {counted}")
     want_f = {grad_rgba: 3, xt_rgba: 1, "extras_rgba": 2, "linear_rgba": 2,
               "unpack_slots": f_staged}
     check(run_launches == want_f and len(fills) == f_staged,
@@ -2042,7 +2202,6 @@ def linear_geometry(tmpdir, edit, xedit, smi):
                                for f in linear_fills),
           f"run F: LinearRaw fills {fills}")
     # Both LinearRaw slots on the LinearRaw kernel (use_kernel, no curve).
-    counted = rep.stages["counters"]
     check(counted.get("linear.kernel_slots", 0) == counted.get(
         "develop.slots.linear", 0) == 2, f"run F: LinearRaw slots {counted}")
     log(f"run F: staging launches {f_staged} of "
@@ -2100,7 +2259,7 @@ def linear_geometry(tmpdir, edit, xedit, smi):
     # over the fetched words, and their device times.
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
-          "the resize's matrix products would run in TF32")
+          "resize_rgb16's matrix products would run in TF32")
     words = engines["dng"].full_rgba_device(edit)
     host = words.cpu()
     oh, ow = resize.long_edge_shape(H, W, LONG_EDGE)
@@ -2129,14 +2288,8 @@ def linear_geometry(tmpdir, edit, xedit, smi):
         d = (a - b).abs()
         card_cpu[name] = (int(d.max()), float((d > 0).float().mean()))
         check(card_cpu[name][0] <= 1, f"{name}: card vs CPU {card_cpu[name]}")
-    # Bounds of the resize: the two contractions' f32 operations (the
-    # order resize_hw runs them), and each input read and output written.
-    h_first = H * W * oh + oh * W * ow
-    w_first = H * W * ow + H * ow * oh
-    ops = 2.0 * 3 * min(h_first, w_first)
-    bytes_ = H * W * 4 + oh * ow * 4
-    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    # The banded resize's bound to words.
+    bound_ms, bound_by = resize_bound(H, W, oh, ow, "rgba")
     log(f"linear/geometry phase: B8 over LinearRaw words 0 LSB from plain "
         f"(RGBA and planes); device ms (CUDA events, median of 5) of B8 RGBA "
         f"and of the LinearRaw plain develop {json.dumps(b8_ms)}; host ms "
@@ -2145,9 +2298,8 @@ def linear_geometry(tmpdir, edit, xedit, smi):
         f" develop card vs CPU over the {ch}x{cw} crop (max LSB, differing "
         f"share) {lin_lsb}; card vs CPU on the 24 MP words "
         f"{json.dumps(card_cpu)}; device ms (CUDA events, median of 5) "
-        f"{json.dumps(dev_ms)}; resize bound {max(t_ops, t_bytes):.4f} ms by "
-        f"{bound_by} ({ops / 1e9:.1f} GFLOP f32, {bytes_ / 1e6:.1f} MB) "
-        f"[{smi}]")
+        f"{json.dumps(dev_ms)}; resize bound {bound_ms:.4f} ms by "
+        f"{bound_by} [{smi}]")
     # Each output's size.
     for name, path in outs.items():
         if name.endswith(".jpg"):
@@ -2198,7 +2350,7 @@ def linear_geometry(tmpdir, edit, xedit, smi):
         f"({size_mb:.1f} MB each); {seconds:.2f} s counted; launches "
         f"{phase_launches}; times (host clock, one call each, device synced)"
         f" {json.dumps(times)} [{smi}]")
-    return phase_launches, errs, f_staged
+    return phase_launches, errs, f_staged, f_resizes
 
 
 def main():
@@ -2248,6 +2400,8 @@ def main():
     lap("staging kernel")
     linear_entries = linear_kernel(smi)
     lap("LinearRaw kernel")
+    resize_entries = resize_kernel(smi)
+    lap("resize kernel")
 
     # -- inputs -----------------------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -2555,8 +2709,8 @@ def main():
     lap("wide gamut, recovery and 16-bit")
 
     # -- LinearRaw, resize and geometry (counts reset and read inside) -----
-    lg_launches, lg_errs, f_staged = linear_geometry(tmpdir, edit, xedit,
-                                                     smi)
+    lg_launches, lg_errs, f_staged, f_resizes = linear_geometry(
+        tmpdir, edit, xedit, smi)
     lg_want = {
         # the DNG's and the RAF's five geometry exports, + run F's flushes
         grad: 5 + 3, fused.launch_key("rgba", "grad", xtrans): 5 + 1,
@@ -2566,7 +2720,12 @@ def main():
         "unpack_slots": f_staged,
         # run F's two LinearRaw flushes; the engine's LinearRaw develops
         # stay on the plain lane
-        "linear_rgba": 2}
+        "linear_rgba": 2,
+        # the three engines' long-edge exports, to words
+        "resize_words": 3}
+    # + run F's shaped flushes, one resize launch each (checked in the phase)
+    for key, n in f_resizes.items():
+        lg_want[key] = lg_want.get(key, 0) + n
     check(lg_launches == lg_want, f"linear/geometry phase launched "
           f"{lg_launches}, expected {lg_want}")
     lap("LinearRaw, resize and geometry")
@@ -3320,7 +3479,7 @@ def main():
         "session_launches": session_launches.get("unpack_slots", 0),
         "gamut_launches": gamut_launches.get("unpack_slots", 0),
         "linear_geometry_launches": lg_launches.get("unpack_slots", 0)})
-    for entry in linear_entries:
+    for entry in linear_entries + resize_entries:
         key = entry["name"]
         kernels.append({
             **entry, "file_path_launches": file_launches.get(key, 0),

@@ -122,6 +122,10 @@ def _signatures():
         # (words, table, out0, out1, n, h, w, mixer_on, grading_on,
         #  stencils, output, cy, cx, icy, icx, stream)
         "rtt_extras_launch": [ptr] * 4 + [i32] * 7 + [f32] * 4 + [ptr],
+        # The resize: (words, itab, ftab, out0, out1, out2, n, h, w, out_h,
+        #  out_w, transposed, tm, tc, nstrips, strip_max, ring, output,
+        #  smem_bytes, stream); the tables from fused_resize.kernel_plan
+        "rtt_resize_launch": [ptr] * 6 + [i32] * 13 + [ptr],
         # (srcs, dsts, fmts: host arrays of the slots' source pointers,
         #  slot pointers and formats, nslots, samples a slot, stream)
         "rtt_unpack_slots_launch": [ptr] * 3 + [i32, i64, ptr],

@@ -14,10 +14,13 @@ contractions are matrix products, which must not run in TF32 on a card
 (``torch.backends.cuda.matmul.allow_tf32`` False, the default, and
 ``torch.get_float32_matmul_precision() == "highest"``).
 
-``resize_rgb``, ``resize_rgba_words`` and ``resize_rgb16`` round half to
-even (``torch.round``, JAX's ``jnp.round``), unlike the geometry stage's
-``floor(x + 0.5)``. The weight matrices are cached per size, method and
-device.
+``resize_rgb`` and ``resize_rgb16`` run ``resize_hw``; packed RGBA words
+(``resize_rgba_words``, the exporters' ``long_edge``) go through the
+band of each matrix instead (``ops/fused_resize.py``: a kernel on the
+card, a plain version on the CPU), which sums the same nonzero terms in
+ascending input order. All round half to even (``torch.round``, JAX's
+``jnp.round``), unlike the geometry stage's ``floor(x + 0.5)``. The weight
+matrices are cached per size, method and device.
 """
 
 from __future__ import annotations
@@ -29,8 +32,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from raweditor_tpu_torch.ops.develop import (_to_u16, f32, pack_rgba,
-                                             u16_to_f32, unpack_rgba)
+from raweditor_tpu_torch.ops.develop import _to_u16, f32, u16_to_f32
 
 _F32 = torch.float32
 _EPS = float(np.finfo(np.float32).eps)
@@ -101,6 +103,14 @@ def weight_matrix(in_size: int, out_size: int, method: str = "lanczos3",
                                  str(torch.device(device or "cpu")))
 
 
+def rows_first(h: int, w: int, out_h: int, out_w: int) -> bool:
+    """Whether a resize that changes both axes contracts the rows (the
+    height) first: the order with fewer operations, as JAX's ``einsum``
+    picks it (ties to the rows)."""
+    return h * w * out_h + out_h * w * out_w <= (h * w * out_w
+                                                  + h * out_w * out_h)
+
+
 def resize_hw(x: torch.Tensor, out_h: int, out_w: int,
               method: str = "lanczos3") -> torch.Tensor:
     """Resize the last two axes of an f32 tensor (..., H, W) to
@@ -119,9 +129,7 @@ def resize_hw(x: torch.Tensor, out_h: int, out_w: int,
         return torch.matmul(t, weight_matrix(w, out_w, method, dev))
 
     if do_h and do_w:
-        h_first = h * w * out_h + out_h * w * out_w
-        w_first = h * w * out_w + h * out_w * out_h
-        if h_first <= w_first:
+        if rows_first(h, w, out_h, out_w):
             return along_w(along_h(x))
         return along_h(along_w(x))
     if do_h:
@@ -160,13 +168,14 @@ def develop_tiers(img_u8: torch.Tensor,
 
 def resize_rgba_words(words: torch.Tensor, out_w: int, out_h: int,
                       method: str = "lanczos3") -> torch.Tensor:
-    """Packed RGBA words (..., H, W) u32 to (..., out_h, out_w) u32: the
-    R, G, B bytes resized as f32 planes, rounded half to even, clamped
-    and repacked with opaque alpha."""
-    planes = torch.stack([c.to(_F32) for c in unpack_rgba(words)], dim=-3)
-    y = resize_hw(planes, out_h, out_w, method)
-    q = torch.clamp(torch.round(y), 0, 255)
-    return pack_rgba(q[..., 0, :, :], q[..., 1, :, :], q[..., 2, :, :])
+    """Packed RGBA words (H, W) or (N, H, W) u32, strided or not, to
+    (..., out_h, out_w) u32: the banded resize of ``ops/fused_resize.py``
+    (``resize_words``: its kernel for CUDA words, its plain version for
+    CPU words), within 1 LSB of ``resize_hw`` over the R, G, B bytes,
+    rounded half to even, clamped and repacked with opaque alpha."""
+    from raweditor_tpu_torch.ops import fused_resize
+
+    return fused_resize.resize_words(words.contiguous(), out_w, out_h, method)
 
 
 def resize_rgb16(img_u16: torch.Tensor, out_w: int, out_h: int,

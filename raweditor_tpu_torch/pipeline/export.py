@@ -62,10 +62,13 @@ single-device route (``mesh=None``)::
 - ``rotate``, ``crop``, ``lens`` and ``perspective`` (the same geometry
   for every image, ``ops/geometry.py``) and a ``long_edge`` below a
   bucket's longer side (``ops/resize.py``) force RGBA words out of the
-  develop (and out of B8); each image is then shaped on the card with
-  ``ops/geometry.shape_output`` (geometry, then resize; the
-  16-bit frames too), and an all-JPEG run converts the shaped words to
-  YCbCr planes on the card, so every file equals the engine's export.
+  develop (and out of B8); the geometry then shapes each image on the
+  card, and one banded resize shapes the flush
+  (``ops/fused_resize.py``: a kernel on the card, which hands an
+  all-JPEG run's even output straight to 4:2:0 planes; 16-bit frames
+  take ``ops/geometry.shape_output`` image by image), and an all-JPEG
+  run converts any shaped words to YCbCr planes on the card, so every
+  file equals the engine's export.
 - ``color_space`` "display-p3" or "adobe-rgb" (accurate mode) develops
   into the wide space with its mandated transfer
   (``color.cam_to_output_matrix``) and every encoder embeds its ICC
@@ -109,7 +112,8 @@ single-device route (``mesh=None``)::
   the ``linear`` slots, those the LinearRaw kernel developed also as
   ``linear.kernel_slots``; of a shaped flush, its images and their
   pixels before and after the output stage as ``shape.images``,
-  ``shape.in_pixels`` and ``shape.out_pixels``).
+  ``shape.in_pixels`` and ``shape.out_pixels``, and the images the
+  resize kernel resized as ``resize.kernel_images``).
   ``ExportReport``'s seconds are reads of those spans, and
   ``report.stages`` holds them all (the CLI's one report line). The
   span log, each span with its thread, image id, flush number and
@@ -153,8 +157,10 @@ from raweditor_tpu_torch.color import (COLOR_SPACES,
 from raweditor_tpu_torch.ops import fused_develop as _fused
 from raweditor_tpu_torch.ops import fused_extras as _fx
 from raweditor_tpu_torch.ops import fused_linear as _linear
+from raweditor_tpu_torch.ops import fused_resize as _fused_resize
 from raweditor_tpu_torch.ops import geometry as _geometry
 from raweditor_tpu_torch.ops import jpeg as _jpeg
+from raweditor_tpu_torch.ops import resize as _resize
 from raweditor_tpu_torch.params import EditParams
 from raweditor_tpu_torch.parallel.batch import (
     batch_develop_linear_rgba,
@@ -938,7 +944,6 @@ class _ExportRun:
         if shaped:
             with self.shape_span(seq):
                 out = self.shape(out, "words")
-                out = self.jpeg_planes(out, self.planes_for(*out.shape[1:3]))
         else:
             out = self.jpeg_planes(out, planes)
         return out, _record_event(self.device)
@@ -1053,19 +1058,39 @@ class _ExportRun:
         return self.rec.span("export.shape", batch=seq,
                              parent="export.launch")
 
-    def shape(self, out, kind: str) -> torch.Tensor:
-        """The output stage (``ops/geometry.shape_output``) of the
-        flush's images, image by image, counted as ``shape.images`` and
-        their pixels in and out."""
-        shaped = torch.stack([_geometry.shape_output(img, kind,
-                                                     *self.shaping)
-                              for img in out])
-        n = len(out)
+    def shape(self, out, kind: str):
+        """The output stage of the flush's images, counted as
+        ``shape.images`` and their pixels in and out. 16-bit frames take
+        ``ops/geometry.shape_output`` image by image. Words take the
+        geometry image by image, then one resize of the flush
+        (``ops/fused_resize.resize_words``; the images its kernel resized
+        counted as ``resize.kernel_images``), and leave as ``planes_for``
+        says: the kernel's 4:2:0 planes straight from the resize where
+        that is what they leave as."""
+        n, h, w = out.shape[:3]
+        if kind == "u16":
+            out = torch.stack([_geometry.shape_output(img, kind,
+                                                      *self.shaping)
+                               for img in out])
+            oh, ow = out.shape[1:3]
+        else:
+            long_edge, rotate, crop, lens, perspective = self.shaping
+            out = _geometry.rotate_crop_rgba_words_batch(
+                out, float(rotate), crop, lens=lens, perspective=perspective)
+            gh, gw = out.shape[1:3]
+            oh, ow = _resize.long_edge_shape(gh, gw, long_edge or 0)
+            planes = self.planes_for(oh, ow)
+            if (oh, ow) != (gh, gw):
+                out = _fused_resize.resize_words(
+                    out, ow, oh, output=("ycbcr420" if planes == "ycbcr420"
+                                         else "rgba"))
+                if self.cuda:
+                    self.rec.count("resize.kernel_images", n)
+            out = self.jpeg_planes(out, planes)
         self.rec.count("shape.images", n)
-        self.rec.count("shape.in_pixels", n * out.shape[1] * out.shape[2])
-        self.rec.count("shape.out_pixels",
-                       n * shaped.shape[1] * shaped.shape[2])
-        return shaped
+        self.rec.count("shape.in_pixels", n * h * w)
+        self.rec.count("shape.out_pixels", n * oh * ow)
+        return out
 
     def fetch_batch(self, out, batch, done, seq):
         """Runs on the fetch thread: wait for the flush's event, then

@@ -486,15 +486,16 @@ def test_every_source_is_built():
     names = [p.name for p in _build._sources()]
     assert names == ["develop.cu", "develop_grad.cu",
                      "develop_grad_generic.cu", "extras.cu", "linear.cu",
-                     "staging.cu"]
+                     "resize.cu", "staging.cu"]
     header = _build.CSRC / "develop_common.cuh"
     assert header.exists()
     # Every develop and extras kernel shares the finish tail (the
-    # LinearRaw kernel its quantiser and store helpers); the staging
-    # kernel (integer unpacking) stands alone.
-    for src in names[:-1]:
+    # LinearRaw kernel its quantiser and store helpers); the resize
+    # kernel and the staging kernel (integer unpacking) stand alone.
+    for src in names[:-2]:
         assert '#include "develop_common.cuh"' in (_build.CSRC / src).read_text()
-    assert '#include "' not in (_build.CSRC / "staging.cu").read_text()
+    for src in ("resize.cu", "staging.cu"):
+        assert '#include "' not in (_build.CSRC / src).read_text()
     # The generic-CFA kernels share their tables, the grad kernels their
     # stages, and every band kernel the warp march.
     for src, shared in (("develop.cu", "cfa_tables.cuh"),

@@ -1048,6 +1048,150 @@ def test_resize_and_geometry_on_the_card_within_1_lsb_of_the_cpu(cuda, rng):
         assert int(d.abs().max()) <= 1
 
 
+# -- the banded resize kernel ----------------------------------------------------
+
+def _any_words(rng, *shape):
+    """Seeded packed RGBA words, every bit random (alpha too)."""
+    bits = rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(bits.view(np.int32)).view(torch.uint32)
+
+
+def _resize_equals_plain(words, out_h, out_w):
+    """The kernel's words, and for an even output its planes, bit for bit
+    the plain banded version's on the same card, one launch a call."""
+    from raweditor_tpu_torch.ops import fused_resize as fr
+
+    want = fr.resize_words_banded_plain(words, out_w, out_h)
+    outputs = ["rgba"] + (["ycbcr420"] if out_h % 2 == out_w % 2 == 0
+                          else [])
+    for output in outputs:
+        before = dict(fr.LAUNCHES)
+        got = fr.resize_words(words, out_w, out_h, output=output)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in fr.LAUNCHES.items()
+                 if v != before[k]}
+        assert moved == {fr._LAUNCH_KEY[output]: 1}
+        if output == "rgba":
+            assert got.shape == want.shape
+            assert torch.equal(got.view(torch.int32).cpu(),
+                               want.view(torch.int32).cpu())
+        else:
+            for g, p in zip(got, rgba_words_to_ycbcr420(want)):
+                assert g.shape == p.shape and torch.equal(g.cpu(), p.cpu())
+
+
+@pytest.mark.parametrize("n", [1, 3, 8])
+@pytest.mark.parametrize("size", [
+    (64, 96, 16, 24), (397, 611, 131, 201), (397, 611, 150, 226),
+    (611, 397, 226, 150), (200, 300, 397, 611), (397, 611, 397, 300),
+    (300, 611, 120, 611)], ids=str)
+def test_resize_kernel_equals_plain(cuda, rng, size, n):
+    """The cell's rehearsal (64x96 to 16x24), odd sizes, a portrait frame
+    (the march along the columns), an upscale (the ring of 16) and each
+    axis kept, in flushes of 1, 3 and 8: words and planes bit for bit the
+    plain version's, one launch a flush."""
+    h, w, oh, ow = size
+    _resize_equals_plain(_any_words(rng, n, h, w).to(cuda), oh, ow)
+
+
+@pytest.mark.parametrize("size", [(5464, 8192, 1366, 2048),
+                                  (8192, 5464, 2048, 1366)], ids=str)
+def test_resize_kernel_equals_plain_at_45_mp(cuda, rng, size):
+    """One 45 MP image to a 2048 long edge, landscape (the cell's) and
+    portrait."""
+    h, w, oh, ow = size
+    _resize_equals_plain(_any_words(rng, 1, h, w).to(cuda), oh, ow)
+    torch.cuda.empty_cache()
+
+
+def test_resize_kernel_refuses_what_it_does_not_take(cuda, rng):
+    from raweditor_tpu_torch.ops import fused_resize as fr
+
+    words = _any_words(rng, 2, 64, 96)
+    before = dict(fr.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        fr.launch_resize(words, 24, 16)
+    with pytest.raises(TypeError, match="uint32"):
+        fr.resize_words(words.view(torch.int32).to(cuda), 24, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fr.resize_words(words.to(cuda).transpose(1, 2), 16, 24)
+    with pytest.raises(ValueError, match="even"):
+        fr.resize_words(words.to(cuda), 24, 15, output="ycbcr420")
+    assert fr.LAUNCHES == before
+
+
+@pytest.mark.parametrize("size, n", [
+    ((1200, 1600, 12, 16), 3), ((1100, 1600, 11, 16), 2),
+    ((1600, 1200, 16, 12), 3), ((64, 96, 320, 480), 3),
+    ((5464, 8192, 44, 64), 1), ((8192, 5464, 43, 64), 1)], ids=str)
+def test_resize_taps_equals_plain(cuda, rng, size, n):
+    """What the march does not take runs ``resize_taps``: 100:1, odd
+    outputs, a portrait frame, a 5x upscale and a 45 MP frame to a 64
+    long edge (about 128:1), words and planes bit for bit the plain
+    version's, one launch a flush."""
+    from raweditor_tpu_torch.ops import fused_resize as fr
+
+    h, w, oh, ow = size
+    assert fr.kernel_plan(h, w, oh, ow, device=cuda).ring == 0
+    _resize_equals_plain(_any_words(rng, n, h, w).to(cuda), oh, ow)
+    torch.cuda.empty_cache()
+
+
+def test_shape_output_of_a_pure_crop_on_the_card(cuda, rng):
+    """A crop without rotation is a strided view of the frame; the
+    engine's output stage resizes it on the card as the plain version
+    resizes its copy, and within 1 LSB of the CPU."""
+    from raweditor_tpu_torch.ops import fused_resize as fr
+    from raweditor_tpu_torch.ops import geometry
+
+    words = _any_words(rng, 400, 600)
+    crop = (37, 21, 501, 333)
+    for long_edge in (128, 6):
+        got = geometry.shape_output(words.to(cuda), "words", long_edge, 0.0,
+                                    crop)
+        view = words.to(cuda)[21:354, 37:538]
+        want = fr.resize_words_banded_plain(view, *got.shape[::-1])
+        assert torch.equal(got.view(torch.int32).cpu(),
+                           want.view(torch.int32).cpu())
+        cpu = geometry.shape_output(words, "words", long_edge, 0.0, crop)
+        assert _words_diff(got, cpu) <= 1
+
+
+def test_shaped_export_resizes_once_a_flush_on_the_card(cuda, rng, tmp_path):
+    """A web export on the card: one resize launch a shaped flush, to
+    planes for an all-JPEG even output, ``resize.kernel_images`` equal to
+    ``shape.images``, and each JPEG byte-equal to the engine's export."""
+    from raweditor_tpu_torch.ops import fused_resize as fr
+    from raweditor_tpu_torch.pipeline import export as pex
+    from raweditor_tpu_torch.raw import synth
+
+    jobs = []
+    for i in range(5):
+        path = tmp_path / f"w{i}.dng"
+        synth.write_synthetic_raw(
+            path, rng.integers(0, 4096, size=(64, 96), dtype=np.uint16),
+            xyz_to_cam=REAL, black_level=150, white_level=4095,
+            preview_jpeg=b"")
+        jobs.append(pex.ExportJob(str(path), str(tmp_path / f"w{i}.jpg"),
+                                  FULL.replace(exposure=0.2 * i)))
+    before = dict(fr.LAUNCHES)
+    rep = pex.run_batch_export(jobs, batch_size=2, mode="accurate",
+                               demosaic_method="grad", use_kernel=True,
+                               long_edge=24, device=cuda)
+    assert rep.succeeded == 5 and not rep.failed
+    counters = rep.stages["counters"]
+    assert counters["resize.kernel_images"] == counters["shape.images"] == 5
+    flushes = rep.timer.counts["export.flush"]
+    assert {k: v - before[k] for k, v in fr.LAUNCHES.items()
+            if v != before[k]} == {"resize_ycbcr420": flushes}
+    for job in jobs:
+        eng = DevelopEngine.open(job.raw_path, "accurate", use_kernel=True,
+                                 demosaic_method="grad")
+        path = eng.export(tmp_path / "engine.jpg", job.params, long_edge=24)
+        with open(path, "rb") as f, open(job.out_path, "rb") as g:
+            assert f.read() == g.read()
+
+
 def test_linear_frame_stages_unpacked_and_bit_exact(cuda, rng, tmp_path):
     from concurrent.futures import ThreadPoolExecutor
 
